@@ -35,6 +35,7 @@ import yaml
 
 from ..cvlibs.config import build_model
 from ..utils import get_image_list, logger, strtobool
+from ..utils.utils import resolve_device
 
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -73,17 +74,6 @@ def parse_args(argv=None):
         "--use_swl", type=strtobool, default=False,
         help="Sliding-window whole-volume inference (not ported yet).")
     return parser.parse_args(argv)
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` unless the caller asked for ``cpu``; raises when CUDA was
-    asked for and no GPU is present."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device found; pass --device cpu to run "
-                           "on the CPU")
-    return torch.device(name)
 
 
 class DeployConfig:

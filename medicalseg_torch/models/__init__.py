@@ -1,5 +1,5 @@
 # Copyright 2026. Apache License 2.0.
-from . import layers
+from . import layers, losses
 from .vnet import VNet
 
-__all__ = ["layers", "VNet"]
+__all__ = ["layers", "losses", "VNet"]

@@ -11,10 +11,12 @@ Mixed precision as in the JAX package: ``dtype`` is the activation dtype
 float32 and are cast where they are used.
 """
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv5 as c5
 from ..ops.updown import conv_down_kl, conv_up_kl
@@ -22,6 +24,42 @@ from ..ops.updown import conv_down_kl, conv_up_kl
 
 def _bshape(c):
     return (1, 1, c, 1, 1)
+
+
+# True while a checkpointed block runs a second time for its backward. A
+# recomputed forward must change no state: BatchNorm3D leaves its running
+# statistics alone and ChannelDropout reuses the mask of the first run.
+_RECOMPUTING = False
+
+
+@contextlib.contextmanager
+def _recomputing():
+    global _RECOMPUTING
+    saved, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = saved
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward (the JAX
+    ``nn.remat`` / ``jax.checkpoint``). The second run is marked, so that
+    BatchNorm statistics are updated once and dropout masks are reused
+    (``checkpoint`` itself saves only the global generators' state, not an
+    explicit ``torch.Generator``'s)."""
+    runs = [0]
+
+    def run(*a):
+        runs[0] += 1
+        if runs[0] == 1:
+            return fn(*a)
+        with _recomputing():
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def he_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -83,10 +121,11 @@ class BatchNorm3D(nn.Module):
             mean = xf.mean(dim=axes)
             var = torch.clamp(xf.square().mean(dim=axes) - mean.square(),
                               min=0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.mul_(m).add_((1 - m) * mean)
-                self.running_var.mul_(m).add_((1 - m) * var)
+            if not _RECOMPUTING:
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.mul_(m).add_((1 - m) * mean)
+                    self.running_var.mul_(m).add_((1 - m) * var)
             inv = self.weight * torch.rsqrt(var + self.EPSILON)
             shift = self.bias - mean * inv
         else:
@@ -99,7 +138,8 @@ class Conv5KL(nn.Module):
     """5^3 SAME conv through the conv5 kernel (JAX ``PallasConv5KL`` and
     ``PallasConv5``). Owns ``weight`` [Co, Ci, 5, 5, 5] and ``bias`` [Co]
     in f32; the weight is cast to the activation dtype at use, the bias is
-    added in f32 inside the kernel."""
+    added in f32 inside the kernel. In training the conv is differentiable
+    through the backward kernels (``ops.conv5.conv5_kl``'s Function)."""
 
     def __init__(self, in_features: int, features: int, kind: str = "head",
                  dtype=torch.float32):
@@ -112,6 +152,14 @@ class Conv5KL(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         he_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
+
+    def fuses(self, xk) -> bool:
+        """True where the fused epilogue may run: at eval, and with no
+        gradient being recorded through the conv (the fused kernel has no
+        backward; an eval-mode forward under autograd takes the unfused
+        ops instead)."""
+        return not self.training and not (torch.is_grad_enabled() and (
+            xk.requires_grad or self.weight.requires_grad))
 
     def forward(self, xk, epilogue=None):
         """``epilogue=(inv, shift, alpha)`` (each f32 [Co]) fuses the BN
@@ -155,7 +203,7 @@ class ConvBNAct(nn.Module):
         self.relu1 = activation(elu, features, dtype)
 
     def forward(self, xk):
-        if not self.training and isinstance(self.relu1, PReLU):
+        if self.conv1.fuses(xk) and isinstance(self.relu1, PReLU):
             inv, shift = self.bn1.affine_only()
             return self.conv1(xk, epilogue=(inv, shift, self.relu1.alpha))
         return self.relu1(self.bn1(self.conv1(xk)))
@@ -173,20 +221,26 @@ class NConvs(nn.Sequential):
 class ChannelDropout(nn.Module):
     """Dropout3D: zeroes whole channels (mask broadcast over D, H, W) with
     probability ``RATE``, survivors scaled by 1 / (1 - RATE); identity at
-    eval. The mask is drawn from ``generator``."""
+    eval. The mask is drawn from ``generator``, on the generator's device:
+    give the module a generator on the model's device
+    (``VNet.seed_dropout``) and no mask crosses from the host. A
+    recomputed (checkpointed) forward reuses the mask of the first run."""
     RATE = 0.5
 
     def __init__(self, generator: torch.Generator):
         super().__init__()
         self.generator = generator
+        self._keep = None
 
     def forward(self, xk):
         if not self.training:
             return xk
         n, _, c = xk.shape[:3]
-        keep = torch.rand((n, 1, c, 1, 1), generator=self.generator,
-                          device=self.generator.device) >= self.RATE
-        return xk * (keep.to(xk.device, xk.dtype) / (1.0 - self.RATE))
+        if not _RECOMPUTING or self._keep is None:
+            self._keep = torch.rand(
+                (n, 1, c, 1, 1), generator=self.generator,
+                device=self.generator.device) >= self.RATE
+        return xk * (self._keep.to(xk.device, xk.dtype) / (1.0 - self.RATE))
 
 
 class DownConvKL(nn.Module):

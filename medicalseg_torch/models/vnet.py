@@ -26,7 +26,8 @@ from torch import nn
 from ..cvlibs import manager
 from ..ops import conv5 as c5
 from .layers import (BatchNorm3D, ChannelDropout, Conv1x1KL, Conv5KL,
-                     ConvBNAct, DownConvKL, NConvs, UpConvKL, activation)
+                     ConvBNAct, DownConvKL, NConvs, UpConvKL, activation,
+                     remat)
 
 _TRIPLE = Tuple[int, int, int]
 
@@ -51,7 +52,7 @@ class InputTransition(nn.Module):
         self.relu1 = activation(elu, 16, dtype)
 
     def forward(self, xk):
-        if self.training:
+        if not self.conv1.fuses(xk):
             out = self.bn1(self.conv1(xk))
         else:
             inv, shift = self.bn1.affine_only()
@@ -124,16 +125,21 @@ class OutputTransition(ConvBNAct):
 class VNet(nn.Module):
     """V-Net. Arguments follow the JAX ``VNet`` (and the YAML surface):
     ``elu``, ``in_channels``, ``num_classes``, per-stage
-    ``kernel_size``/``stride_size``, ``dtype`` (the activation dtype) and
-    ``dropout`` (the mid-stage ChannelDropouts). Parameters are
-    initialised as flax initialises them, from ``generator`` (seed 0 when
-    none is given), which also draws the dropout masks in training."""
+    ``kernel_size``/``stride_size``, ``dtype`` (the activation dtype),
+    ``dropout`` (the mid-stage ChannelDropouts) and ``remat`` (in
+    training, checkpoint each transition: the backward recomputes one
+    block at a time, so the live activations are bounded by the largest
+    stage instead of the whole net). Parameters are initialised as flax
+    initialises them, from ``generator`` (seed 0 when none is given),
+    which also draws the dropout masks in training until
+    :meth:`seed_dropout` replaces it."""
 
     def __init__(self, elu: bool = False, in_channels: int = 1,
                  num_classes: int = 4,
                  kernel_size: Sequence[_TRIPLE] = ((2, 2, 2),) * 4,
                  stride_size: Sequence[_TRIPLE] = ((2, 2, 2),) * 4,
                  dtype=torch.float32, dropout: bool = True,
+                 remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if generator is None:
@@ -141,6 +147,7 @@ class VNet(nn.Module):
         ks = [tuple(k) for k in kernel_size]
         ss = [tuple(s) for s in stride_size]
         self.dtype = dtype
+        self.remat = bool(remat)
         g = generator
         self.in_tr = InputTransition(in_channels, elu, dtype)
         self.down_tr32 = DownTransition(16, 1, elu, False, ss[0], ks[0],
@@ -169,15 +176,28 @@ class VNet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def seed_dropout(self, generator: torch.Generator):
+        """Draw the dropout masks from ``generator`` from now on; one on
+        the model's device keeps the masks off the host."""
+        for m in self.modules():
+            if isinstance(m, ChannelDropout):
+                m.generator = generator
+
     def forward(self, x):
+        if self.remat and self.training and torch.is_grad_enabled():
+            def run(block, *args):
+                return remat(block, *args)
+        else:
+            def run(block, *args):
+                return block(*args)
         xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
-        out16 = self.in_tr(xk)
-        out32 = self.down_tr32(out16)
-        out64 = self.down_tr64(out32)
-        out128 = self.down_tr128(out64)
-        out256 = self.down_tr256(out128)
-        out = self.up_tr256(out256, out128)
-        out = self.up_tr128(out, out64)
-        out = self.up_tr64(out, out32)
-        out = self.up_tr32(out, out16)
-        return [c5.from_kl(self.out_tr(out)).float()]
+        out16 = run(self.in_tr, xk)
+        out32 = run(self.down_tr32, out16)
+        out64 = run(self.down_tr64, out32)
+        out128 = run(self.down_tr128, out64)
+        out256 = run(self.down_tr256, out128)
+        out = run(self.up_tr256, out256, out128)
+        out = run(self.up_tr128, out, out64)
+        out = run(self.up_tr64, out, out32)
+        out = run(self.up_tr32, out, out16)
+        return [c5.from_kl(run(self.out_tr, out)).float()]

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("conv5", "pin")
+SOURCES = ("conv5", "conv5_wgrad", "pin")
 
 
 def _nvcc() -> str:

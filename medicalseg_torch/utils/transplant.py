@@ -14,6 +14,11 @@ the JAX package's torch-alignment test uses
 * BatchNorm ``scale``/``bias``/``mean``/``var`` <-> ``weight``/``bias``/
   ``running_mean``/``running_var`` (both keep the biased variance);
 * PReLU ``alpha`` <-> ``alpha`` (absent with ``elu=True``).
+
+Anything shaped like the parameters moves by the same map: gradients (a
+flax gradient tree <-> the port's ``.grad``s) and the SGD momentum (an
+``optax`` trace <-> ``momentum_buffer``), so that two trainers can start
+from one state and be compared leaf by leaf after a few steps.
 """
 
 from collections import OrderedDict
@@ -76,15 +81,16 @@ def _put(tree, path, key, value):
     tree[key] = value
 
 
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
 def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
     """The port VNet's ``state_dict`` from flax variables (nested dicts of
-    arrays with 'params' and 'batch_stats')."""
-    params, stats = variables["params"], variables["batch_stats"]
+    arrays with 'params' and 'batch_stats'; without 'batch_stats', only
+    the parameters' entries)."""
+    params, stats = variables["params"], variables.get("batch_stats")
     sd = OrderedDict()
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
     for prefix, path, kind in _layout():
         p = _get(params, path)
         if p is None and kind == "prelu":
@@ -92,21 +98,22 @@ def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
         if p is None:
             raise KeyError("flax variables lack " + "/".join(path))
         if kind == "conv":
-            sd[prefix + ".weight"] = t(np.transpose(p["kernel"],
-                                                    (4, 3, 0, 1, 2)))
-            sd[prefix + ".bias"] = t(p["bias"])
+            sd[prefix + ".weight"] = _t(np.transpose(p["kernel"],
+                                                     (4, 3, 0, 1, 2)))
+            sd[prefix + ".bias"] = _t(p["bias"])
         elif kind == "deconv":
             k = np.asarray(p["kernel"])[::-1, ::-1, ::-1]
-            sd[prefix + ".weight"] = t(np.transpose(k, (3, 4, 0, 1, 2)))
-            sd[prefix + ".bias"] = t(p["bias"])
+            sd[prefix + ".weight"] = _t(np.transpose(k, (3, 4, 0, 1, 2)))
+            sd[prefix + ".bias"] = _t(p["bias"])
         elif kind == "bn":
-            s = _get(stats, path)
-            sd[prefix + ".weight"] = t(p["scale"])
-            sd[prefix + ".bias"] = t(p["bias"])
-            sd[prefix + ".running_mean"] = t(s["mean"])
-            sd[prefix + ".running_var"] = t(s["var"])
+            sd[prefix + ".weight"] = _t(p["scale"])
+            sd[prefix + ".bias"] = _t(p["bias"])
+            if stats is not None:
+                s = _get(stats, path)
+                sd[prefix + ".running_mean"] = _t(s["mean"])
+                sd[prefix + ".running_var"] = _t(s["var"])
         else:
-            sd[prefix + ".alpha"] = t(p["alpha"])
+            sd[prefix + ".alpha"] = _t(p["alpha"])
     return sd
 
 
@@ -135,8 +142,52 @@ def flax_from_state_dict(state_dict) -> Dict[str, dict]:
         elif kind == "bn":
             _put(params, path, "scale", a(prefix + ".weight"))
             _put(params, path, "bias", a(prefix + ".bias"))
-            _put(stats, path, "mean", a(prefix + ".running_mean"))
-            _put(stats, path, "var", a(prefix + ".running_var"))
+            if prefix + ".running_mean" in state_dict:
+                _put(stats, path, "mean", a(prefix + ".running_mean"))
+                _put(stats, path, "var", a(prefix + ".running_var"))
         else:
             _put(params, path, "alpha", a(prefix + ".alpha"))
     return {"params": params, "batch_stats": stats}
+
+
+def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """A flax tree shaped like the parameters (the parameters themselves,
+    their gradients, a momentum trace) as {port parameter name: tensor}."""
+    return state_dict_from_flax({"params": tree})
+
+
+def flax_from_params(named) -> dict:
+    """The inverse of :func:`params_from_flax`: {port parameter name:
+    tensor} (parameters only) as a flax-shaped tree of numpy arrays."""
+    return flax_from_state_dict(dict(named))["params"]
+
+
+def grads_to_flax(model) -> dict:
+    """The model's ``.grad``s as a flax-shaped gradient tree."""
+    return flax_from_params({n: p.grad for n, p in model.named_parameters()})
+
+
+def grads_from_flax(model, grads):
+    """Set the model's ``.grad``s from a flax gradient tree."""
+    moved = params_from_flax(grads)
+    for name, p in model.named_parameters():
+        p.grad = moved[name].to(p.device, p.dtype)
+
+
+def momentum_to_flax(model, optimizer) -> dict:
+    """The SGD ``momentum_buffer`` of every parameter as an ``optax``
+    trace tree (``optax.TraceState.trace``); zeros where the optimizer has
+    not stepped yet."""
+    named = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        named[name] = torch.zeros_like(p) if buf is None else buf
+    return flax_from_params(named)
+
+
+def momentum_from_flax(model, optimizer, trace):
+    """Load an ``optax`` trace tree into the SGD ``momentum_buffer``s."""
+    moved = params_from_flax(trace)
+    for name, p in model.named_parameters():
+        optimizer.state[p]["momentum_buffer"] = moved[name].to(
+            p.device, p.dtype).clone()

@@ -4,6 +4,8 @@
 
 import os
 
+import torch
+
 MEDICAL_SUFFIXES = ("nii.gz", "nii", "dcm", "mhd", "mha", "raw", "npy",
                     "nrrd")
 
@@ -50,3 +52,14 @@ def get_image_list(image_path):
     if len(image_list) == 0:
         raise RuntimeError("There are no images in {}".format(image_path))
     return sorted(image_list)
+
+
+def resolve_device(name: str = "cuda") -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asked
+    for ``cpu``; raises when CUDA was asked for and no GPU is present."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass --device cpu (or "
+                           "device='cpu') to run on the CPU")
+    return torch.device(name)

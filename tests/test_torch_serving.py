@@ -160,7 +160,12 @@ def test_port_imports_neither_jax_nor_medicalseg_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'medicalseg_tpu'))\n"
-        "assert 'medicalseg_torch.deploy.infer' in sys.modules\n"
+        "for name in ('deploy.infer', 'core.state', 'utils.loss_utils', "
+        "'utils.transplant', 'cvlibs.config', 'models.losses.loss_utils', "
+        "'models.losses.cross_entropy_loss', 'models.losses.dice_loss', "
+        "'models.losses.mixed_loss', "
+        "'models.losses.binary_cross_entropy_loss'):\n"
+        "    assert 'medicalseg_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
