@@ -28,7 +28,33 @@ JSON line; any failure raises and the script exits non-zero:
    convs and 8 pins per forward. The kernel path's logits are then held
    against the plain-version path's on the same batch (argmax agreement
    >= 99.5% of voxels), and the saved predictions against the logits.
-5. kernels_bwd: at the same conv shapes, the backward kernels against
+5. kernels_ingest: the HU window + D-resize kernel (``hu_resize``) against
+   its plain version, f32, atol 1e-3 on the window's 0..255 scale, at
+   200 x 512 x 512 -> 128 and at 37 x 45 x 51 -> 16 (odd H * W, NaN and
+   both infinities in the data, a ``hu_nan`` inside the window), and the
+   whole ``hu_norm_resize`` against ``resize3d(hu_norm(x))``. Times as in
+   phase 3, the bound by bytes (x read once, the output written once),
+   ``torch.mm(W, window(x))`` as the library yardstick.
+6. serve_raw: two seeded synthetic CT scans of 200 x 512 x 512 (uniform
+   in [-2000, 1000], a few NaN) written as ``.nii`` by the port's own
+   writer, and a small ``.nii.gz`` and ``.mha`` for the other readers,
+   through ``Predictor.run`` (bf16, batch 2): ``hu_resize`` must launch
+   once per volume, the convs and pins as in phase 4; the saved
+   predictions are 128^3 int32 and equal the argmax of the plain-version
+   path's logits (plain HU resize, plain convs) on >= 99.5% of voxels.
+   Prints the preprocess time split into read+cast, upload, kernel and
+   H/W passes (one big scan, each stage timed on its own), and ms per
+   batch.
+7. serve_swl: one of the big scans at native resolution through
+   ``--use_swl`` (window 128^3, overlap 0.25: 2 x 5 x 5 = 50 windows, two
+   per forward): launch counts of 25 forwards, finite blended logits, the
+   saved prediction equal to their argmax, and a 128^3 sub-volume (one
+   flush window) equal to a direct forward; seconds and peak memory. Then
+   one 96^3 request through a 128^3 shape bucket (equal to the direct
+   forward of the padded volume, cropped), and one ``--precision int8``
+   request (the weights on the card are int8; argmax agreement with bf16
+   serving >= ``INT8_AGREE``).
+8. kernels_bwd: at the same conv shapes, the backward kernels against
    their plain versions: the input gradient (the forward kernel on the
    flipped, io-transposed weight; not for the stem, whose input is the
    image) with the forward's tolerances, and the weight gradient in its
@@ -39,7 +65,7 @@ JSON line; any failure raises and the script exits non-zero:
    Times as in phase 3 (the plain weight gradient once), with
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` as the library
    yardstick.
-6. train: the lung ``_tpu`` config's model (bf16, per-block remat),
+9. train: the lung ``_tpu`` config's model (bf16, per-block remat),
    optimizer, schedule and loss built by ``Config``, seeded init, batch 2
    at 128^3, seeded volumes and labels in {0, 1, 2}, through
    ``core.state.make_train_step``: two warm-up steps and three timed
@@ -60,7 +86,8 @@ JSON line; any failure raises and the script exits non-zero:
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
-phase, of the backward kernels from the train phase) and, last, the
+phase, of ``hu_resize`` from serve_raw, of the backward kernels from the
+train phase) and, last, the
 ``{"ok": ...}`` line.
 """
 
@@ -83,9 +110,14 @@ sys.path.insert(0, ROOT)
 from medicalseg_torch.core.state import (TrainState,  # noqa: E402
                                          make_train_step)
 from medicalseg_torch.cvlibs.config import Config, build_model  # noqa: E402
+from medicalseg_torch import io as medio  # noqa: E402
+from medicalseg_torch.core.sliding_window import (  # noqa: E402
+    gaussian_importance, sliding_window_inference)
 from medicalseg_torch.deploy import infer  # noqa: E402
 from medicalseg_torch.ops import _build  # noqa: E402
 from medicalseg_torch.ops import conv5 as c5  # noqa: E402
+from medicalseg_torch.ops import hu_resize as hr  # noqa: E402
+from medicalseg_torch.ops import intensity, resize  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -110,6 +142,11 @@ CONVS = [("in_tr", "stem", 1, 16, 128, 1),
 # [N, D, C, H, W]: (C, edge).
 PINS = [(32, 64), (64, 32), (128, 16), (256, 8),
         (128, 16), (64, 32), (32, 64), (16, 128)]
+SCAN = (200, 512, 512)  # a raw CT scan: slices x rows x columns
+HU_TOL = 1e-3  # hu_resize vs plain, on the window's 0..255 scale
+# int8 against bf16 serving, same random-init weights: share of voxels
+# with the same argmax
+INT8_AGREE = 0.99
 FWD_KERNELS = ("conv5_head", "conv5_stem", "conv5_fused_epilogue", "pin")
 BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head",
                "conv5_wgrad_mid")
@@ -120,7 +157,8 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5.cu",
            "conv5_dgrad": "medicalseg_torch/csrc/conv5.cu",
            "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_head": "medicalseg_torch/csrc/conv5_wgrad.cu",
-           "conv5_wgrad_mid": "medicalseg_torch/csrc/conv5_wgrad.cu"}
+           "conv5_wgrad_mid": "medicalseg_torch/csrc/conv5_wgrad.cu",
+           "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
 REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_stem": "medicalseg_tpu/ops/pallas_conv5.py:423",
             "conv5_fused_epilogue": "medicalseg_tpu/ops/pallas_conv5.py:1288",
@@ -128,7 +166,8 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_dgrad": "medicalseg_tpu/ops/pallas_conv5.py:1383",
             "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_head": "medicalseg_tpu/ops/pallas_conv5.py:912",
-            "conv5_wgrad_mid": "medicalseg_tpu/ops/pallas_conv5.py:832"}
+            "conv5_wgrad_mid": "medicalseg_tpu/ops/pallas_conv5.py:832",
+            "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86"}
 TRAIN_SEED = 0
 # kernel path vs plain path, relative L2 error per leaf. bf16 at 128^3:
 # the two paths round at other places, and the random-init net amplifies
@@ -440,14 +479,23 @@ def plain_ops():
     c5.conv5_wgrad_kl = (lambda xk, gk, kind="head":
                          c5.conv5_wgrad_kl_plain(xk, gk))
     c5._pin_forward = c5.pin_kl_plain
+    saved_hu = hr._hu_resize_d_cuda
+    hr._hu_resize_d_cuda = (
+        lambda x, out_d, hu_min, hu_max, hu_nan: hr.hu_resize_d_plain(
+            x, resize._linear_matrix(x.shape[0], out_d, device=x.device),
+            hu_min, hu_max, hu_nan))
     try:
         yield
     finally:
         for n, fn in zip(names, saved):
             setattr(c5, n, fn)
+        hr._hu_resize_d_cuda = saved_hu
 
 
-def phase_serve(workdir):
+def write_deploy(workdir):
+    """model.pt (the lung config's V-Net, a seeded init with non-trivial
+    BN statistics) and two manifests in ``workdir``: deploy.yaml, and
+    deploy_buckets.yaml with one 128^3 shape bucket."""
     model_cfg = Config(LUNG_TPU).dic["model"]
     gen = torch.Generator().manual_seed(0)
     model = build_model(model_cfg, generator=gen)
@@ -459,12 +507,37 @@ def phase_serve(workdir):
             val.copy_(0.5 + torch.rand(val.shape, generator=gen))
     torch.save(state, os.path.join(workdir, "model.pt"))
     import yaml
-    with open(os.path.join(workdir, "deploy.yaml"), "w") as f:
-        yaml.dump({"Deploy": {"model": "model.stablehlo",
-                              "params": "model.pt", "transforms": [],
-                              "output_op": "argmax",
-                              "input_shape_ndhwc": [1, EDGE, EDGE, EDGE, 1],
-                              "model_config": model_cfg}}, f)
+    deploy = {"model": "model.stablehlo", "params": "model.pt",
+              "transforms": [], "output_op": "argmax",
+              "input_shape_ndhwc": [1, EDGE, EDGE, EDGE, 1],
+              "model_config": model_cfg}
+    for name, extra in (("deploy.yaml", {}), ("deploy_buckets.yaml", {
+            "shape_buckets": [[EDGE, EDGE, EDGE]]})):
+        with open(os.path.join(workdir, name), "w") as f:
+            yaml.dump({"Deploy": {**deploy, **extra}}, f)
+
+
+def make_predictor(workdir, save, *extra, config="deploy.yaml"):
+    return infer.Predictor(infer.parse_args([
+        "--config", os.path.join(workdir, config), "--image_path", workdir,
+        "--save_dir", os.path.join(workdir, save), "--precision", "bf16",
+        "--benchmark", "true", *extra]))
+
+
+def forward_counts(forwards):
+    """The launch counts ``forwards`` eval forwards of V-Net imply."""
+    expect = {"conv5_head": 15 * forwards, "conv5_stem": forwards,
+              "conv5_fused_epilogue": 16 * forwards, "pin": 8 * forwards}
+    expect.update({k: 0 for k in BWD_KERNELS})
+    return expect
+
+
+def reset_counts():
+    c5.reset_launches()
+    hr.reset_launches()
+
+
+def phase_serve(workdir):
     img_dir = os.path.join(workdir, "images")
     os.makedirs(img_dir)
     rng = np.random.RandomState(0)
@@ -473,28 +546,21 @@ def phase_serve(workdir):
         path = os.path.join(img_dir, "vol{}.npy".format(i))
         np.save(path, (rng.rand(EDGE, EDGE, EDGE) * 1000).astype(np.float32))
         imgs.append(path)
-    args = infer.parse_args([
-        "--config", os.path.join(workdir, "deploy.yaml"), "--image_path",
-        img_dir, "--save_dir", os.path.join(workdir, "pred"),
-        "--precision", "bf16", "--batch_size", str(BATCH),
-        "--benchmark", "true"])
-    predictor = infer.Predictor(args)
+    predictor = make_predictor(workdir, "pred", "--batch_size", str(BATCH))
     check(predictor.model.dtype == torch.bfloat16, "model is not bf16")
 
-    c5.reset_launches()
+    reset_counts()
     saved = predictor.run(imgs)
     torch.cuda.synchronize()
     launches = dict(c5.LAUNCHES)
-    forwards = 1 + len(imgs) // BATCH  # warm-up + two requests
-    expect = {"conv5_head": 15 * forwards, "conv5_stem": forwards,
-              "conv5_fused_epilogue": 16 * forwards, "pin": 8 * forwards}
-    expect.update({k: 0 for k in BWD_KERNELS})
+    expect = forward_counts(1 + len(imgs) // BATCH)  # warm-up + 2 requests
     check(launches == expect, "launch counts {} != expected {}".format(
         launches, expect))
+    check(hr.LAUNCHES["hu_resize"] == 0, "hu_resize ran for .npy volumes")
 
-    batch = np.concatenate([predictor._preprocess(p) for p in imgs[:BATCH]])
     with torch.inference_mode():
-        x = torch.from_numpy(batch).to(predictor.device)
+        x = torch.cat([predictor._preprocess(p) for p in imgs[:BATCH]])
+        check(x.device.type == "cuda", "preprocessed volumes left the card")
         logits = predictor.model(x)[0]
         with plain_ops():
             logits_plain = predictor.model(x)[0]
@@ -530,6 +596,253 @@ def phase_serve(workdir):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
           "profile": profile})
     return launches
+
+
+def raw_scan(shape, seed, device="cuda"):
+    """A synthetic CT scan: uniform in [-2000, 1000] with a few NaN, f32,
+    made on the card from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device=device) * 3000.0 - 2000.0
+    idx = torch.randint(0, x.numel(), (64,), generator=gen, device=device)
+    x.view(-1)[idx] = float("nan")
+    return x
+
+
+def phase_kernels_ingest():
+    dev = torch.device("cuda")
+    stats = new_stats(("hu_resize",))
+    # (shape, out_d, window): the served scan with the default window, and
+    # an odd shape with a hu_nan inside the window and both infinities
+    cases = [(SCAN, EDGE, (-1200.0, 600.0, -2000.0)),
+             ((37, 45, 51), 16, (-1000.0, 400.0, -300.0))]
+    for i, (shape, out_d, window) in enumerate(cases):
+        x = raw_scan(shape, 10 + i)
+        if i == 1:
+            x.view(-1)[::97] = float("inf")
+            x.view(-1)[5::89] = float("-inf")
+        d, h, w = shape
+        wmat = resize._linear_matrix(d, out_d, device=dev)
+        got = hr.hu_resize_d(x, out_d, *window)
+        torch.cuda.synchronize()
+        ref = hr.hu_resize_d_plain(x, wmat, *window)
+        err = (got - ref).abs().max().item()
+        check(tuple(got.shape) == (out_d, h, w) and
+              got.dtype == torch.float32, "hu_resize shape/dtype")
+        check(bool(torch.isfinite(got).all()), "hu_resize: non-finite output")
+        check(err <= HU_TOL, "hu_resize {} -> {} disagrees with its plain "
+              "version: max |d| {}".format(shape, out_d, err))
+        size = (out_d, max(1, h // 4), max(1, w // 4))
+        full = hr.hu_norm_resize(x, size, *window)
+        comp = resize.resize3d(intensity.hu_norm(x, *window), size, order=1)
+        full_err = (full - comp).abs().max().item()
+        check(full_err <= HU_TOL, "hu_norm_resize {} -> {} disagrees with "
+              "resize3d(hu_norm(x)): max |d| {}".format(shape, size,
+                                                        full_err))
+        ms = time_ms(lambda: hr.hu_resize_d(x, out_d, *window))
+        plain = time_ms(lambda: hr.hu_resize_d_plain(x, wmat, *window))
+        flat = x.reshape(d, h * w)
+        lib = time_ms(lambda: torch.mm(wmat, intensity.hu_window(
+            flat, *window)))
+        hw_ms = time_ms(lambda: resize.resize3d(got, size, order=1))
+        bound = 4.0 * (d + out_d) * h * w / PEAK_BYTES * 1e3
+        emit({"phase": "kernels_ingest", "shape": list(shape),
+              "out_d": out_d, "window": list(window), "err": err,
+              "hu_norm_resize_size": list(size),
+              "hu_norm_resize_err": full_err, "ms": ms, "plain_ms": plain,
+              "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
+              "hw_passes_ms": hw_ms,
+              "gb_per_s": 4.0 * (d + out_d) * h * w / ms / 1e6})
+        if i == 0:  # the main path's shape
+            stats["hu_resize"]["err"] = err
+            add_stats(stats, "hu_resize", 1, ms, plain, bound, "bytes", lib)
+        else:
+            stats["hu_resize"]["err"] = max(stats["hu_resize"]["err"], err)
+        del x, got, ref, full, comp, flat
+    return stats
+
+
+def phase_serve_raw(workdir):
+    """Returns (launches of the run, path of one big scan)."""
+    scan_dir = os.path.join(workdir, "scans")
+    os.makedirs(scan_dir)
+    t0 = time.perf_counter()
+    scans = []
+    for i in range(2):
+        scans.append(os.path.join(scan_dir, "ct{}.nii".format(i)))
+        medio.write_image(scans[-1], raw_scan(SCAN, 20 + i).cpu().numpy(),
+                          spacing=(0.7, 0.7, 1.5))
+    # the other readers, at a small size (gzip of a full scan would take
+    # most of the script's time)
+    for i, name in enumerate(("ct2.nii.gz", "ct3.mha")):
+        scans.append(os.path.join(scan_dir, name))
+        medio.write_image(scans[-1], np.nan_to_num(raw_scan(
+            (40, 96, 80), 30 + i).cpu().numpy()).astype(np.int16))
+    write_s = time.perf_counter() - t0
+    predictor = make_predictor(workdir, "pred_raw", "--batch_size",
+                               str(BATCH))
+
+    reset_counts()
+    saved = predictor.run(scans)
+    torch.cuda.synchronize()
+    launches = dict(c5.LAUNCHES, **hr.LAUNCHES)
+    expect = forward_counts(1 + len(scans) // BATCH)
+    expect["hu_resize"] = len(scans)  # once per volume
+    check(launches == expect, "launch counts {} != expected {}".format(
+        launches, expect))
+
+    # the same requests through the plain versions: plain HU resize, plain
+    # convs and pins
+    agree = []
+    with torch.inference_mode(), plain_ops():
+        reset_counts()
+        for j, path in enumerate(scans):
+            logits = predictor.model(predictor._preprocess(path))[0][0]
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
+            pred = np.load(saved[j])
+            check(pred.shape == (EDGE,) * 3 and pred.dtype == np.int32,
+                  "saved prediction shape/dtype")
+            agree.append((torch.from_numpy(pred).to(logits.device) ==
+                          logits.argmax(-1)).float().mean().item())
+        check(not any(c5.LAUNCHES.values()) and not any(hr.LAUNCHES.values()),
+              "the plain path launched a kernel")
+    check(min(agree) >= 0.995, "argmax agreement with the plain-version "
+          "path {} < 0.995".format(agree))
+
+    # the preprocess stages of one big scan, each on its own
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    size = (EDGE,) * 3
+    data, read_ms = host_ms(lambda: medio.read_image(scans[0])[0].astype(
+        np.float32))
+    raw, upload_ms = host_ms(lambda: torch.from_numpy(data).to("cuda"))
+    reduced, kernel_ms = timed_once(lambda: hr.hu_resize_d(raw, EDGE))
+    small, hw_ms = timed_once(lambda: resize.resize3d(reduced, size))
+    _, scale_ms = timed_once(lambda: intensity.scale_by_max(small))
+    pre = predictor.timer.stages["preprocess"]
+    inf_s = predictor.timer.stages["inference"]
+    emit({"phase": "serve_raw", "scans": [list(SCAN)] * 2 + [[40, 96, 80]] * 2,
+          "files": [os.path.basename(p) for p in scans],
+          "file_mb": os.path.getsize(scans[0]) / 2 ** 20,
+          "write_seconds": write_s, "batch": BATCH,
+          "preprocess_ms_per_batch": [1e3 * t for t in pre],
+          "preprocess_ms_per_big_scan": 1e3 * pre[0] / BATCH,
+          "stage_ms": {"read_cast": read_ms, "upload": upload_ms,
+                       "kernel": kernel_ms, "hw_passes": hw_ms,
+                       "scale_by_max": scale_ms},
+          "ms_per_batch_each": [1e3 * t for t in inf_s],
+          "big_scan_vol_per_s": BATCH / (pre[0] + inf_s[0]),
+          "launches": launches, "argmax_agreement_vs_plain": agree})
+    return launches, scans[0]
+
+
+def phase_serve_swl(workdir, scan):
+    # ---- one scan at native resolution
+    predictor = make_predictor(workdir, "pred_swl", "--use_swl", "true")
+    predictor.window_batch = BATCH
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    saved = predictor.run([scan])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(c5.LAUNCHES, **hr.LAUNCHES)
+    windows = 2 * 5 * 5
+    expect = forward_counts(windows // BATCH)
+    expect["hu_resize"] = 0  # native resolution: the window only
+    check(launches == expect, "sliding-window launch counts {} != expected "
+          "{}".format(launches, expect))
+    pred = np.load(saved[0])
+    check(pred.shape == SCAN and pred.dtype == np.int32,
+          "sliding-window prediction shape/dtype")
+
+    roi = (EDGE,) * 3
+    vol = predictor._preprocess(scan)[0]  # [D, H, W, 1]
+    logits = sliding_window_inference(predictor._model_call, vol, roi, 3,
+                                      window_batch=BATCH)
+    check(tuple(logits.shape) == SCAN + (3,) and
+          logits.dtype == torch.float32, "blended logits shape/dtype")
+    check(bool(torch.isfinite(logits).all()), "non-finite blended logits")
+    same = (logits.argmax(-1).cpu() == torch.from_numpy(pred)).float().mean()
+    check(same.item() >= 0.9999, "saved sliding-window prediction differs "
+          "from the blended logits' argmax: {}".format(same.item()))
+    del logits
+    # a sub-volume that one window covers flush: the blend of one window
+    # is the forward itself (where the Gaussian is above the 1e-8 floor of
+    # the weight, all but the window's far corners)
+    sub = vol[:EDGE, :EDGE, :EDGE].contiguous()
+    tiled = sliding_window_inference(predictor._model_call, sub, roi, 3,
+                                     window_batch=BATCH)
+    with torch.inference_mode():
+        direct = predictor.model(sub[None])[0][0]
+    inner = gaussian_importance(roi, device=sub.device) >= 1e-8
+    sub_err = (tiled - direct)[inner].abs().max().item()
+    check(sub_err <= 1e-4 * direct.abs().max().item(), "one flush window "
+          "differs from the direct forward by {}".format(sub_err))
+    emit({"phase": "serve_swl", "scan": list(SCAN), "roi": list(roi),
+          "overlap": 0.25, "windows": windows, "window_batch": BATCH,
+          "forwards": windows // BATCH, "seconds": seconds,
+          "preprocess_ms": 1e3 * predictor.timer.stages["preprocess"][0],
+          "inference_ms": 1e3 * predictor.timer.stages["inference"][0],
+          "postprocess_ms": 1e3 * predictor.timer.stages["postprocess"][0],
+          "peak_mem_gb": peak, "launches": launches,
+          "argmax_same_as_blended_logits": same.item(),
+          "flush_window_max_abs_diff": sub_err})
+    del vol, sub, tiled, direct, predictor
+
+    # ---- a 96^3 request through the 128^3 bucket
+    small = os.path.join(workdir, "small.npy")
+    np.save(small, (np.random.RandomState(3).rand(96, 96, 96) * 1000).astype(
+        np.float32))
+    predictor = make_predictor(workdir, "pred_bucket",
+                               config="deploy_buckets.yaml")
+    reset_counts()
+    out = np.load(predictor.run([small])[0])
+    check(dict(c5.LAUNCHES) == forward_counts(1), "bucket launch counts "
+          "{}".format(c5.LAUNCHES))
+    check(out.shape == (96,) * 3 and out.dtype == np.int32,
+          "bucket prediction shape/dtype")
+    bucket_ms = 1e3 * predictor.timer.stages["inference"][0]
+    with torch.inference_mode():
+        x = predictor._preprocess(small)
+        padded = F.pad(x, (0, 0) + (0, EDGE - 96) * 3)
+        direct = predictor.model(padded)[0][0, :96, :96, :96].argmax(-1)
+    bucket_same = (direct.cpu() == torch.from_numpy(out)).float().mean().item()
+    check(bucket_same >= 0.9999, "bucketed prediction differs from the "
+          "padded forward, cropped: {}".format(bucket_same))
+
+    # ---- an int8 request against bf16 serving
+    full = os.path.join(workdir, "images", "vol0.npy")
+    bf16 = np.load(make_predictor(workdir, "pred_bf16").run([full])[0])
+    predictor = make_predictor(workdir, "pred_int8", "--precision", "int8")
+    weights = {k: v for k, v in predictor._qstate.items()
+               if k.endswith(".weight.__quant__")}
+    check(len(weights) == 24 and all(
+        v.dtype == torch.int8 and v.device.type == "cuda"
+        for v in weights.values()), "int8 serving does not hold its conv "
+        "weights as int8 on the card")
+    check(all(p.is_meta for p in predictor.model.parameters()),
+          "int8 serving keeps float weights")
+    reset_counts()
+    int8 = np.load(predictor.run([full])[0])
+    check(dict(c5.LAUNCHES) == forward_counts(2), "int8 launch counts "
+          "{}".format(c5.LAUNCHES))
+    int8_agree = float((int8 == bf16).mean())
+    check(int8_agree >= INT8_AGREE, "int8 argmax agreement with bf16 {} < "
+          "{}".format(int8_agree, INT8_AGREE))
+    emit({"phase": "serve_modes", "bucket": [EDGE] * 3,
+          "bucket_request": [96] * 3,
+          "bucket_same_as_padded_forward": bucket_same,
+          "bucket_ms": bucket_ms,
+          "int8_weights": len(weights),
+          "int8_weight_mb": sum(v.numel() for v in weights.values()) / 2 ** 20,
+          "int8_argmax_agreement_vs_bf16": int8_agree,
+          "int8_ms_per_batch": 1e3 * predictor.timer.stages["inference"][0]})
 
 
 def grad_rel_l2(grads, ref_grads):
@@ -692,7 +1005,12 @@ def main():
     stats = phase_kernels()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        write_deploy(wd)
         launches = phase_serve(wd)
+        stats.update(phase_kernels_ingest())
+        raw_launches, scan = phase_serve_raw(wd)
+        launches["hu_resize"] = raw_launches["hu_resize"]
+        phase_serve_swl(wd, scan)
     stats.update(phase_kernels_bwd())
     train_launches = phase_train()
     launches.update({k: train_launches[k] for k in BWD_KERNELS})

@@ -7,6 +7,6 @@ kernel under ``csrc/``.
 
 __version__ = "0.1.0"
 
-from . import core, cvlibs, models, ops, utils
+from . import core, cvlibs, io, models, ops, utils
 
-__all__ = ["core", "cvlibs", "models", "ops", "utils", "__version__"]
+__all__ = ["core", "cvlibs", "io", "models", "ops", "utils", "__version__"]

@@ -1,0 +1,143 @@
+# Copyright 2026. Apache License 2.0.
+"""3-D resize (zoom) with static shapes: separable per-axis interpolation.
+
+Counterpart of the static family of ``medicalseg_tpu/ops/resize.py``. The
+coordinate convention is scipy's ``zoom`` with ``grid_mode=False``:
+``src = i * (in - 1) / (out - 1)`` (endpoints aligned). Order 1 is three
+small matrix products, one per axis, in float32 (on the card with TF32
+off: values reach 255 and a 10-bit mantissa would cost 0.1); order 0 is
+three gathers. The interpolation matrices and index vectors are built on
+the host in float64 and moved to the volume's device.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 matrix products in full float32 on the card, whatever the
+    caller set (TF32 keeps a 10-bit mantissa)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _scale(in_size, out_size):
+    """scipy grid_mode=False zoom coordinate scale (endpoint-aligned)."""
+    if out_size == 1:
+        return 0.0
+    return (in_size - 1) / (out_size - 1)
+
+
+def _linear_taps(in_size, out_size):
+    """The two taps of every output index of an order-1 resize: (lo int64
+    [out], frac float64 [out]). Output i is ``(1 - frac) * x[lo] + frac *
+    x[min(lo + 1, in - 1)]``; with ``in_size == 1`` both taps are x[0] and
+    their weights add to 1."""
+    coords = np.arange(out_size) * _scale(in_size, out_size)
+    lo = np.floor(coords).astype(np.int64)
+    lo = np.clip(lo, 0, max(in_size - 2, 0))
+    return lo, coords - lo
+
+
+def _linear_matrix(in_size, out_size, dtype=torch.float32, device=None):
+    """Static (out, in) order-1 interpolation matrix (host-built, tiny)."""
+    lo, frac = _linear_taps(in_size, out_size)
+    w = np.zeros((out_size, in_size), dtype=np.float32)
+    w[np.arange(out_size), lo] = 1.0 - frac
+    w[np.arange(out_size), np.minimum(lo + 1, in_size - 1)] += frac
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def _nearest_indices(in_size, out_size, device=None):
+    """Static nearest-neighbour source indices (scipy order=0 parity:
+    spline order 0 rounds half-up)."""
+    coords = np.arange(out_size) * _scale(in_size, out_size)
+    idx = np.floor(coords + 0.5).astype(np.int64)
+    return torch.from_numpy(np.clip(idx, 0, in_size - 1)).to(device)
+
+
+def _is_integer(dtype):
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
+def resize3d(vol, size, order=1):
+    """Resize a volume to ``size`` (d, h, w) with endpoint-aligned zoom.
+
+    Args:
+        vol: [D, H, W] or [D, H, W, C] tensor or array (any float or int
+            dtype); the result lies on the same device.
+        size: target (d, h, w).
+        order: 1 (trilinear, three matrix products) or 0 (nearest, three
+            axis gathers: label volumes).
+
+    Returns:
+        the resized tensor in ``vol``'s dtype; integer volumes are rounded
+        to nearest after the order-1 interpolation.
+    """
+    vol = torch.as_tensor(vol)
+    size = tuple(int(s) for s in size)
+    if vol.ndim not in (3, 4):
+        raise ValueError("resize3d expects 3-D or 4-D input, got shape {}".
+                         format(tuple(vol.shape)))
+    in_dhw = tuple(vol.shape[:3])
+    if in_dhw == size:
+        return vol
+    if order == 0:
+        out = vol
+        for axis in range(3):
+            idx = _nearest_indices(in_dhw[axis], size[axis], vol.device)
+            out = out.index_select(axis, idx)
+        return out
+    out = vol.to(torch.float32)
+    # one contraction per axis that changes (an unchanged axis's matrix is
+    # the identity)
+    with _full_f32_matmul():
+        for axis in range(3):
+            if in_dhw[axis] == size[axis]:
+                continue
+            mat = _linear_matrix(in_dhw[axis], size[axis], device=vol.device)
+            out = torch.tensordot(mat, out, dims=([1], [axis])).movedim(
+                0, axis)
+    if _is_integer(vol.dtype):
+        out = torch.round(out)
+    return out.to(vol.dtype).contiguous()
+
+
+def resize3d_batch(vol, size, order=1):
+    """Batched resize for [N, D, H, W, C] tensors, one volume at a time."""
+    vol = torch.as_tensor(vol)
+    return torch.stack([resize3d(v, size, order) for v in vol])
+
+
+def resize_to_spacing(vol, spacing, new_spacing=None, new_shape=None,
+                      order=1):
+    """Spacing-aware resample (spacing / new_spacing / new_shape all in the
+    volume's own axis order). Either ``new_spacing`` (target mm per voxel)
+    or ``new_shape`` must be given. Returns (resampled, real_new_spacing).
+    """
+    in_dhw = np.asarray(tuple(vol.shape[:3]), dtype=np.float64)
+    spacing = None if spacing is None else np.asarray(
+        spacing, dtype=np.float64)
+    if spacing is not None and spacing.size == 4:
+        spacing = spacing[1:]
+    if new_shape is None:
+        if new_spacing is None:
+            raise ValueError("Give either new_spacing or new_shape")
+        new_spacing = np.asarray(new_spacing, dtype=np.float64)[:3]
+        new_shape = np.round(in_dhw * spacing[:3] / new_spacing)
+    else:
+        new_shape = np.asarray(new_shape, dtype=np.float64)
+        if spacing is not None:
+            new_spacing = tuple((in_dhw / new_shape) * spacing[:3])
+        else:
+            new_spacing = None
+    out = resize3d(vol, tuple(int(s) for s in new_shape), order=order)
+    return out, new_spacing

@@ -15,6 +15,12 @@ the JAX package's torch-alignment test uses
   ``running_mean``/``running_var`` (both keep the biased variance);
 * PReLU ``alpha`` <-> ``alpha`` (absent with ``elu=True``).
 
+An int8 tree moves too: where a flax kernel is the JAX package's quantized
+leaf ``{"__quant__": int8 [..., Co], "scale": f32 [Co]}``, the port's
+``state_dict`` gets ``<name>.weight.__quant__`` (int8, permuted like the
+float kernel) and ``<name>.weight.scale`` (``utils/quant.py``'s format),
+and back, so that both runners can serve the same int8 weights.
+
 Anything shaped like the parameters moves by the same map: gradients (a
 flax gradient tree <-> the port's ``.grad``s) and the SGD momentum (an
 ``optax`` trace <-> ``momentum_buffer``), so that two trainers can start
@@ -26,6 +32,10 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from .quant import QUANT_SUFFIX, SCALE_SUFFIX
+
+_FLAX_QUANT = "__quant__"  # the quantized leaf's key in the JAX package
 
 _DOWN = (("down_tr32", "DownTransition_0", 1),
          ("down_tr64", "DownTransition_1", 2),
@@ -85,10 +95,40 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _kernel_to_torch(sd, name, kernel, perm, flip=False):
+    """Store a flax kernel (an array, or a quantized leaf) under ``name``
+    with its axes permuted by ``perm``, mirrored spatially first when
+    ``flip``."""
+    def move(a):
+        a = np.asarray(a)
+        return np.transpose(a[::-1, ::-1, ::-1] if flip else a, perm)
+
+    if isinstance(kernel, dict) and _FLAX_QUANT in kernel:
+        sd[name + QUANT_SUFFIX] = torch.from_numpy(
+            np.array(move(kernel[_FLAX_QUANT]), dtype=np.int8))
+        sd[name + SCALE_SUFFIX] = _t(kernel["scale"])
+    else:
+        sd[name] = _t(move(kernel))
+
+
+def _kernel_to_flax(state_dict, name, perm, flip=False):
+    """The inverse of :func:`_kernel_to_torch`: an array, or a quantized
+    leaf of numpy arrays."""
+    def move(t):
+        a = np.transpose(t.detach().cpu().numpy(), perm)
+        return np.ascontiguousarray(a[::-1, ::-1, ::-1] if flip else a)
+
+    if name + QUANT_SUFFIX in state_dict:
+        return {_FLAX_QUANT: move(state_dict[name + QUANT_SUFFIX]),
+                "scale": state_dict[name + SCALE_SUFFIX].detach().cpu()
+                .float().numpy()}
+    return move(state_dict[name].detach().float())
+
+
 def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
     """The port VNet's ``state_dict`` from flax variables (nested dicts of
     arrays with 'params' and 'batch_stats'; without 'batch_stats', only
-    the parameters' entries)."""
+    the parameters' entries). Quantized kernels stay int8."""
     params, stats = variables["params"], variables.get("batch_stats")
     sd = OrderedDict()
     for prefix, path, kind in _layout():
@@ -98,12 +138,12 @@ def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
         if p is None:
             raise KeyError("flax variables lack " + "/".join(path))
         if kind == "conv":
-            sd[prefix + ".weight"] = _t(np.transpose(p["kernel"],
-                                                     (4, 3, 0, 1, 2)))
+            _kernel_to_torch(sd, prefix + ".weight", p["kernel"],
+                             (4, 3, 0, 1, 2))
             sd[prefix + ".bias"] = _t(p["bias"])
         elif kind == "deconv":
-            k = np.asarray(p["kernel"])[::-1, ::-1, ::-1]
-            sd[prefix + ".weight"] = _t(np.transpose(k, (3, 4, 0, 1, 2)))
+            _kernel_to_torch(sd, prefix + ".weight", p["kernel"],
+                             (3, 4, 0, 1, 2), flip=True)
             sd[prefix + ".bias"] = _t(p["bias"])
         elif kind == "bn":
             sd[prefix + ".weight"] = _t(p["scale"])
@@ -120,7 +160,7 @@ def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
 def flax_from_state_dict(state_dict) -> Dict[str, dict]:
     """The inverse of :func:`state_dict_from_flax`: flax variables
     ``{'params', 'batch_stats'}`` as nested dicts of float32 numpy
-    arrays."""
+    arrays (quantized weights as the JAX package's int8 leaves)."""
     params, stats = {}, {}
 
     def a(key):
@@ -130,14 +170,12 @@ def flax_from_state_dict(state_dict) -> Dict[str, dict]:
         if kind == "prelu" and prefix + ".alpha" not in state_dict:
             continue
         if kind == "conv":
-            _put(params, path, "kernel",
-                 np.ascontiguousarray(np.transpose(a(prefix + ".weight"),
-                                                   (2, 3, 4, 1, 0))))
+            _put(params, path, "kernel", _kernel_to_flax(
+                state_dict, prefix + ".weight", (2, 3, 4, 1, 0)))
             _put(params, path, "bias", a(prefix + ".bias"))
         elif kind == "deconv":
-            k = np.transpose(a(prefix + ".weight"), (2, 3, 4, 0, 1))
-            _put(params, path, "kernel",
-                 np.ascontiguousarray(k[::-1, ::-1, ::-1]))
+            _put(params, path, "kernel", _kernel_to_flax(
+                state_dict, prefix + ".weight", (2, 3, 4, 0, 1), flip=True))
             _put(params, path, "bias", a(prefix + ".bias"))
         elif kind == "bn":
             _put(params, path, "scale", a(prefix + ".weight"))

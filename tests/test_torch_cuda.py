@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from hypothesis import HealthCheck, example, given, settings
+from hypothesis import strategies as st
 
 from medicalseg_torch.core.state import TrainState, make_train_step
 from medicalseg_torch.deploy import infer
@@ -22,6 +24,8 @@ from medicalseg_torch.models import VNet
 from medicalseg_torch.models.losses import (CrossEntropyLoss, DiceLoss,
                                             MixedLoss)
 from medicalseg_torch.ops import conv5 as c5
+from medicalseg_torch.ops import hu_resize as hr
+from medicalseg_torch.ops import intensity, resize
 
 pytestmark = pytest.mark.cuda
 
@@ -354,3 +358,128 @@ def test_predictor_serves_on_the_card(dev, tmp_path):
         pred = np.load(path)
         assert pred.shape == (16, 16, 16) and pred.dtype == np.int32
         assert set(np.unique(pred)) <= {0, 1}
+
+
+# ----------------------------------------------------------------------
+# HU window + D resize (csrc/hu_resize.cu)
+# ----------------------------------------------------------------------
+def _raw_ct(seed, shape):
+    """Uniform in [-2000, 1000] with a NaN, a +inf and a -inf in every
+    hundred voxels or so."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-2000, 1000, shape).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.randint(0, flat.size, 3 * max(1, flat.size // 100))
+    flat[idx[0::3]], flat[idx[1::3]], flat[idx[2::3]] = (np.nan, np.inf,
+                                                         -np.inf)
+    return x
+
+
+@settings(max_examples=40, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(d=st.integers(1, 40), out_d=st.integers(1, 40),
+       h=st.integers(1, 33), w=st.integers(1, 70),
+       hu_nan=st.sampled_from([-2000.0, -300.0, 600.0]))
+@example(d=1, out_d=5, h=7, w=9, hu_nan=-2000.0)      # D == 1
+@example(d=9, out_d=1, h=5, w=3, hu_nan=-300.0)       # out_d == 1
+@example(d=16, out_d=16, h=16, w=16, hu_nan=-300.0)   # identity matrix
+@example(d=37, out_d=16, h=45, w=51, hu_nan=-300.0)   # odd H * W
+@example(d=3, out_d=7, h=1, w=1, hu_nan=0.0)          # one column
+@example(d=40, out_d=25, h=64, w=64, hu_nan=-2000.0)  # 16-byte path
+def test_hu_resize_kernel_matches_plain(dev, d, out_d, h, w, hu_nan):
+    """1e-3 on the window's 0..255 scale (measured: 3e-5, the order of two
+    f32 products)."""
+    x = torch.from_numpy(_raw_ct(d * 1000 + h * w, (d, h, w))).to(dev)
+    before = hr.LAUNCHES["hu_resize"]
+    got = hr.hu_resize_d(x, out_d, -1000.0, 400.0, hu_nan)
+    torch.cuda.synchronize()
+    assert hr.LAUNCHES["hu_resize"] == before + 1
+    assert got.shape == (out_d, h, w) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    ref = hr.hu_resize_d_plain(x, resize._linear_matrix(d, out_d, device=dev),
+                               -1000.0, 400.0, hu_nan)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    cpu = hr.hu_resize_d(x.cpu(), out_d, -1000.0, 400.0, hu_nan)
+    torch.testing.assert_close(got.cpu(), cpu, atol=1e-3, rtol=0)
+
+
+def test_hu_resize_casts_and_takes_any_strides(dev):
+    raw = np.nan_to_num(_raw_ct(5, (12, 10, 6)), posinf=900, neginf=-1900)
+    ints = torch.from_numpy(raw.astype(np.int16)).to(dev)
+    strided = torch.from_numpy(raw).to(dev).permute(2, 0, 1)
+    assert not strided.is_contiguous()
+    for x, out_d in ((ints, 7), (strided, 9)):
+        got = hr.hu_resize_d(x, out_d)
+        ref = hr.hu_resize_d_plain(
+            x.float().contiguous(),
+            resize._linear_matrix(x.shape[0], out_d, device=dev))
+        torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+def test_hu_norm_resize_on_the_card_is_the_composition(dev):
+    x = torch.from_numpy(_raw_ct(6, (23, 40, 36))).to(dev)
+    hr.reset_launches()
+    got = hr.hu_norm_resize(x, (16, 16, 16), hu_nan=-300.0)
+    assert hr.LAUNCHES["hu_resize"] == 1 and got.device.type == "cuda"
+    ref = resize.resize3d(intensity.hu_norm(x, hu_nan=-300.0), (16, 16, 16))
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    cpu = hr.hu_norm_resize(x.cpu(), (16, 16, 16), hu_nan=-300.0)
+    assert hr.LAUNCHES["hu_resize"] == 1  # a CPU tensor: the plain version
+    torch.testing.assert_close(got.cpu(), cpu, atol=1e-3, rtol=0)
+
+
+def test_hu_resize_cuda_input_never_takes_the_plain_version(dev,
+                                                            monkeypatch):
+    """With the launch failing, the wrapper raises: it does not hand a
+    CUDA tensor to the plain version."""
+    x = torch.zeros((4, 4, 4), device=dev)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    class Refused:
+        @staticmethod
+        def hu_resize_launch(*args):
+            return 1
+
+    monkeypatch.setattr(hr, "hu_resize_d_plain", plain)
+    assert hr.hu_resize_d(x, 2).device.type == "cuda"
+    monkeypatch.setattr(hr, "_lib", lambda: Refused)
+    before = hr.LAUNCHES["hu_resize"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hr.hu_resize_d(x, 2)
+    assert hr.LAUNCHES["hu_resize"] == before
+
+
+def test_predictor_serves_a_raw_scan_on_the_card(dev, tmp_path):
+    from medicalseg_torch import io as medio
+    model_cfg = {"type": "VNet", "num_classes": 2, "dtype": "bfloat16"}
+    gen = torch.Generator().manual_seed(6)
+    torch.save(VNet(num_classes=2, generator=gen).state_dict(),
+               tmp_path / "model.pt")
+    (tmp_path / "deploy.yaml").write_text(yaml.dump({"Deploy": {
+        "model": "model.stablehlo", "params": "model.pt", "transforms": [],
+        "output_op": "argmax", "input_shape_ndhwc": [1, 16, 16, 16, 1],
+        "shape_buckets": [], "model_config": model_cfg}}))
+    scan = str(tmp_path / "scan.nii.gz")
+    medio.write_image(scan, _raw_ct(7, (20, 24, 28)))
+
+    def predictor(*extra):
+        return infer.Predictor(infer.parse_args([
+            "--config", str(tmp_path / "deploy.yaml"), "--image_path", scan,
+            "--save_dir", str(tmp_path / "pred"), *extra]))
+
+    hr.reset_launches()
+    pred = predictor()
+    x = pred._preprocess(scan)
+    assert x.device.type == "cuda" and tuple(x.shape) == (1, 16, 16, 16, 1)
+    assert hr.LAUNCHES["hu_resize"] == 1
+    out = np.load(pred.run([scan])[0])
+    assert out.shape == (16, 16, 16) and hr.LAUNCHES["hu_resize"] == 2
+    out = np.load(predictor("--use_swl", "true").run([scan])[0])
+    assert out.shape == (20, 24, 28) and hr.LAUNCHES["hu_resize"] == 2
+    q = predictor("--precision", "int8")
+    assert all(t.device.type == "cuda" for t in q._qstate.values())
+    assert q._qstate["in_tr.conv1.weight.__quant__"].dtype == torch.int8
+    agree = (np.load(q.run([scan])[0]) == np.load(pred.run([scan])[0])).mean()
+    assert agree >= 0.9

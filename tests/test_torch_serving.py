@@ -123,19 +123,40 @@ def test_cli_main_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", ["use_swl", "int8", "buckets", "raw"])
 def test_unported_paths_raise_not_implemented(tmp_path, flag):
+    """What the runner does not do yet is the manifest's host transforms:
+    a non-empty ``transforms`` list raises and names its ROADMAP item, in
+    every serving mode. The modes themselves are served."""
     model_cfg = {"type": "VNet", "num_classes": 2}
     from medicalseg_torch.models import VNet
     from medicalseg_torch.utils import flax_from_state_dict
     variables = flax_from_state_dict(VNet(num_classes=2).state_dict())
     deploy = {"shape_buckets": [[16, 16, 16]]} if flag == "buckets" else {}
-    config = _deploy_dir(tmp_path, variables, model_cfg, **deploy)
+    deploy["input_shape_ndhwc"] = [1, 16, 16, 16, 1]
     extra = {"use_swl": ["--use_swl", "true"],
              "int8": ["--precision", "int8"]}.get(flag, [])
+    transforms = [{"type": "Resize3D", "size": 16}]
+    config = _deploy_dir(tmp_path, variables, model_cfg,
+                         transforms=transforms, **deploy)
     args = _args(config, str(tmp_path), str(tmp_path / "pred"), "--device",
                  "cpu", *extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predictor = infer.Predictor(args)
-        predictor._preprocess(str(tmp_path / "scan.nii.gz"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        infer.Predictor(args)
+
+    config = _deploy_dir(tmp_path, variables, model_cfg, **deploy)
+    predictor = infer.Predictor(_args(
+        config, str(tmp_path), str(tmp_path / "pred"), "--device", "cpu",
+        *extra))
+    if flag == "raw":
+        from medicalseg_torch import io as medio
+        path = str(tmp_path / "scan.nii.gz")
+        medio.write_image(path, np.random.RandomState(0).randint(
+            -1500, 800, (10, 12, 14)).astype(np.int16))
+    else:
+        path = str(tmp_path / "vol.npy")
+        np.save(path, np.random.RandomState(0).rand(16, 16, 16).astype(
+            np.float32))
+    out = np.load(predictor.run([path])[0])
+    assert out.shape == (16, 16, 16) and out.dtype == np.int32
 
 
 def test_cuda_entry_point_raises_without_gpu(tmp_path):
@@ -160,7 +181,9 @@ def test_port_imports_neither_jax_nor_medicalseg_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'medicalseg_tpu'))\n"
-        "for name in ('deploy.infer', 'core.state', 'utils.loss_utils', "
+        "for name in ('deploy.infer', 'core.state', 'core.infer', "
+        "'core.sliding_window', 'io.nifti', 'io.dicom', 'ops.hu_resize', "
+        "'ops.resize', 'ops.intensity', 'utils.quant', 'utils.loss_utils', "
         "'utils.transplant', 'cvlibs.config', 'models.losses.loss_utils', "
         "'models.losses.cross_entropy_loss', 'models.losses.dice_loss', "
         "'models.losses.mixed_loss', "
