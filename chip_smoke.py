@@ -20,6 +20,17 @@ JSON line; any failure raises and the script exits non-zero:
    views the forward pins (exact). Times (CUDA events, one warm-up,
    median of 5) of each kernel, its plain version and ``F.conv3d`` /
    ``contiguous()`` as the library yardstick, beside each kernel's bound.
+   Per bf16 head conv also: ``kernel_ms`` (the launch with the packed
+   weights kept, as the model calls it; the same number as ``ms_fused``),
+   ``pack_ms`` (packing the weights alone), ``cold_ms`` (packing and
+   launch, a weight seen for the first time), the launch geometry (tile,
+   channel tile, ring stages, K splits), ``vs_library`` (the kernel's ms
+   over the library's) and, where K is split, whether two launches agree
+   bit for bit (fatal if not). Per pin view the path that ran (16-byte
+   words or element-wise) and, beside the host-timed ``ms``, the device
+   time of the kernel and of ``contiguous()`` with the host's dispatch
+   taken out (ten calls replayed from one CUDA graph): at the small views
+   a host-timed call measures the wrapper's Python, not the copy.
 4. serve: four seeded 128^3 volumes through
    ``medicalseg_torch.deploy.infer.Predictor`` (the lung ``_tpu`` config's
    model section, a seeded init with non-trivial BN statistics, bf16,
@@ -64,7 +75,8 @@ JSON line; any failure raises and the script exits non-zero:
    (dW is rounded to bf16, as the JAX package's is) and 1e-4 in f32.
    Times as in phase 3 (the plain weight gradient once), with
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` as the library
-   yardstick.
+   yardstick, and for the input gradient the same packing, geometry,
+   ratio and repeat columns as the forward's.
 9. train: the lung ``_tpu`` config's model (bf16, per-block remat),
    optimizer, schedule and loss built by ``Config``, seeded init, batch 2
    at 128^3, seeded volumes and labels in {0, 1, 2}, through
@@ -150,11 +162,11 @@ INT8_AGREE = 0.99
 FWD_KERNELS = ("conv5_head", "conv5_stem", "conv5_fused_epilogue", "pin")
 BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head",
                "conv5_wgrad_mid")
-SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5.cu",
+SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_stem": "medicalseg_torch/csrc/conv5.cu",
-           "conv5_fused_epilogue": "medicalseg_torch/csrc/conv5.cu",
+           "conv5_fused_epilogue": "medicalseg_torch/csrc/conv5_wg.cu",
            "pin": "medicalseg_torch/csrc/pin.cu",
-           "conv5_dgrad": "medicalseg_torch/csrc/conv5.cu",
+           "conv5_dgrad": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_head": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_mid": "medicalseg_torch/csrc/conv5_wgrad.cu",
@@ -220,6 +232,22 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def graph_ms(fn, calls=10, reps=5):
+    """Device time of one ``fn()`` in ms with the host's dispatch taken out:
+    ``calls`` calls captured into one CUDA graph, the median time of a
+    replay over ``calls``. For kernels of a few microseconds, which a
+    host-timed call measures as the wrapper's Python."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps) / calls
+    del graph
+    return ms
+
+
 def new_stats(keys):
     return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "library_ms": 0.0, "bound_by": {}} for k in keys}
@@ -245,6 +273,43 @@ def conv_bound_ms(ci, co, edge, itemsize):
     ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def wg_columns(x, w, b, ep, ci, co, dgrad, ms, lib_ms, prefix=""):
+    """The extra columns of a bf16 head conv (forward: ``x`` the input;
+    ``dgrad``: ``x`` the cotangent): packing apart from the launch, the
+    geometry that ran, the ratio to the library call and, where K is
+    split, a fatal bit-for-bit repeat check. ``ms`` is the warm wrapper's
+    time, measured by the caller."""
+    n, e = x.shape[0], x.shape[1]
+    q = c5.conv5_wg_geometry(n, e, e, e, *((co, ci) if dgrad else (ci, co)))
+
+    def call():
+        return (c5.conv5_dgrad_kl(x, w) if dgrad else
+                c5.conv5_kl_fused(x, w, b, ep, "head"))
+
+    def cold():
+        c5._PACKED.clear()
+        return call()
+
+    cols = {"kernel_ms": ms,
+            "pack_ms": time_ms(lambda: c5._pack_weights_wg(w, q["nt"], dgrad)),
+            "cold_ms": time_ms(cold),
+            "geometry": {"kernel": "conv5_wg_kernel",
+                         "tile": [q["td"], q["th"], q["tw"]], "nt": q["nt"],
+                         "mt": q["mt"],
+                         "stages": {"halo": c5._WG_XS, "raw": c5._WG_RS,
+                                    "weights": q["ws"]},
+                         "splits": q["splits"], "smem": q["smem"],
+                         "grid": list(q["grid"])},
+            "vs_library": ms / lib_ms}
+    if q["splits"] > 1:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        cols["repeat_bit_identical"] = torch.equal(first, second)
+        check(cols["repeat_bit_identical"], "two launches of a split-K conv "
+              "{} disagree".format(cols["geometry"]))
+    return {prefix + k: v for k, v in cols.items()}
 
 
 # ----------------------------------------------------------------------
@@ -325,6 +390,8 @@ def phase_kernels():
         line.update(ms=ms, ms_fused=ms_f, plain_ms=plain,
                     plain_ms_fused=plain_f, library_ms=lib, bound_ms=bound,
                     bound_by=by, per_forward=count)
+        if kind == "head":
+            line.update(wg_columns(xb, w, b, ep, ci, co, False, ms_f, lib))
         emit(line)
         add("conv5_" + kind, count, ms, plain, bound, by, lib)
         add("conv5_fused_epilogue", count, ms_f, plain_f, bound, by, None)
@@ -342,9 +409,16 @@ def phase_kernels():
         plain = time_ms(lambda: c5.pin_kl_plain(view))
         nbytes = 2 * src.numel() * src.element_size()
         bound = nbytes / PEAK_BYTES * 1e3
+        dev_ms = graph_ms(lambda: c5.pin_kl(view))
+        dev_lib = graph_ms(lambda: c5.pin_kl_plain(view))
         emit({"phase": "kernels", "pin": [BATCH, e, c, e, e], "ms": ms,
               "plain_ms": plain, "library_ms": plain, "bound_ms": bound,
-              "bound_by": "bytes", "err": 0.0})
+              "bound_by": "bytes", "err": 0.0, "vs_library": ms / plain,
+              "device_ms": dev_ms, "library_device_ms": dev_lib,
+              "device_vs_library": dev_ms / dev_lib,
+              "path": c5.pin_plan(tuple(view.shape), view.stride(),
+                                  view.element_size(),
+                                  view.data_ptr())["path"]})
         add("pin", 1, ms, plain, bound, "bytes", plain)
     return stats
 
@@ -426,6 +500,8 @@ def phase_kernels_bwd():
                 x_ncdhw.shape, w_oidhw, g_ncdhw, padding=2))
             line.update(dgrad_ms=ms_d, dgrad_plain_ms=plain_d,
                         dgrad_library_ms=lib_d)
+            line.update(wg_columns(gb, w, None, None, ci, co, True, ms_d,
+                                   lib_d, prefix="dgrad_"))
             add_stats(stats, "conv5_dgrad", count, ms_d, plain_d, bound, by,
                       lib_d)
         emit(line)
@@ -433,8 +509,9 @@ def phase_kernels_bwd():
     return stats
 
 
-KERNEL_TAGS = ("conv5_mma_kernel", "conv5_kernel", "wgrad_kernel",
-               "wgrad_reduce_kernel", "pin_kernel")
+KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
+               "wgrad_kernel", "wgrad_reduce_kernel", "pin_vec_kernel",
+               "pin_kernel")
 
 
 def profile_call(fn):

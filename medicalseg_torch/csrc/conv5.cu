@@ -6,30 +6,34 @@
 //   * the head form (_conv5_head_kl, :382): general Ci, every NConv stack
 //     conv and the OutputTransition 32 -> num_classes conv; Ci, Co up to
 //     256 in one launch (the TPU needed conv5_wide's co chunks, :1550);
-//   * the stem form (_conv5_stem_kl, :423): Ci = 1, here the same kernel
-//     instantiated with one input channel per shared-memory pass;
+//   * the stem form (_conv5_stem_kl, :423): Ci = 1, here the CUDA-core
+//     kernel instantiated with one input channel per shared-memory pass;
 //   * the fused epilogue (conv5_kl_fused, :1288; _pack_ep, :360):
 //     y = PReLU_alpha((conv + b) * inv + shift), applied in f32 before the
 //     single store.
+// The same kernels compute the input gradient (the conv of the cotangent
+// with the flipped, io-transposed weight, :1380).
 //
 // Layout: x and y are [N, D, C, H, W] views given by element strides for
-// N, C, D and H; W must be the contiguous axis. Bias comes as f32 [Co], the
-// epilogue as f32 [inv(Co), shift(Co), alpha(Co)]; the wrapper packs the
-// weights for each kernel (see below), rounded to the activation dtype as
-// the JAX layer casts its kernel.
+// N, C, D and H; W must be the contiguous axis. Bias comes as f32 [Co] (the
+// warpgroup kernel also takes a null pointer: no bias), the epilogue as f32
+// [inv(Co), shift(Co), alpha(Co)]; the wrapper packs the weights for each kernel (see below),
+// rounded to the activation dtype as the JAX layer casts its kernel.
 //
 // Bound on an H100 SXM (989 TF/s bf16 tensor cores, 3.35 TB/s HBM): a 5^3
 // conv does 2 * 125 * Ci * Co FLOP per output voxel and must move
 // (Ci + Co) activations per voxel, so for Ci, Co >= 16 the FLOP bound
-// exceeds the byte bound 20-300x: the kernel is operation-bound.
+// exceeds the byte bound 20-300x: the kernel is operation-bound, and at
+// the deep levels (256 channels at 8^3 and 16^3) the 16 MB of weights
+// outweigh the activations.
 //
-// Design against that bound, two kernels behind one entry each:
-//   * conv5_mma_kernel (bf16 head form, the serving path): the conv as an
-//     implicit GEMM on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate), operands staged in shared memory and read with
-//     ldmatrix; see its own note below.
-//   * conv5_kernel (f32, where sums must stay exact f32, and the Ci = 1
-//     stem): a direct convolution on the CUDA cores. A block owns one
+// Design against that bound, two kernels, one source each:
+//   * conv5_wg_kernel (csrc/conv5_wg.cu; bf16 head form: the serving path,
+//     the training forward and the input gradient): an implicit GEMM on
+//     wgmma with warp-specialised asynchronous staging and a deterministic
+//     split of K where the grid is short of blocks.
+//   * conv5_kernel (this file; f32, where sums must stay exact f32, and the
+//     Ci = 1 stem): a direct convolution on the CUDA cores. A block owns one
 //     output depth slice, a th x tw tile of (h, w) and COT output
 //     channels; each thread keeps 2 voxels x COT accumulators in
 //     registers. For each depth tap and each group of CIC input channels
@@ -39,10 +43,7 @@
 //     value is read from device memory about 5 times (once per depth tap)
 //     instead of 125, and every weight read from shared memory (a
 //     warp-wide broadcast) feeds 2 FMAs per output channel. Its ceiling
-//     is the 67 TF/s f32 FMA rate.
-// Neither overlaps its shared-memory staging with the math yet (no
-// double buffering, cp.async or TMA), and neither uses wgmma: the next
-// steps toward the bound.
+//     is the 67 TF/s f32 FMA rate; its staging is synchronous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,189 +185,6 @@ conv5_kernel(const T* __restrict__ x, const float* __restrict__ wpk,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 head form on the tensor cores: implicit GEMM with M = output voxels,
-// N = output channels, K = (tap, Ci), as mma.sync m16n8k16 (bf16 in, f32
-// accumulate). For each depth tap and each group of KC = 16 input channels
-// the block stages the input halo tile channels-innermost [sh*sw][16] and
-// the 25 in-plane taps' weights [25][TN][16] in shared memory (rows padded
-// to 24 elements = 48 B, so the 8 rows of every ldmatrix phase fall in
-// distinct banks); each (kh, kw) tap is then the same GEMM step on a tile
-// shifted by (kh * sw + kw) voxels. 4 warps; a warp owns MF m16 fragments
-// (16 voxels each) x NF n8 fragments (8 channels each).
-// ---------------------------------------------------------------------------
-constexpr int KC = 16;    // input channels per K step (one mma depth)
-constexpr int CPAD = 24;  // shared-memory row length in bf16 elements
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int MF, int NF>
-__global__ void __launch_bounds__(MAX_THREADS)
-conv5_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ wpk,
-                 const float* __restrict__ bias, const float* __restrict__ ep,
-                 __nv_bfloat16* __restrict__ y, Geom g) {
-  constexpr int TN = 8 * NF;  // output channels per block
-  extern __shared__ uint4 smem_u4[];
-  const int sh = g.th + 2 * HALO;
-  const int sw = g.tw + 2 * HALO;
-  const int xvox = sh * sw;
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [xvox][CPAD]
-  __nv_bfloat16* swt = sx + xvox * CPAD;  // [25][TN][CPAD]
-
-  const int tiles_w = (g.w + g.tw - 1) / g.tw;
-  const int h0 = (blockIdx.x / tiles_w) * g.th;
-  const int w0 = (blockIdx.x % tiles_w) * g.tw;
-  const int od = blockIdx.y;
-  const int co_tiles = (g.co + TN - 1) / TN;
-  const int n = blockIdx.z / co_tiles;
-  const int ct = blockIdx.z % co_tiles;
-  const int chunks = (g.ci + KC - 1) / KC;
-
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int lane = t & 31;
-
-  // ldmatrix row addresses of this lane (tap (0, 0); a tap adds an offset)
-  int a_off[MF];
-#pragma unroll
-  for (int f = 0; f < MF; ++f) {
-    const int m = (warp * MF + f) * 16 + (lane & 15);
-    a_off[f] = ((m / g.tw) * sw + m % g.tw) * CPAD + (lane >> 4) * 8;
-  }
-  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * CPAD + ((lane >> 3) & 1) * 8;
-
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int f = 0; f < MF; ++f)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
-
-  const __nv_bfloat16* xn = x + n * g.xs_n;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int kd = 0; kd < KS; ++kd) {
-    const int id = od + kd - HALO;
-    if (id < 0 || id >= g.d) continue;  // uniform across the block
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int c0 = ch * KC;
-      __syncthreads();  // the previous step is done reading shared memory
-      // one halo voxel per thread and step: its 16 channels (coalesced
-      // across the warp along w) packed into two 16-byte shared stores
-      for (int v = t; v < xvox; v += blockDim.x) {
-        const int ih = h0 + v / sw - HALO;
-        const int iw = w0 + v % sw - HALO;
-        const bool inside = ih >= 0 && ih < g.h && iw >= 0 && iw < g.w;
-        const __nv_bfloat16* src =
-            xn + c0 * g.xs_c + id * g.xs_d + ih * g.xs_h + iw;
-        uint32_t packed[KC / 2];
-#pragma unroll
-        for (int c = 0; c < KC; c += 2) {
-          const bool lo_ok = inside && c0 + c < g.ci;
-          const bool hi_ok = inside && c0 + c + 1 < g.ci;
-          const __nv_bfloat16 lo = lo_ok ? src[c * g.xs_c] : zero;
-          const __nv_bfloat16 hi = hi_ok ? src[(c + 1) * g.xs_c] : zero;
-          packed[c / 2] = (uint32_t)__bfloat16_as_ushort(lo) |
-                          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(sx + v * CPAD);
-        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-      }
-      // packed weights: [co_tile][chunk][kd][25][TN][16], 16 B vectors
-      const uint4* wsrc = reinterpret_cast<const uint4*>(
-          wpk + (((size_t)ct * chunks + ch) * KS + kd) * TAPS2 * TN * KC);
-      for (int i = t; i < TAPS2 * TN * 2; i += blockDim.x)
-        *reinterpret_cast<uint4*>(swt + (i >> 1) * CPAD + (i & 1) * 8) = wsrc[i];
-      __syncthreads();
-#pragma unroll 1
-      for (int kh = 0; kh < KS; ++kh) {
-#pragma unroll
-        for (int kw = 0; kw < KS; ++kw) {
-          const int shift = (kh * sw + kw) * CPAD;
-          uint32_t a[MF][4];
-#pragma unroll
-          for (int f = 0; f < MF; ++f) ldsm_x4(a[f], sx + a_off[f] + shift);
-          const __nv_bfloat16* wt = swt + (kh * KS + kw) * TN * CPAD + b_off;
-#pragma unroll
-          for (int p = 0; p < NF / 2; ++p) {
-            uint32_t b[4];
-            ldsm_x4(b, wt + p * 16 * CPAD);
-#pragma unroll
-            for (int f = 0; f < MF; ++f) {
-              mma_bf16(acc[f][2 * p], a[f], b[0], b[1]);
-              mma_bf16(acc[f][2 * p + 1], a[f], b[2], b[3]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // accumulator fragment: rows lane/4 and lane/4 + 8, columns 2*(lane%4) + {0,1}
-#pragma unroll
-  for (int f = 0; f < MF; ++f) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = (warp * MF + f) * 16 + (lane >> 2) + half * 8;
-      const int oh = h0 + m / g.tw;
-      const int ow = w0 + m % g.tw;
-      if (oh >= g.h || ow >= g.w) continue;
-      __nv_bfloat16* yv = y + n * g.ys_n + od * g.ys_d + oh * g.ys_h + ow;
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = ct * TN + j * 8 + (lane & 3) * 2 + e;
-          if (co >= g.co) continue;
-          float v = acc[f][j][half * 2 + e] + bias[co];
-          if (ep != nullptr) {
-            v = v * ep[co] + ep[g.co + co];
-            v = v >= 0.f ? v : v * ep[2 * g.co + co];
-          }
-          yv[co * g.ys_c] = __float2bfloat16(v);
-        }
-      }
-    }
-  }
-}
-
-template <int MF, int NF>
-cudaError_t launch_mma(const void* x, const void* w, const float* b,
-                       const float* ep, void* y, const Geom& g, cudaStream_t s) {
-  if (g.th * g.tw != 64 * MF) return cudaErrorInvalidValue;
-  const int tiles = ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
-  const dim3 grid(tiles, g.d, g.n * ((g.co + 8 * NF - 1) / (8 * NF)));
-  const size_t smem = 2 * CPAD * ((size_t)(g.th + 2 * HALO) * (g.tw + 2 * HALO) +
-                                  TAPS2 * 8 * NF);
-  auto kern = conv5_mma_kernel<MF, NF>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<grid, MAX_THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), b, ep,
-      static_cast<__nv_bfloat16*>(y), g);
-  return cudaGetLastError();
-}
-
 template <typename T, int COT, int CIC>
 cudaError_t launch(const void* x, const float* w, const float* b,
                    const float* ep, void* y, const Geom& g, cudaStream_t s) {
@@ -427,31 +245,4 @@ extern "C" int conv5_launch(const void* x, const void* wpk, const void* bias,
   }
   return stem ? dispatch<float, 1>(cot, x, wf, bf, ef, y, g, s)
               : dispatch<float, 8>(cot, x, wf, bf, ef, y, g, s);
-}
-
-// Launches the bf16 head form on the tensor cores: mf (1, 2 or 4) m16
-// fragments and nf (2 or 4) n8 fragments per warp, a th x tw output tile
-// with th * tw == 64 * mf. wpk is bf16 [co_tile][Ci/16][kd][25][8*nf][16].
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int conv5_mma_launch(const void* x, const void* wpk,
-                                const void* bias, const void* ep, void* y,
-                                int mf, int nf, int th, int tw, int n, int d,
-                                int ci, int h, int w, int co, long long xs_n,
-                                long long xs_c, long long xs_d, long long xs_h,
-                                long long ys_n, long long ys_c, long long ys_d,
-                                long long ys_h, void* stream) {
-  const Geom g{n, d, ci, h, w, co, th, tw,
-               xs_n, xs_c, xs_d, xs_h, ys_n, ys_c, ys_d, ys_h};
-  const float* bf = static_cast<const float*>(bias);
-  const float* ef = static_cast<const float*>(ep);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mf * 10 + nf) {
-    case 12: return launch_mma<1, 2>(x, wpk, bf, ef, y, g, s);
-    case 14: return launch_mma<1, 4>(x, wpk, bf, ef, y, g, s);
-    case 22: return launch_mma<2, 2>(x, wpk, bf, ef, y, g, s);
-    case 24: return launch_mma<2, 4>(x, wpk, bf, ef, y, g, s);
-    case 42: return launch_mma<4, 2>(x, wpk, bf, ef, y, g, s);
-    case 44: return launch_mma<4, 4>(x, wpk, bf, ef, y, g, s);
-    default: return cudaErrorInvalidValue;
-  }
 }

@@ -1,6 +1,7 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
-hand-written CUDA kernels of ``csrc/conv5.cu`` and ``csrc/pin.cu``.
+hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5.cu``,
+``csrc/conv5_wgrad.cu`` and ``csrc/pin.cu``.
 
 Counterpart of ``medicalseg_tpu/ops/pallas_conv5.py``, forward and
 backward. The public functions keep the JAX package's layouts at their
@@ -22,10 +23,15 @@ kernels of ``csrc/conv5_wgrad.cu``, db is a plain f32 sum.
 
 One wrapper covers every 5^3 conv of V-Net: Ci from 1 to 256, Co from 1
 to 256, in bfloat16 or float32, with f32 accumulation and a single cast of
-the result. bf16 head convs run on the tensor cores
-(``conv5_mma_kernel``); f32 convs and the ``kind="stem"`` (Ci = 1) form
-run on the CUDA cores (``conv5_kernel``). No shape gate: the TPU's lane and
-VMEM eligibility rules do not apply here.
+the result. Every bf16 head conv, forward and input gradient, runs on the
+tensor cores through the warpgroup kernel (``conv5_wg_kernel`` of
+``csrc/conv5_wg.cu``: wgmma, mbarrier rings, a deterministic split of K
+where the grid is short of blocks; :func:`conv5_wg_geometry`); f32 convs
+and the ``kind="stem"`` (Ci = 1) form run on the CUDA cores
+(``conv5_kernel`` of ``csrc/conv5.cu``). The choice is by dtype and kind
+alone. No shape gate: the TPU's lane and VMEM eligibility
+rules do not apply here. The packed bf16 weights of the warpgroup kernel
+are kept while their parameter is unchanged (:func:`_packed_weight`).
 
 Every wrapper has a plain PyTorch version beside it (``*_plain``). A
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
@@ -35,6 +41,7 @@ each kernel.
 
 import ctypes
 import functools
+import weakref
 from typing import Sequence
 
 import torch
@@ -57,6 +64,9 @@ LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_fused_epilogue": 0,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_BLOCKS = 1056  # 8 blocks per SM of an H100 before tiles shrink
+_SMS = 132  # SMs of an H100: the warpgroup kernel sizes its K split by them
+_WG_XS, _WG_RS = 2, 2  # warpgroup kernel: halo-tile and raw-tile stages
+_SMEM_MAX = 227 * 1024  # shared memory a block can use on an H100
 _WGRAD_BLOCKS = 528  # wgrad: voxel splits until the grid has 4 blocks per SM
 _WGRAD_SMEM = 100 * 1024  # wgrad: shared memory of a block (2 blocks per SM)
 _WGRAD_THREADS = 384  # wgrad: the kernel's __launch_bounds__
@@ -171,8 +181,16 @@ def _conv5_lib():
     lib = _build.library("conv5")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.conv5_launch.argtypes = [vp] * 5 + [i] * 11 + [ll] * 8 + [vp]
-    lib.conv5_mma_launch.argtypes = [vp] * 5 + [i] * 10 + [ll] * 8 + [vp]
-    lib.conv5_launch.restype = lib.conv5_mma_launch.restype = ctypes.c_int
+    lib.conv5_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _conv5_wg_lib():
+    lib = _build.library("conv5_wg")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_wg_launch.argtypes = [vp] * 6 + [i] * 13 + [ll] * 8 + [vp]
+    lib.conv5_wg_launch.restype = ctypes.c_int
     return lib
 
 
@@ -193,8 +211,30 @@ def _pin_lib():
     lib = _build.library("pin")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pin_launch.argtypes = [vp, vp] + [i] * 6 + [ll] * 5 + [vp]
-    lib.pin_launch.restype = ctypes.c_int
+    lib.pin_vec_launch.argtypes = [vp, vp, ll, ll] + [i] * 3 + [ll] * 4 + [vp]
+    lib.pin_launch.restype = lib.pin_vec_launch.restype = ctypes.c_int
     return lib
+
+
+class _on_device:
+    """Make ``device`` current for a launch, and hand out the raw handle of
+    its current stream. Costs nothing where the device is current already
+    (the usual case: one card)."""
+
+    def __init__(self, device):
+        self.index = (torch.cuda.current_device() if device.index is None
+                      else device.index)
+        self.ctx = (None if self.index == torch.cuda.current_device()
+                    else torch.cuda.device(self.index))
+
+    def __enter__(self):
+        if self.ctx is not None:
+            self.ctx.__enter__()
+        return torch.cuda.current_stream(self.index).cuda_stream
+
+    def __exit__(self, *exc):
+        if self.ctx is not None:
+            self.ctx.__exit__(*exc)
 
 
 def _pow2ceil(v):
@@ -215,32 +255,148 @@ def conv5_geometry(n, d, h, w, co):
     return th, tw, cot
 
 
-def conv5_mma_geometry(n, d, h, w, co):
-    """Launch geometry of the bf16 tensor-core head kernel: (mf, nf, th,
-    tw) = m16 and n8 fragments per warp (4 warps) and the th x tw output
-    tile of 64 * mf voxels. Fragments shrink for small planes and grids."""
-    tw = min(32, _pow2ceil(w))
-    mf = 4
-    while mf > 1 and 64 * mf // tw > _pow2ceil(h):
-        mf //= 2
-    th = 64 * mf // tw
-    nf = 4 if co > 16 else 2
-    tiles = -(-h // th) * -(-w // tw)
-    if nf == 4 and tiles * d * n * -(-co // 32) < _MIN_BLOCKS:
-        nf = 2
-    return mf, nf, th, tw
+def conv5_wg_geometry(n, d, h, w, ci, co):
+    """Launch geometry of the bf16 warpgroup head kernel, a dict (a fresh
+    copy of a cached one):
+
+    * ``nt``: output channels per block (8, 32, 64 or 128: one wgmma's N),
+      ``co_tiles`` of them; ``mt``: m64 tiles per consumer warpgroup (two
+      warpgroups, at most 128 accumulators a thread), so a block owns
+      ``128 * mt`` output voxels; ``blocks_per_sm``: 2 up to 32 channels
+      (a small block, so that one block's prologue and stores overlap the
+      other's wgmmas), else 1; ``ws``: stages of the weight ring;
+    * ``td``, ``th``, ``tw``: the block's output tile over depth, rows and
+      columns, made of 8 x 8 patches (one m64 tile each; small planes
+      stack depth slices), shrunk until the block fits the card's shared
+      memory; ``sw``: the halo row pitch in voxels, ``tw + 4`` raised to 6
+      mod 8 (conflict-free 16-byte stores of the transposing producers);
+    * ``chunks`` of 16 input channels, ``stages`` = 5 * chunks (depth tap,
+      chunk) steps of the reduction, and ``splits``: blocks along that
+      reduction, more than 1 where the grid alone would leave SMs idle
+      (:func:`_wg_splits`: about one full wave of blocks, each split at
+      least one stage); split ``z`` owns stages ``[z * stages // splits,
+      (z + 1) * stages // splits)`` (:func:`conv5_wg_split_ranges`);
+    * ``x_stage``, ``r_stage``, ``smem``: bytes of one halo-tile stage
+      (two planes of 8 channels), of one raw input tile as the tensor copy
+      brings it ([td][16][th + 4][8-voxel groups]) and of the block
+      (barriers, ``ws`` weight stages of one kh row, ``_WG_XS`` halo and
+      ``_WG_RS`` raw stages); ``grid``: (voxel tiles, n * co_tiles,
+      splits)."""
+    return dict(_wg_geometry(n, d, h, w, ci, co))
 
 
-def _pack_weights_mma(w, nf):
-    """[5, 5, 5, Ci, Co] -> bf16 [Co/tn, Ci/16, 5, 25, tn, 16] (tn = 8 *
-    nf), zero-padded in Ci and Co: per (channel tile, 16-channel chunk,
-    depth tap) the kernel copies one contiguous block."""
-    ci, co = w.shape[3], w.shape[4]
-    tn = 8 * nf
-    tiles, chunks = -(-co // tn), -(-ci // 16)
-    wb = F.pad(w.to(torch.bfloat16), (0, tiles * tn - co, 0, chunks * 16 - ci))
-    return wb.reshape(K, K * K, chunks, 16, tiles, tn).permute(
-        4, 2, 0, 1, 5, 3).contiguous()
+@functools.lru_cache(maxsize=None)
+def _wg_geometry(n, d, h, w, ci, co):
+    nt = 8 if co <= 8 else 32 if co <= 32 else 64 if co <= 64 else 128
+    mt = 4 if nt == 64 else 2
+    ws = 6 if nt == 128 else 8  # stages of the weight ring
+    blocks_per_sm = 2 if nt <= 32 else 1
+    m = 128 * mt
+    tw = max(8, min(32, _pow2ceil(w)))
+    th = max(8, min(m // tw, _pow2ceil(h)))
+    td = min(m // (tw * th), _pow2ceil(d))
+    sw = tw + 2 * P + (6 - (tw + 2 * P)) % 8
+    groups = (tw + 1) // 8 + 2  # aligned 8-voxel groups that cover a halo row
+
+    def stages_bytes(td, th):
+        rows = td * (th + 2 * P)
+        plane = rows * sw * 16
+        plane += (16 - plane) % 128  # the stride between the two planes
+        return -(-2 * plane // 128) * 128, rows * 16 * groups * 16
+
+    def smem(td, th):
+        x_stage, r_stage = stages_bytes(td, th)
+        return 256 + ws * K * nt * 32 + _WG_XS * x_stage + _WG_RS * r_stage
+
+    while smem(td, th) > _SMEM_MAX // blocks_per_sm and td * th > 8:
+        if td > 1:
+            td //= 2
+        else:
+            th //= 2
+    co_tiles, chunks = -(-co // nt), -(-ci // 16)
+    stages = K * chunks
+    tiles = -(-d // td) * -(-h // th) * -(-w // tw)
+    base = tiles * n * co_tiles
+    splits = _wg_splits(base, stages, blocks_per_sm * _SMS)
+    x_stage, r_stage = stages_bytes(td, th)
+    return dict(nt=nt, mt=mt, ws=ws, blocks_per_sm=blocks_per_sm, td=td,
+                th=th, tw=tw, sw=sw, co_tiles=co_tiles, chunks=chunks, stages=stages, splits=splits, x_stage=x_stage,
+                r_stage=r_stage, smem=smem(td, th),
+                grid=(tiles, n * co_tiles, splits))
+
+
+def _wg_splits(base, stages, resident):
+    """Splits of the (depth tap, chunk) reduction for ``base`` blocks of
+    ``stages`` stages on a card that holds ``resident`` blocks at once: the
+    count that makes the launch shortest, where a launch costs its waves
+    of blocks times a block's stages (plus two for its prologue and
+    stores), and a split launch the second pass over its partials (one
+    stage and a quarter per split). The smallest count wins a tie."""
+    def cost(s):
+        waves = -(-base * s // resident)
+        return waves * (-(-stages // s) + 2) + (s > 1) * (1 + 0.25 * s)
+
+    return min(range(1, stages + 1), key=lambda s: (cost(s), s))
+
+
+def conv5_wg_split_ranges(stages, splits):
+    """The (depth tap, chunk) stages of each split of the warpgroup
+    kernel, as the kernel computes them: [(first, past-the-last), ...]."""
+    return [(z * stages // splits, (z + 1) * stages // splits)
+            for z in range(splits)]
+
+
+def _pack_weights_wg(w, nt, dgrad=False):
+    """[5, 5, 5, Ci, Co] f32 -> the warpgroup kernel's bf16 weights
+    [Co/nt, kd, Ci/16, kh, kw, nt/8, 2, 8, 8], zero-padded in Ci and Co:
+    per tap an [nt][16] K-major operand stored as 8 x 8 core matrices of
+    128 contiguous bytes (the no-swizzle shared-memory form of wgmma), per
+    (channel tile, depth tap, chunk, kh) one contiguous block for one bulk
+    copy. One pass (cast, permute) where Ci and Co fill their tiles.
+    ``dgrad``: the weight of the input gradient's conv, io-transposed by
+    index; its spatial flip is the kernel's (it walks the taps
+    backwards)."""
+    src = w.transpose(3, 4) if dgrad else w
+    ci, co = src.shape[3], src.shape[4]
+    tiles, chunks = -(-co // nt), -(-ci // 16)
+    if ci != chunks * 16 or co != tiles * nt:
+        src = F.pad(src.to(torch.bfloat16),
+                    (0, tiles * nt - co, 0, chunks * 16 - ci))
+    out = torch.empty((tiles, K, chunks, K, K, nt // 8, 2, 8, 8),
+                      dtype=torch.bfloat16, device=w.device)
+    # the packed tensor seen as [kd, kh, kw, chunk, half, k8, tile, ng, n8]
+    out.permute(1, 3, 4, 2, 6, 8, 0, 5, 7).copy_(
+        src.reshape(K, K, K, chunks, 2, 8, tiles, nt // 8, 8))
+    return out
+
+
+# id(parameter) -> (weak reference, _version, data_ptr, {form: packed})
+_PACKED = {}
+
+
+def _packed_weight(w, nt, dgrad=False):
+    """:func:`_pack_weights_wg` of ``w``, kept while the tensor ``w`` views
+    (a layer passes a permuted view of its parameter) is alive and
+    unchanged: an in-place update (an optimizer step, ``load_state_dict``)
+    moves its ``_version`` and the weights are packed again. Entries belong
+    to one tensor object and leave with it. Inference tensors carry no
+    version and are packed per call."""
+    if w.is_inference():
+        return _pack_weights_wg(w, nt, dgrad)
+    base = w if w._base is None else w._base
+    entry = _PACKED.get(id(base))
+    if (entry is None or entry[0]() is not base
+            or entry[1] != base._version or entry[2] != base.data_ptr()):
+        def drop(ref, key=id(base)):
+            if _PACKED.get(key, (None,))[0] is ref:
+                del _PACKED[key]
+
+        entry = (weakref.ref(base, drop), base._version, base.data_ptr(), {})
+        _PACKED[id(base)] = entry
+    form = (tuple(w.shape), w.stride(), w.storage_offset(), nt, dgrad)
+    if form not in entry[3]:
+        entry[3][form] = _pack_weights_wg(w.detach(), nt, dgrad)
+    return entry[3][form]
 
 
 def _pack_weights(w, dtype, cot):
@@ -278,14 +434,15 @@ def _check_conv(xk, w, b, kind, ep):
             xk.dtype))
 
 
-def _conv5_cuda(xk, w, b, kind, ep, count=None):
-    """Launch the forward kernel. ``count`` names the :data:`LAUNCHES`
-    entry of a launch made for something else than a forward conv (the
-    dgrad); by default the launch counts under its form."""
+def _conv5_cuda(xk, w, b, kind, ep, dgrad=False):
+    """Launch the forward kernel on ``xk``: the conv with ``w`` and bias
+    ``b``, or with ``dgrad`` the input gradient of that conv (``xk`` is
+    the cotangent, ``b`` is None), which counts under ``conv5_dgrad`` in
+    :data:`LAUNCHES` where a forward counts under its form."""
     if xk.device.type != "cuda":
         raise RuntimeError("conv5 kernel needs a CUDA tensor, got device "
                            + str(xk.device))
-    for t in (w, b) + tuple(ep or ()):
+    for t in (w,) + (() if b is None else (b,)) + tuple(ep or ()):
         if t.device != xk.device:
             raise RuntimeError("conv5 operands on {} and {}".format(
                 xk.device, t.device))
@@ -293,38 +450,52 @@ def _conv5_cuda(xk, w, b, kind, ep, count=None):
         raise ValueError("conv5 kernel needs W as the contiguous axis; "
                          "pin_kl the input first")
     n, d, ci, h, ww = xk.shape
-    co = w.shape[4]
-    # bf16 head convs run on the tensor cores; f32 (exact f32 sums) and
-    # the Ci = 1 stem on the CUDA cores
-    if xk.dtype == torch.bfloat16 and kind == "head":
-        mf, nf, th, tw = conv5_mma_geometry(n, d, h, ww, co)
-        tiles = -(-co // (8 * nf))
-        wpk = _pack_weights_mma(w, nf)
-        fn, cfg = _conv5_lib().conv5_mma_launch, (mf, nf, th, tw)
-    else:
-        th, tw, cot = conv5_geometry(n, d, h, ww, co)
-        tiles = -(-co // cot)
-        wpk = _pack_weights(w, xk.dtype, cot)
-        fn = _conv5_lib().conv5_launch
-        cfg = (_DTYPES[xk.dtype], int(kind == "stem"), cot, th, tw)
-    if d > 65535 or n * tiles > 65535:
-        raise ValueError("conv5 grid too large for {}".format(
-            tuple(xk.shape)))
-    bias = b.float().contiguous()
+    co = w.shape[3] if dgrad else w.shape[4]
     epk = (None if ep is None else
            torch.cat([v.float().reshape(-1) for v in ep]).contiguous())
     y = torch.empty((n, d, co, h, ww), dtype=xk.dtype, device=xk.device)
+    part = None
+    # bf16 head convs run on the tensor cores; f32 (exact f32 sums) and
+    # the Ci = 1 stem on the CUDA cores
+    if xk.dtype == torch.bfloat16 and kind == "head":
+        q = _wg_geometry(n, d, h, ww, ci, co)
+        if (q["smem"] > _SMEM_MAX // q["blocks_per_sm"]
+                or max(q["grid"][1:]) > 65535):
+            raise ValueError("conv5 launch too large for {}: {}".format(
+                tuple(xk.shape), q))
+        wpk = _packed_weight(w, q["nt"], dgrad)
+        bias = None if b is None else b.float().contiguous()
+        if q["splits"] > 1:
+            part = torch.empty((q["splits"], y.numel()), dtype=torch.float32,
+                               device=xk.device)
+        fn = _conv5_wg_lib().conv5_wg_launch
+        ptrs = (None if part is None else part.data_ptr(),)
+        cfg = (q["nt"], q["td"], q["th"], q["tw"], q["sw"], q["splits"],
+               int(dgrad))
+    else:
+        if dgrad:  # the same conv on the flipped, io-transposed weight
+            w = w.flip(0, 1, 2).transpose(3, 4)
+        th, tw, cot = conv5_geometry(n, d, h, ww, co)
+        if d > 65535 or n * -(-co // cot) > 65535:
+            raise ValueError("conv5 grid too large for {}".format(
+                tuple(xk.shape)))
+        wpk = _pack_weights(w, xk.dtype, cot)
+        bias = (torch.zeros((co,), dtype=torch.float32, device=xk.device)
+                if b is None else b.float().contiguous())
+        fn, ptrs = _conv5_lib().conv5_launch, ()
+        cfg = (_DTYPES[xk.dtype], int(kind == "stem"), cot, th, tw)
     xs, ys = xk.stride(), y.stride()
-    with torch.cuda.device(xk.device):
-        rc = fn(xk.data_ptr(), wpk.data_ptr(), bias.data_ptr(),
+    with _on_device(xk.device) as stream:
+        rc = fn(xk.data_ptr(), wpk.data_ptr(),
+                None if bias is None else bias.data_ptr(),
                 None if epk is None else epk.data_ptr(), y.data_ptr(),
-                *cfg, n, d, ci, h, ww, co,
+                *ptrs, *cfg, n, d, ci, h, ww, co,
                 xs[0], xs[2], xs[1], xs[3], ys[0], ys[2], ys[1], ys[3],
-                torch.cuda.current_stream(xk.device).cuda_stream)
+                stream)
     if rc != 0:
         raise RuntimeError("conv5 kernel launch failed: CUDA error {}".format(
             rc))
-    LAUNCHES[count or "conv5_" + kind] += 1
+    LAUNCHES["conv5_dgrad" if dgrad else "conv5_" + kind] += 1
     if ep is not None:
         LAUNCHES["conv5_fused_epilogue"] += 1
     return y
@@ -340,8 +511,9 @@ def conv5_dgrad_kl(gk, w):
     """Input gradient of :func:`conv5_kl`: ``gk`` [N, D, Co, H, W] (W
     contiguous) and the forward weight ``w`` [5, 5, 5, Ci, Co] ->
     [N, D, Ci, H, W] in g's dtype. On the card it is the forward kernel
-    (head form) on the spatially flipped, io-transposed weight with zero
-    bias, counted under ``conv5_dgrad``."""
+    (head form) on the spatially flipped, io-transposed weight with no
+    bias, counted under ``conv5_dgrad``: in bf16 the packed weight is
+    io-transposed by index and the kernel walks the taps backwards."""
     if gk.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (K, K, K) \
             or w.shape[4] != gk.shape[2]:
         raise ValueError("dgrad of g {} with weight {}".format(
@@ -351,9 +523,7 @@ def conv5_dgrad_kl(gk, w):
             gk.dtype))
     if gk.device.type == "cpu":
         return conv5_dgrad_kl_plain(gk, w)
-    wflip = w.flip(0, 1, 2).transpose(3, 4)
-    zero = torch.zeros((w.shape[3],), dtype=torch.float32, device=gk.device)
-    return _conv5_cuda(gk, wflip, zero, "head", None, count="conv5_dgrad")
+    return _conv5_cuda(gk, w, None, "head", None, dgrad=True)
 
 
 def conv5_wgrad_geometry(n, d, h, w, ci, co, kind):
@@ -497,10 +667,9 @@ def _conv5_wgrad_cuda(xk, gk, kind):
         fn = _wgrad_lib().conv5_wgrad_launch
         cfg = (_DTYPES[xk.dtype], q["ci_t"], q["cig"], q["cog"], q["kdn"],
                q["vs"], q["th"], q["tw"], q["cis"], q["cos"], q["splits"])
-    with torch.cuda.device(xk.device):
+    with _on_device(xk.device) as stream:
         rc = fn(*ptrs, *cfg, n, d, ci, h, ww, co, xs[0], xs[2], xs[1], xs[3],
-                gs[0], gs[2], gs[1], gs[3],
-                torch.cuda.current_stream(xk.device).cuda_stream)
+                gs[0], gs[2], gs[1], gs[3], stream)
     if rc != 0:
         raise RuntimeError("wgrad kernel launch failed: CUDA error {}".format(
             rc))
@@ -608,7 +777,35 @@ def pin_kl(xk: torch.Tensor):
     ``contiguous()`` (CPU). Differentiable."""
     if xk.is_contiguous():
         return xk
+    if not (torch.is_grad_enabled() and xk.requires_grad):
+        return _pin_forward(xk)  # nothing to record: skip the Function
     return _PinKL.apply(xk)
+
+
+@functools.lru_cache(maxsize=None)
+def _pin_plan(shape, stride, itemsize, misaligned):
+    return pin_plan(shape, stride, itemsize, misaligned)
+
+
+def pin_plan(shape, stride, itemsize, ptr=0):
+    """How the pin kernel copies a view of ``shape`` and element ``stride``
+    whose first element lies at address ``ptr``, a dict. The innermost
+    axes that are jointly contiguous form runs of ``run`` elements, the
+    axes outside them (``outer_shape``, ``outer_stride``, size-1 axes
+    dropped) index the runs. ``path`` is ``'vec16'`` (16-byte words over a
+    flat grid) when runs, outer strides and the address are multiples of
+    16 bytes, else ``'element'`` (a strided last axis, a misaligned base,
+    odd runs)."""
+    run, k = 1, len(shape)
+    while k > 0 and (shape[k - 1] == 1 or stride[k - 1] == run):
+        run *= shape[k - 1]
+        k -= 1
+    outer = [(s, t) for s, t in zip(shape[:k], stride[:k]) if s != 1]
+    vec = (run * itemsize % 16 == 0 and ptr % 16 == 0 and len(outer) <= 4
+           and all(t * itemsize % 16 == 0 for _, t in outer))
+    return dict(path="vec16" if vec else "element", run=run,
+                outer_shape=[s for s, _ in outer],
+                outer_stride=[t for _, t in outer])
 
 
 def _pin_cuda(xk):
@@ -619,10 +816,22 @@ def _pin_cuda(xk):
         raise ValueError("pin takes a 5-D tensor of 2- or 4-byte elements, "
                          "got {} {}".format(tuple(xk.shape), xk.dtype))
     y = torch.empty(xk.shape, dtype=xk.dtype, device=xk.device)
-    with torch.cuda.device(xk.device):
-        rc = _pin_lib().pin_launch(
-            xk.data_ptr(), y.data_ptr(), xk.element_size(), *xk.shape,
-            *xk.stride(), torch.cuda.current_stream(xk.device).cuda_stream)
+    if y.numel() == 0:
+        return y
+    size = xk.element_size()
+    plan = _pin_plan(tuple(xk.shape), xk.stride(), size, xk.data_ptr() % 16)
+    with _on_device(xk.device) as stream:
+        if plan["path"] == "vec16":
+            pad = 4 - len(plan["outer_shape"])
+            sizes = [1] * pad + plan["outer_shape"]
+            words = [0] * pad + [t * size // 16 for t in plan["outer_stride"]]
+            rc = _pin_lib().pin_vec_launch(
+                xk.data_ptr(), y.data_ptr(), y.numel() * size // 16,
+                plan["run"] * size // 16, *sizes[1:], *words, stream)
+        else:
+            rc = _pin_lib().pin_launch(
+                xk.data_ptr(), y.data_ptr(), size, *xk.shape, *xk.stride(),
+                stream)
     if rc != 0:
         raise RuntimeError("pin kernel launch failed: CUDA error {}".format(
             rc))

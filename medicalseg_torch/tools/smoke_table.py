@@ -1,0 +1,113 @@
+# Copyright 2026. Apache License 2.0.
+"""Tables from saved ``chip_smoke.py`` outputs, side by side.
+
+    python3 chip_smoke.py > a.txt; python3 chip_smoke.py > b.txt
+    python -m medicalseg_torch.tools.smoke_table a.txt b.txt
+
+Each argument is the standard output of one run (on one card: compare runs
+of one machine only). Prints, per file in the order given, the per-shape
+forward and input-gradient times of the bf16 head convs (ms, packing
+apart where the run reports it, bound, library), the pin views, the
+``kernels`` line, and the serving and training numbers. To compare two
+commits, unpack the other one with ``git archive <commit> | tar -x -C
+build/parent`` and run its ``chip_smoke.py`` on the same card, one after
+the other.
+"""
+import json
+import sys
+
+
+def load(path):
+    run = {"convs": {}, "bwd": {}, "pins": [], "kernels": {}, "card": None}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line.startswith("{"):
+                if "," in line and " W" in line and run["card"] is None:
+                    run["card"] = line
+                continue
+            try:
+                d = json.loads(line)
+            except ValueError:
+                continue
+            phase = d.get("phase")
+            if phase == "kernels" and "conv" in d:
+                run["convs"][d["conv"]] = d
+            elif phase == "kernels" and "pin" in d:
+                run["pins"].append(d)
+            elif phase == "kernels_bwd":
+                run["bwd"][d["conv"]] = d
+            elif phase in ("build", "serve", "serve_raw", "serve_swl",
+                           "train"):
+                run[phase] = d
+            elif "kernels" in d:
+                run["kernels"] = {k["name"]: k for k in d["kernels"]}
+    return run
+
+
+def fmt(v, digits=3):
+    return "-" if v is None else "{:.{}f}".format(v, digits)
+
+
+def main(paths):
+    runs = [load(p) for p in paths]
+    for path, run in zip(paths, runs):
+        print("## {} ({})".format(path, run["card"]))
+        print("| conv | Ci->Co @edge | fwd ms | fwd+epilogue ms | pack ms | "
+              "cold ms | library ms | bound ms | dgrad ms | dgrad pack ms | "
+              "dgrad library ms | splits |")
+        print("|---|---|---|---|---|---|---|---|---|---|---|---|")
+        for name, d in run["convs"].items():
+            if d["kind"] != "head":
+                continue
+            b = run["bwd"].get(name, {})
+            geo = d.get("geometry", {})
+            print("| {} | {}->{} @{} | {} | {} | {} | {} | {} | {} | {} | {} "
+                  "| {} | {} |".format(
+                      name, d["ci"], d["co"], d["shape"][1], fmt(d["ms"]),
+                      fmt(d["ms_fused"]), fmt(d.get("pack_ms")),
+                      fmt(d.get("cold_ms")), fmt(d["library_ms"]),
+                      fmt(d["bound_ms"]), fmt(b.get("dgrad_ms")),
+                      fmt(b.get("dgrad_pack_ms")),
+                      fmt(b.get("dgrad_library_ms")),
+                      geo.get("splits", "-")))
+        print()
+        print("| pin view | ms | contiguous() ms | device ms | contiguous() "
+              "device ms | bound ms | path |")
+        print("|---|---|---|---|---|---|---|")
+        for d in run["pins"]:
+            print("| {} | {} | {} | {} | {} | {} | {} |".format(
+                d["pin"], fmt(d["ms"], 4), fmt(d["library_ms"], 4),
+                fmt(d.get("device_ms"), 4),
+                fmt(d.get("library_device_ms"), 4), fmt(d["bound_ms"], 4),
+                d.get("path", "-")))
+        print()
+        print("| kernel | ms | bound ms | plain ms | library ms | launches |")
+        print("|---|---|---|---|---|---|")
+        for name, k in run["kernels"].items():
+            print("| {} | {} | {} | {} | {} | {} |".format(
+                name, fmt(k["ms"]), fmt(k["bound_ms"]), fmt(k["plain_ms"], 1),
+                fmt(k["library_ms"]), k["launches"]))
+        print()
+        s, t = run.get("serve", {}), run.get("train", {})
+        raw, swl = run.get("serve_raw", {}), run.get("serve_swl", {})
+        print("build s {} | serve ms/batch {} {} vol/s {} profile {} | raw "
+              "ms/batch {} | swl s {} | train ms/step {} {} no-remat {} "
+              "profile {}".format(
+                  fmt(run.get("build", {}).get("seconds"), 1),
+                  fmt(s.get("ms_per_batch"), 2),
+                  [round(v, 2) for v in s.get("ms_per_batch_each", [])],
+                  fmt(s.get("vol_per_s"), 1),
+                  json.dumps(s.get("profile")),
+                  [round(v, 2) for v in raw.get("ms_per_batch_each", [])],
+                  fmt(swl.get("seconds")), fmt(t.get("ms_per_step"), 2),
+                  [round(v, 2) for v in t.get("ms_per_step_each", [])],
+                  fmt(t.get("ms_per_step_no_remat"), 2),
+                  json.dumps(t.get("profile"))))
+        print()
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    main(sys.argv[1:])

@@ -106,6 +106,102 @@ def test_conv5_reads_a_strided_view(dev, dtype):
     _close(got, c5.conv5_kl_plain(x, w, b, ep), dtype)
 
 
+# The bf16 warpgroup kernel (conv5_wg_kernel): (what, [N, D, Ci, H, W], Co).
+# A K split at the deep level's width, a grid that needs no split (the
+# blocks apply bias and epilogue themselves), Co = 3 (the narrowest wgmma),
+# odd H and W in a single depth slice, and a thin plane stacked in depth.
+WG_CASES = [("split-256", (2, 8, 256, 8, 8), 256),
+            ("unsplit", (2, 40, 16, 32, 64), 32),
+            ("co3", (1, 6, 32, 24, 40), 3),
+            ("odd-d1", (1, 1, 20, 37, 45), 40),
+            ("thin", (1, 12, 32, 3, 5), 64)]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("what,shape,co", WG_CASES,
+                         ids=[c[0] for c in WG_CASES])
+def test_wg_kernel_matches_plain(dev, what, shape, co, fused):
+    x, w, b, ep = _conv_inputs(shape, co, dev, seed=2)
+    x = x.to(torch.bfloat16)
+    ep = ep if fused else None
+    n, d, ci, h, ww = shape
+    q = c5.conv5_wg_geometry(n, d, h, ww, ci, co)
+    assert (q["splits"] > 1) == (what != "unsplit")
+    got = (c5.conv5_kl_fused(x, w, b, ep) if fused else c5.conv5_kl(x, w, b))
+    torch.cuda.synchronize()
+    _close(got, c5.conv5_kl_plain(x, w, b, ep), torch.bfloat16)
+
+
+@pytest.mark.parametrize("what,shape,co", WG_CASES,
+                         ids=[c[0] for c in WG_CASES])
+def test_wg_kernel_dgrad_matches_plain(dev, what, shape, co):
+    """The input gradient through the same kernel: Ci = 3 is the head's
+    (a 16-channel chunk holding 3)."""
+    n, d, ci, h, ww = shape
+    _, w, _, _ = _conv_inputs(shape, co, dev, seed=3)
+    g = torch.from_numpy(np.random.RandomState(4).randn(
+        n, d, co, h, ww).astype(np.float32)).to(dev).to(torch.bfloat16)
+    got = c5.conv5_dgrad_kl(g, w)
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == torch.bfloat16
+    _close(got, c5.conv5_dgrad_kl_plain(g, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("what,shape,co", WG_CASES,
+                         ids=[c[0] for c in WG_CASES])
+def test_wg_kernel_repeats_bit_identically(dev, what, shape, co):
+    """No atomics: partials are summed in split order, so two launches on
+    the same operands agree bit for bit, forward and input gradient."""
+    x, w, b, ep = _conv_inputs(shape, co, dev, seed=5)
+    x = x.to(torch.bfloat16)
+    first = c5.conv5_kl_fused(x, w, b, ep)
+    assert torch.equal(first, c5.conv5_kl_fused(x, w, b, ep))
+    g = first.clone()
+    dx = c5.conv5_dgrad_kl(g, w)
+    assert torch.equal(dx, c5.conv5_dgrad_kl(g, w))
+
+
+@pytest.mark.parametrize("what", ["strided", "rows-not-16-byte-aligned",
+                                  "base-not-16-byte-aligned"])
+def test_wg_kernel_takes_any_w_contiguous_view(dev, what):
+    """Views the tensor copy cannot describe go through the kernel's scalar
+    staging path; a transposed [N, C, D, H, W] tensor goes through the
+    tensor copy with its own strides."""
+    x, w, b, ep = _conv_inputs((2, 6, 16, 12, 24), 16, dev, seed=6)
+    x = x.to(torch.bfloat16)
+    if what == "strided":
+        view = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "rows-not-16-byte-aligned":  # W = 21: row starts at 42 bytes
+        x = x[..., :21].contiguous()
+        view = x
+    else:  # a base 2 bytes into an allocation
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+    assert torch.equal(view, x)
+    got = c5.conv5_kl_fused(view, w, b, ep)
+    torch.cuda.synchronize()
+    _close(got, c5.conv5_kl_plain(x, w, b, ep), torch.bfloat16)
+
+
+def test_wg_kernel_packed_weight_follows_the_parameter(dev):
+    """The packed weights are kept per parameter and rebuilt after an
+    in-place update: the second conv sees the new values."""
+    x, w, b, _ = _conv_inputs((1, 4, 16, 8, 16), 16, dev, seed=7)
+    x = x.to(torch.bfloat16)
+    param = torch.nn.Parameter(w.permute(4, 3, 0, 1, 2).contiguous())
+    view = param.permute(2, 3, 4, 1, 0)
+    with torch.no_grad():
+        first = c5.conv5_kl(x, view, b)
+        assert torch.equal(first, c5.conv5_kl(x, param.permute(2, 3, 4, 1, 0),
+                                              b))
+        param.mul_(-1.0)
+        second = c5.conv5_kl(x, param.permute(2, 3, 4, 1, 0), b)
+    _close(second, c5.conv5_kl_plain(x, -w, b), torch.bfloat16)
+    assert not torch.equal(first, second)
+
+
 # backward kernels: (kind, [N, D, Ci, H, W], Co) at the forms of the train
 # step (stem, narrow head, square, wide) plus ragged channels and extents
 BWD_CASES = [("stem", (2, 6, 1, 16, 32), 16),
@@ -225,6 +321,31 @@ def test_pin_matches_contiguous(dev, dtype, perm):
     view = src.permute(*perm)
     got = c5.pin_kl(view)
     torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, view.contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("what,c,e", [("128-byte-runs", 256, 8),
+                                      ("plane-runs", 16, 32),
+                                      ("misaligned-base", 32, 8)])
+def test_pin_16_byte_path_and_its_exits(dev, what, c, e, dtype):
+    """[N, C, D, H, W] seen as [N, D, C, H, W]: the (H, W) plane is one
+    contiguous run (128 bytes at 8^3 in bf16) and goes as 16-byte words;
+    a base that is not 16-byte aligned goes element by element."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    numel = 2 * c * e ** 3
+    flat = torch.randn((numel + 8,), generator=gen, device=dev).to(dtype)
+    off = 1 if what == "misaligned-base" else 0
+    view = flat[off:off + numel].view(2, c, e, e, e).transpose(1, 2)
+    plan = c5.pin_plan(tuple(view.shape), view.stride(), view.element_size(),
+                       view.data_ptr())
+    assert plan["path"] == ("element" if off else "vec16")
+    assert plan["run"] == e * e
+    before = c5.LAUNCHES["pin"]
+    got = c5.pin_kl(view)
+    torch.cuda.synchronize()
+    assert c5.LAUNCHES["pin"] == before + 1
     assert got.is_contiguous() and torch.equal(got, view.contiguous())
 
 
