@@ -1,7 +1,7 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
 hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5.cu``,
-``csrc/conv5_wgrad.cu`` and ``csrc/pin.cu``.
+``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu`` and ``csrc/pin.cu``.
 
 Counterpart of ``medicalseg_tpu/ops/pallas_conv5.py``, forward and
 backward. The public functions keep the JAX package's layouts at their
@@ -18,7 +18,9 @@ boundary:
 the CPU and on the card alike (the JAX ``_conv5_kl_bwd`` / ``_pin_bwd``):
 dx is the same conv of the cotangent with the flipped, io-transposed
 weight through the forward kernel, dw comes from the weight-gradient
-kernels of ``csrc/conv5_wgrad.cu``, db is a plain f32 sum.
+kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16, Co > 16, views a tensor copy
+can describe: :func:`conv5_wgrad_form`) and ``csrc/conv5_wgrad.cu`` (the
+rest), db is a plain f32 sum.
 :func:`conv5_kl_fused` is inference-only.
 
 One wrapper covers every 5^3 conv of V-Net: Ci from 1 to 256, Co from 1
@@ -56,11 +58,13 @@ P = K // 2  # halo
 # launch counts under "conv5_head" or "conv5_stem" by its form, and also
 # under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
 # same kernel launched for a backward counts under "conv5_dgrad" only. A
-# weight gradient counts under its form: "stem" (Ci = 1), "head" (Co <= 16)
-# or "mid" (every wider conv, square or not).
+# weight gradient counts under its form (:func:`conv5_wgrad_form`): "stem"
+# (Ci = 1), "head" (Co <= 16), "tma" (bf16 wider convs on views a tensor
+# copy can describe) or "mid" (every other wider conv).
 LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
-            "conv5_wgrad_head": 0, "conv5_wgrad_mid": 0}
+            "conv5_wgrad_head": 0, "conv5_wgrad_mid": 0,
+            "conv5_wgrad_tma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_BLOCKS = 1056  # 8 blocks per SM of an H100 before tiles shrink
@@ -70,6 +74,8 @@ _SMEM_MAX = 227 * 1024  # shared memory a block can use on an H100
 _WGRAD_BLOCKS = 528  # wgrad: voxel splits until the grid has 4 blocks per SM
 _WGRAD_SMEM = 100 * 1024  # wgrad: shared memory of a block (2 blocks per SM)
 _WGRAD_THREADS = 384  # wgrad: the kernel's __launch_bounds__
+_TMA_STAGES = (3, 8)  # wgrad_tma_kernel: least and most stages of its ring
+_TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
 
 
 def reset_launches():
@@ -203,6 +209,15 @@ def _wgrad_lib():
                                            [vp])
     lib.conv5_wgrad_launch.restype = ctypes.c_int
     lib.conv5_wgrad_mma_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_tma_lib():
+    lib = _build.library("conv5_wgrad_tma")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_wgrad_tma_launch.argtypes = [vp] * 4 + [i] * 14 + [ll] * 8 + [vp]
+    lib.conv5_wgrad_tma_launch.restype = ctypes.c_int
     return lib
 
 
@@ -609,6 +624,90 @@ def conv5_wgrad_mma_geometry(n, d, h, w, ci, co):
                 smem=4 * (32 * xcs + 8 * nf * gcs), chan_blocks=chan_blocks)
 
 
+def _tma_view(t):
+    """A view the tensor copy can describe: base on 16 bytes, W contiguous,
+    every other stride a positive multiple of 8 elements (16 bytes)."""
+    return (t.data_ptr() % 16 == 0 and t.stride(4) == 1 and
+            all(s > 0 and s % 8 == 0 for s in t.stride()[:4]))
+
+
+def conv5_wgrad_form(xk, gk, kind):
+    """The weight-gradient kernel that takes these operands, named by its
+    :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): 'stem' (``kind =
+    'stem'``, Ci = 1), 'head' (Co <= 16), 'tma' (bf16, both views
+    describable by a tensor copy: ``wgrad_tma_kernel``) or 'mid' (every
+    other conv: ``wgrad_mma_kernel<4>`` in bf16, ``wgrad_kernel`` in f32).
+    Every view of the main path is contiguous after :func:`pin_kl`, so
+    every square and wide conv of a train step is 'tma'."""
+    if kind == "stem":
+        return "stem"
+    if gk.shape[2] <= 16:
+        return "head"
+    if xk.dtype == torch.bfloat16 and _tma_view(xk) and _tma_view(gk):
+        return "tma"
+    return "mid"
+
+
+def conv5_wgrad_tma_geometry(n, d, h, w, ci, co):
+    """Launch geometry of ``wgrad_tma_kernel`` (``csrc/conv5_wgrad_tma.cu``),
+    a dict (a fresh copy of a cached one):
+
+    * ``th`` x ``tw``: the voxel tile of one ring stage (tw 8, 16 or 32 by
+      W; th up to 8 rows, even: at tw = 8 a K step spans two rows);
+    * ``xrows`` x ``xw``: the x box of a stage per channel, the tile with
+      its 2-voxel halo, starting 8 columns left of the tile (a box starts
+      on 16 bytes); ``grows`` x ``gw``: the g box. Both are padded by one
+      row and, where needed, 8 columns, so that each channel of a box is an
+      odd number of 16-byte units (conflict-free fragment loads);
+    * ``x_bytes``, ``g_bytes``, ``stage``: bytes of the boxes (32 channels
+      each) and of a stage; ``stages``: as many as fit the block's shared
+      memory, 3 to 8; ``smem``: barriers and ring;
+    * ``chan_blocks``: 5 depth taps x (Ci / 32) x (Co / 32) blocks, each
+      holding 25 taps x 32 x 32 f32 accumulators (100 KB of registers, 80
+      a thread over 10 warps, one block per SM); ``splits``: blocks along
+      the voxel tiles (:func:`_wgrad_tma_splits`); ``grid``;
+    * ``threads``: 10 consumer warps and the loader warp."""
+    return dict(_wgrad_tma_geometry(n, d, h, w, ci, co))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_tma_geometry(n, d, h, w, ci, co):
+    tw = 8 if w <= 8 else 16 if w <= 16 else 32
+    th = max(2, min(8, _pow2ceil(h)))
+    xw = tw + 16 if (tw + 16) // 8 % 2 else tw + 24
+    gw = tw if tw // 8 % 2 else tw + 8
+    xrows, grows = th + 2 * P + 1, th + 1
+    x_bytes, g_bytes = 64 * xrows * xw, 64 * grows * gw
+    stage = x_bytes + g_bytes
+    stages = min(_TMA_STAGES[1], (_SMEM_MAX - _TMA_BAR_BYTES) // stage)
+    tiles = n * d * -(-h // th) * -(-w // tw)
+    chan_blocks = K * -(-ci // 32) * -(-co // 32)
+    splits = _wgrad_tma_splits(tiles, th * tw, chan_blocks, ci, co)
+    return dict(form="tma", th=th, tw=tw, xrows=xrows, xw=xw, grows=grows,
+                gw=gw, x_bytes=x_bytes, g_bytes=g_bytes, stage=stage,
+                stages=stages, smem=_TMA_BAR_BYTES + stages * stage,
+                chan_blocks=chan_blocks, splits=splits,
+                grid=(chan_blocks, splits), threads=32 * (2 * K + 1))
+
+
+def _wgrad_tma_splits(tiles, tile_vox, chan_blocks, ci, co):
+    """Blocks along the voxel tiles for ``chan_blocks`` channel blocks, one
+    block per SM: the count that makes the launch shortest by a model in
+    microseconds. A wave of blocks takes its tiles' mma work at about 60%
+    of an SM's share of the tensor cores' 989 TF/s (4.5 TF/s) plus 3 us of
+    set-up and stores; a split launch adds the second pass, which reads
+    the partials and writes dW (2.5 TB/s). The smallest count wins a
+    tie."""
+    flop_tile = 2.0 * K * K * 32 * 32 * tile_vox
+
+    def cost(s):
+        waves = -(-chan_blocks * s // _SMS)
+        block = -(-tiles // s) * flop_tile / 4.5e6 + 3.0
+        return waves * block + (s > 1) * (s + 1) * 500.0 * ci * co / 2.5e6
+
+    return min(range(1, min(tiles, 65535) + 1), key=lambda s: (cost(s), s))
+
+
 def _check_wgrad(xk, gk, kind):
     if xk.dim() != 5 or gk.dim() != 5 or (
             tuple(xk.shape[:2]) + tuple(xk.shape[3:]) !=
@@ -626,7 +725,10 @@ def _check_wgrad(xk, gk, kind):
                         "got {} and {}".format(xk.dtype, gk.dtype))
 
 
-def _conv5_wgrad_cuda(xk, gk, kind):
+def _conv5_wgrad_cuda(xk, gk, kind, form=None):
+    """Launch the weight-gradient kernel that :func:`conv5_wgrad_form`
+    names; ``form='mid'`` takes ``wgrad_mma_kernel<4>`` (bf16) where the
+    tensor-copy kernel would run, to time the two side by side."""
     if xk.device.type != "cuda" or gk.device != xk.device:
         raise RuntimeError("wgrad kernel needs CUDA tensors on one device, "
                            "got {} and {}".format(xk.device, gk.device))
@@ -635,11 +737,16 @@ def _conv5_wgrad_cuda(xk, gk, kind):
                          "pin_kl the operands first")
     n, d, ci, h, ww = xk.shape
     co = gk.shape[2]
+    form = form or conv5_wgrad_form(xk, gk, kind)
     # bf16 on the tensor cores, except the Ci = 1 stem (one row of an m16
     # fragment); f32 keeps exact f32 products and sums on the CUDA cores
-    mma = xk.dtype == torch.bfloat16 and kind != "stem"
-    q = (conv5_wgrad_mma_geometry(n, d, h, ww, ci, co) if mma else
-         conv5_wgrad_geometry(n, d, h, ww, ci, co, kind))
+    mma = xk.dtype == torch.bfloat16 and form in ("head", "mid")
+    if form == "tma":
+        q = conv5_wgrad_tma_geometry(n, d, h, ww, ci, co)
+    elif mma:
+        q = conv5_wgrad_mma_geometry(n, d, h, ww, ci, co)
+    else:
+        q = conv5_wgrad_geometry(n, d, h, ww, ci, co, kind)
     if q.get("threads", 0) > _WGRAD_THREADS:
         raise ValueError("wgrad block of {} threads exceeds {}".format(
             q["threads"], _WGRAD_THREADS))
@@ -660,7 +767,11 @@ def _conv5_wgrad_cuda(xk, gk, kind):
     xs, gs = xk.stride(), gk.stride()
     ptrs = (xk.data_ptr(), gk.data_ptr(),
             None if part is None else part.data_ptr(), out.data_ptr())
-    if mma:
+    if form == "tma":
+        fn = _wgrad_tma_lib().conv5_wgrad_tma_launch
+        cfg = (q["th"], q["tw"], q["xrows"], q["xw"], q["grows"], q["gw"],
+               q["stages"], q["splits"])
+    elif mma:
         fn = _wgrad_lib().conv5_wgrad_mma_launch
         cfg = (q["nf"], q["th"], q["tw"], q["xcs"], q["gcs"], q["splits"])
     else:
@@ -673,7 +784,7 @@ def _conv5_wgrad_cuda(xk, gk, kind):
     if rc != 0:
         raise RuntimeError("wgrad kernel launch failed: CUDA error {}".format(
             rc))
-    LAUNCHES["conv5_wgrad_" + q["form"]] += 1
+    LAUNCHES["conv5_wgrad_" + form] += 1
     return out
 
 
@@ -681,10 +792,12 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     """Weight gradient of :func:`conv5_kl`: ``xk`` [N, D, Ci, H, W] and the
     cotangent ``gk`` [N, D, Co, H, W] (same dtype, W contiguous) -> f32
     [5, 5, 5, Ci, Co]. One wrapper for every conv of V-Net (stem, narrow
-    head, square and wide stacks), no shape gate: bf16 runs on the tensor
-    cores (``wgrad_mma_kernel``) except the Ci = 1 stem, which like f32
-    runs on the CUDA cores (``wgrad_kernel``); the voxel axis is reduced
-    deterministically (partials and a second pass, no atomics).
+    head, square and wide stacks): bf16 runs on the tensor cores, the
+    square and wide convs through ``wgrad_tma_kernel`` (tensor-copy ring)
+    where :func:`conv5_wgrad_form` says 'tma', else ``wgrad_mma_kernel``;
+    the Ci = 1 stem, like f32, runs on the CUDA cores (``wgrad_kernel``);
+    the voxel axis is reduced deterministically (partials and a second
+    pass, no atomics).
 
     Rounding: the f32 sums are rounded to x's dtype and widened again.
     The JAX layer casts its f32 kernel to the activation dtype before the

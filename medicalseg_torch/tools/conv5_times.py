@@ -1,8 +1,10 @@
 # Copyright 2026. Apache License 2.0.
-"""Times of the bf16 head convs of one V-Net forward at 128^3, batch 2, on
-the card: the quick loop for work on ``csrc/conv5_wg.cu``.
+"""Times of the bf16 convs of one V-Net forward / backward at 128^3, batch
+2, on the card: the quick loop for work on ``csrc/conv5_wg.cu`` and, with
+``--wgrad``, on the weight-gradient kernels (``csrc/conv5_wgrad_tma.cu``,
+``csrc/conv5_wgrad.cu``).
 
-    python -m medicalseg_torch.tools.conv5_times
+    python -m medicalseg_torch.tools.conv5_times [--wgrad]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -12,7 +14,18 @@ bits, and prints their times with warm packed weights beside
 ``F.conv3d`` / ``conv3d_input``, the operation bound and the geometry
 that ran; last the sums over one forward / backward. CUDA events, one
 warm-up, median of five. Needs one NVIDIA GPU.
+
+``--wgrad``: builds ``conv5_wgrad_tma`` and ``conv5_wgrad`` (printing
+registers and spills of each instantiation), then per weight gradient of
+one backward (the eight square and wide convs, the 32 -> 3 head and the
+stem) the route that runs (``conv5_wgrad_form``) and its time, beside
+``wgrad_mma_kernel<4>`` forced at the square and wide shapes (the kernel
+the tensor-copy route replaced); whether a second launch gives the same
+bits; the error against ``conv5_wgrad_kl_plain`` scaled by the result's
+magnitude (fatal above 2e-2); ``conv3d_weight``; the operation bound; the
+geometry; last the sums over one backward.
 """
+import argparse
 import sys
 
 import numpy as np
@@ -47,11 +60,78 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def ptxas_lines(name, tag):
+    """Build ``csrc/<name>.cu`` and print what ``-Xptxas -v`` says of each
+    kernel whose name holds ``tag``: registers, spills."""
+    log = _build.build([name])[name].with_suffix(".log")
+    lines = log.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            print(line.split("'")[1][:60], *(
+                l.strip() for l in lines[i + 1:i + 4] if "Compiling" not in l))
+        elif "warning" in line.lower():
+            print(line[:200])
+
+
+def wgrad_main():
+    print(torch.cuda.get_device_name(0))
+    ptxas_lines("conv5_wgrad_tma", "wgrad_tma")
+    ptxas_lines("conv5_wgrad", "wgrad")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = np.zeros(3)
+    for name, ci, co, e, count in CONVS + [("in_tr", 1, 16, 128, 1)]:
+        kind = "stem" if ci == 1 else "head"
+        x = torch.randn((BATCH, e, ci, e, e), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        g = torch.randn((BATCH, e, co, e, e), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        form = c5.conv5_wgrad_form(x, g, kind)
+        got = c5._conv5_wgrad_cuda(x, g, kind)
+        same = torch.equal(got, c5._conv5_wgrad_cuda(x, g, kind))
+        ref = c5.conv5_wgrad_kl_plain(x, g)
+        err = ((got - ref).abs() / (ref.abs().max() + ref.abs())).max().item()
+        del got, ref
+        ms = time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind))
+        old = (time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind, form="mid"))
+               if form == "tma" else ms)
+        xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            xn, (co, ci, 5, 5, 5), gn, padding=2))
+        del xn, gn
+        q = (c5.conv5_wgrad_tma_geometry(BATCH, e, e, e, ci, co)
+             if form == "tma" else
+             c5.conv5_wgrad_mma_geometry(BATCH, e, e, e, ci, co)
+             if kind == "head" else
+             c5.conv5_wgrad_geometry(BATCH, e, e, e, ci, co, kind))
+        flops = 2.0 * BATCH * e ** 3 * 125 * ci * co
+        geo = {k: q[k] for k in ("th", "tw", "stages", "splits", "chan_blocks",
+                                 "smem") if k in q}
+        print("{:10s} route {} wgrad {:.3f} mma4 {:.3f} conv3d_weight {:.3f} "
+              "bound {:.4f} TF/s {:.0f} scaled_err {:.2e} repeats {} "
+              "geometry {}".format(name, form, ms, old, lib,
+                                   flops / PEAK_BF16 * 1e3, flops / ms / 1e9,
+                                   err, same, geo), flush=True)
+        total += count * np.array([ms, old, lib])
+        if not (err <= 2e-2 and same):
+            sys.exit("conv5_times: {} wgrad disagrees with its plain version "
+                     "or does not repeat".format(name))
+        del x, g
+    print("per backward: wgrad {:.2f} mma4 {:.2f} conv3d_weight {:.2f}".format(
+        *total))
+
+
 def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--wgrad", action="store_true",
+                        help="time the weight gradients instead")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("conv5_times: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.wgrad:
+        return wgrad_main()
     print(torch.cuda.get_device_name(0))
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()

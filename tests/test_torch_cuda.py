@@ -234,14 +234,84 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     c5.reset_launches()
     got = c5.conv5_wgrad_kl(x, g, kind)
     torch.cuda.synchronize()
-    form = c5.conv5_wgrad_geometry(shape[0], shape[1], shape[3], shape[4],
-                                   shape[2], co, kind)["form"]
+    form = c5.conv5_wgrad_form(x, g, kind)
+    # bf16 square and wide convs on W-aligned views take the tensor-copy
+    # kernel; the ragged views (W = 100, W = 10) keep wgrad_mma_kernel<4>
+    assert (form == "tma") == (dtype == torch.bfloat16 and co > 16 and
+                               shape[4] % 8 == 0)
     assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
+    assert sum(c5.LAUNCHES.values()) == 1
     assert got.shape == (5, 5, 5, shape[2], co)
     assert got.dtype == torch.float32
     _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), dtype)
     # deterministic: no atomics in the voxel reduction
     assert torch.equal(got, c5.conv5_wgrad_kl(x, g, kind))
+
+
+# The tensor-copy weight-gradient kernel (wgrad_tma_kernel): (what, [N, D,
+# Ci, H, W], Co) at Ci = Co in {32, 64, 128, 256} and each tile width (tw
+# 32, 16, 8), with split and unsplit voxel axes
+TMA_CASES = [("c32-tw32-split", (2, 6, 32, 16, 32), 32),
+             ("c64-tw16-split", (1, 6, 64, 12, 16), 64),
+             ("c128-tw32", (1, 4, 128, 8, 24), 128),
+             ("c256-tw8", (2, 4, 256, 8, 8), 256),
+             ("ci40-co48", (1, 3, 40, 6, 24), 48)]
+
+
+def _wgrad_operands(shape, co, dev, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    g = torch.from_numpy(rng.randn(*shape[:2], co, *shape[3:]).astype(
+        np.float32))
+    return x.to(dev).bfloat16(), g.to(dev).bfloat16()
+
+
+@pytest.mark.parametrize("what,shape,co", TMA_CASES,
+                         ids=[c[0] for c in TMA_CASES])
+def test_wgrad_tma_kernel_matches_plain_and_repeats(dev, what, shape, co):
+    """Against the plain version (scaled bf16 tolerance), bit for bit on a
+    second launch (the split partials are summed in a fixed order), and
+    counted under its own key."""
+    x, g = _wgrad_operands(shape, co, dev, seed=10)
+    n, d, ci, h, w = shape
+    q = c5.conv5_wgrad_tma_geometry(n, d, h, w, ci, co)
+    if "split" in what:
+        assert q["splits"] > 1
+    c5.reset_launches()
+    got = c5.conv5_wgrad_kl(x, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
+        "conv5_wgrad_tma": 1}
+    _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
+    assert torch.equal(got, c5.conv5_wgrad_kl(x, g))
+
+
+@pytest.mark.parametrize("what", ["ncdhw-view", "g-view", "unaligned-base",
+                                  "rows-not-16-byte-aligned"])
+def test_wgrad_tma_kernel_views(dev, what):
+    """A transposed [N, C, D, H, W] tensor is a view the tensor copy can
+    describe (its own strides, no copy); a base 2 bytes into an allocation
+    or W = 20 is not, and goes to wgrad_mma_kernel<4>. Both agree with the
+    plain version."""
+    x, g = _wgrad_operands((2, 5, 32, 8, 24), 64, dev, seed=11)
+    if what == "ncdhw-view":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "g-view":
+        g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "unaligned-base":
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        x = view
+    else:
+        x, g = x[..., :20].contiguous(), g[..., :20].contiguous()
+    want = "tma" if what.endswith("view") else "mid"
+    assert c5.conv5_wgrad_form(x, g, "head") == want
+    c5.reset_launches()
+    got = c5.conv5_wgrad_kl(x, g)
+    torch.cuda.synchronize()
+    assert c5.LAUNCHES["conv5_wgrad_" + want] == 1
+    _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -424,8 +494,12 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     assert c5.LAUNCHES["conv5_head"] == 15 * fwd
     assert c5.LAUNCHES["conv5_stem"] == fwd
     assert c5.LAUNCHES["conv5_dgrad"] == 15
+    # the 14 square and wide weight gradients: the tensor-copy kernel in
+    # bf16, the CUDA-core kernel in f32
+    wide = (0, 14) if dtype == torch.bfloat16 else (14, 0)
     assert (c5.LAUNCHES["conv5_wgrad_stem"], c5.LAUNCHES["conv5_wgrad_head"],
-            c5.LAUNCHES["conv5_wgrad_mid"]) == (1, 1, 14)
+            c5.LAUNCHES["conv5_wgrad_mid"],
+            c5.LAUNCHES["conv5_wgrad_tma"]) == (1, 1) + wide
     assert c5.LAUNCHES["conv5_fused_epilogue"] == 0
     for name, p in state.model.named_parameters():
         assert p.grad is not None, name
