@@ -74,7 +74,7 @@ _SMEM_MAX = 227 * 1024  # shared memory a block can use on an H100
 _WGRAD_BLOCKS = 528  # wgrad: voxel splits until the grid has 4 blocks per SM
 _WGRAD_SMEM = 100 * 1024  # wgrad: shared memory of a block (2 blocks per SM)
 _WGRAD_THREADS = 384  # wgrad: the kernel's __launch_bounds__
-_TMA_STAGES = (3, 8)  # wgrad_tma_kernel: least and most stages of its ring
+_TMA_MAX_STAGES = 8  # wgrad_tma_kernel: most stages of its ring
 _TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
 
 
@@ -679,11 +679,11 @@ def _wgrad_tma_geometry(n, d, h, w, ci, co):
     xrows, grows = th + 2 * P + 1, th + 1
     x_bytes, g_bytes = 64 * xrows * xw, 64 * grows * gw
     stage = x_bytes + g_bytes
-    stages = min(_TMA_STAGES[1], (_SMEM_MAX - _TMA_BAR_BYTES) // stage)
+    stages = min(_TMA_MAX_STAGES, (_SMEM_MAX - _TMA_BAR_BYTES) // stage)
     tiles = n * d * -(-h // th) * -(-w // tw)
     chan_blocks = K * -(-ci // 32) * -(-co // 32)
     splits = _wgrad_tma_splits(tiles, th * tw, chan_blocks, ci, co)
-    return dict(form="tma", th=th, tw=tw, xrows=xrows, xw=xw, grows=grows,
+    return dict(th=th, tw=tw, xrows=xrows, xw=xw, grows=grows,
                 gw=gw, x_bytes=x_bytes, g_bytes=g_bytes, stage=stage,
                 stages=stages, smem=_TMA_BAR_BYTES + stages * stage,
                 chan_blocks=chan_blocks, splits=splits,
@@ -693,11 +693,11 @@ def _wgrad_tma_geometry(n, d, h, w, ci, co):
 def _wgrad_tma_splits(tiles, tile_vox, chan_blocks, ci, co):
     """Blocks along the voxel tiles for ``chan_blocks`` channel blocks, one
     block per SM: the count that makes the launch shortest by a model in
-    microseconds. A wave of blocks takes its tiles' mma work at about 60%
-    of an SM's share of the tensor cores' 989 TF/s (4.5 TF/s) plus 3 us of
-    set-up and stores; a split launch adds the second pass, which reads
-    the partials and writes dW (2.5 TB/s). The smallest count wins a
-    tie."""
+    microseconds. A wave of blocks takes its tiles' mma work at 4.5 TF/s
+    an SM (60% of an SM's share of 989 TF/s, what ``mma.sync`` can reach)
+    plus 3 us of set-up and stores; a split launch adds the second pass,
+    which reads the partials and writes dW (2.5 TB/s). The smallest count
+    wins a tie."""
     flop_tile = 2.0 * K * K * 32 * 32 * tile_vox
 
     def cost(s):

@@ -23,10 +23,16 @@ stem) the route that runs (``conv5_wgrad_form``) and its time, beside
 the tensor-copy route replaced); whether a second launch gives the same
 bits; the error against ``conv5_wgrad_kl_plain`` scaled by the result's
 magnitude (fatal above 2e-2); ``conv3d_weight``; the operation bound; the
-geometry; last the sums over one backward.
+geometry; last the sums over one backward. ``--variant SRC.cu`` (any
+number) builds each candidate source of ``conv5_wgrad_tma.cu`` (same C
+interface) with the same flags and times it beside the built kernel at
+the shapes the tensor-copy route takes, with the same checks.
 """
 import argparse
+import ctypes
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,13 +79,35 @@ def ptxas_lines(name, tag):
             print(line[:200])
 
 
-def wgrad_main():
+def build_variant(src):
+    """Compile a candidate of ``csrc/conv5_wgrad_tma.cu`` beside the built
+    libraries; print its registers and spills; return the loaded library."""
+    out = _build.BUILD_DIR / "variant-{}.so".format(Path(src).stem)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(src)], capture_output=True, text=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if any(k in line for k in ("registers", "spill", "error", "C75")):
+            print(Path(src).name, line.strip()[:160])
+    if proc.returncode:
+        sys.exit("conv5_times: {} does not build".format(src))
+    lib = ctypes.CDLL(str(out))
+    ref = c5._wgrad_tma_lib().conv5_wgrad_tma_launch
+    lib.conv5_wgrad_tma_launch.argtypes = ref.argtypes
+    lib.conv5_wgrad_tma_launch.restype = ref.restype
+    return lib
+
+
+def wgrad_main(variants):
     print(torch.cuda.get_device_name(0))
     ptxas_lines("conv5_wgrad_tma", "wgrad_tma")
     ptxas_lines("conv5_wgrad", "wgrad")
+    built = c5._wgrad_tma_lib
+    libs = [(Path(v).name, build_variant(v)) for v in variants]
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = np.zeros(3)
+    totals = {}  # variant: its sum over the square and wide convs
     for name, ci, co, e, count in CONVS + [("in_tr", 1, 16, 128, 1)]:
         kind = "stem" if ci == 1 else "head"
         x = torch.randn((BATCH, e, ci, e, e), generator=gen,
@@ -107,6 +135,23 @@ def wgrad_main():
         flops = 2.0 * BATCH * e ** 3 * 125 * ci * co
         geo = {k: q[k] for k in ("th", "tw", "stages", "splits", "chan_blocks",
                                  "smem") if k in q}
+        if form == "tma":
+            totals["built"] = totals.get("built", 0.0) + count * ms
+        for vname, lib in (libs if form == "tma" else []):
+            c5._wgrad_tma_lib = lambda lib=lib: lib
+            try:
+                got = c5._conv5_wgrad_cuda(x, g, kind)
+                ref = c5.conv5_wgrad_kl_plain(x, g)
+                v_err = ((got - ref).abs() /
+                         (ref.abs().max() + ref.abs())).max().item()
+                v_same = torch.equal(got, c5._conv5_wgrad_cuda(x, g, kind))
+                del got, ref
+                v_ms = time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind))
+            finally:
+                c5._wgrad_tma_lib = built
+            print("{:10s} variant {} wgrad {:.3f} scaled_err {:.2e} repeats "
+                  "{}".format(name, vname, v_ms, v_err, v_same), flush=True)
+            totals[vname] = totals.get(vname, 0.0) + count * v_ms
         print("{:10s} route {} wgrad {:.3f} mma4 {:.3f} conv3d_weight {:.3f} "
               "bound {:.4f} TF/s {:.0f} scaled_err {:.2e} repeats {} "
               "geometry {}".format(name, form, ms, old, lib,
@@ -119,19 +164,25 @@ def wgrad_main():
         del x, g
     print("per backward: wgrad {:.2f} mma4 {:.2f} conv3d_weight {:.2f}".format(
         *total))
+    for vname, ms in totals.items():
+        print("per backward, square and wide convs: variant {} {:.2f}".format(
+            vname, ms))
 
 
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--wgrad", action="store_true",
                         help="time the weight gradients instead")
+    parser.add_argument("--variant", action="append", default=[],
+                        help="with --wgrad: a candidate conv5_wgrad_tma.cu "
+                        "to time beside the built one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("conv5_times: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.wgrad:
-        return wgrad_main()
+        return wgrad_main(args.variant)
     print(torch.cuda.get_device_name(0))
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()

@@ -494,9 +494,11 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     assert c5.LAUNCHES["conv5_head"] == 15 * fwd
     assert c5.LAUNCHES["conv5_stem"] == fwd
     assert c5.LAUNCHES["conv5_dgrad"] == 15
-    # the 14 square and wide weight gradients: the tensor-copy kernel in
-    # bf16, the CUDA-core kernel in f32
-    wide = (0, 14) if dtype == torch.bfloat16 else (14, 0)
+    # the 14 square and wide weight gradients: in bf16 the tensor-copy
+    # kernel where W is a multiple of 8 (7 convs at 32, 16 and 8 at this
+    # input; all 14 at 128^3) and wgrad_mma_kernel<4> at W = 4 and 2; in
+    # f32 the CUDA-core kernel
+    wide = (7, 7) if dtype == torch.bfloat16 else (14, 0)
     assert (c5.LAUNCHES["conv5_wgrad_stem"], c5.LAUNCHES["conv5_wgrad_head"],
             c5.LAUNCHES["conv5_wgrad_mid"],
             c5.LAUNCHES["conv5_wgrad_tma"]) == (1, 1) + wide
