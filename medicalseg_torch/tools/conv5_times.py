@@ -75,7 +75,7 @@ def ptxas_lines(name, tag):
         if "Compiling entry function" in line and tag in line:
             print(line.split("'")[1][:60], *(
                 l.strip() for l in lines[i + 1:i + 4] if "Compiling" not in l))
-        elif "warning" in line.lower():
+        elif "warning" in line.lower() or "(C75" in line:
             print(line[:200])
 
 
@@ -137,8 +137,8 @@ def wgrad_main(variants):
                                  "smem") if k in q}
         if form == "tma":
             totals["built"] = totals.get("built", 0.0) + count * ms
-        for vname, lib in (libs if form == "tma" else []):
-            c5._wgrad_tma_lib = lambda lib=lib: lib
+        for vname, vlib in (libs if form == "tma" else []):
+            c5._wgrad_tma_lib = lambda vlib=vlib: vlib
             try:
                 got = c5._conv5_wgrad_cuda(x, g, kind)
                 ref = c5.conv5_wgrad_kl_plain(x, g)
