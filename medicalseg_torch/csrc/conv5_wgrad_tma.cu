@@ -54,10 +54,11 @@
 // pitch is 4 mod 8 words and the 8 channels x 4 words of a fragment load
 // hit 32 different banks.
 // The voxel axis is split over blocks; each writes a partial dW and
-// wgrad_reduce_kernel sums the partials in split order: no atomics, two runs
-// are bit-identical. An mbarrier wait that never completes traps (a
-// protocol fault is an error, not a hang). What is not done yet: wgmma (the
-// operands are already in shared memory, K-major for g).
+// wgrad_tma_reduce_kernel sums the partials in split order: no atomics, two
+// runs are bit-identical. An mbarrier wait that never completes traps (a
+// protocol fault is an error, not a hang). Not done yet: wgmma. With A (x)
+// from these registers ptxas serializes it for want of registers beside the
+// 80 accumulators (times in PERF.md, next steps in ROADMAP.md).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
