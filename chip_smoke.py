@@ -69,9 +69,11 @@ JSON line; any failure raises and the script exits non-zero:
    their plain versions: the input gradient (the forward kernel on the
    flipped, io-transposed weight; not for the stem, whose input is the
    image) with the forward's tolerances, and the weight gradient in its
-   three forms (stem, narrow head, square / wide: the tensor-copy kernel of
-   ``csrc/conv5_wgrad_tma.cu``, with a fatal bit-for-bit repeat check and
-   its geometry). dW sums one product per
+   three forms (stem; narrow head and square / wide: the two tensor-copy
+   kernels of ``csrc/conv5_wgrad_tma.cu``, each with a fatal bit-for-bit
+   repeat check and its geometry; at the narrow head also the time of
+   ``wgrad_mma_kernel<1>``, the kernel it replaced, forced in the same
+   process as ``wgrad_old_ms``). dW sums one product per
    voxel, up to 4.2 M of them, so its tolerance is relative to the
    tensor's magnitude: |d| <= tol * (max |dW| + |dW|), tol = 2e-2 in bf16
    (dW is rounded to bf16, as the JAX package's is) and 1e-4 in f32.
@@ -88,8 +90,8 @@ JSON line; any failure raises and the script exits non-zero:
    after step 1 every parameter has a finite, non-zero gradient; the
    launch counts of the three timed steps are what the model implies (per
    step, with remat recomputing each block once: 2 x 16 forward convs, 15
-   dgrads, 16 wgrads as 1 stem + 1 head + 14 square / wide on the
-   tensor-copy kernel, 2 x 8 forward pins and
+   dgrads, 16 wgrads as 1 stem + 1 narrow head + 14 square / wide, both
+   of the latter on the tensor-copy kernels, 2 x 8 forward pins and
    none in the backward); step 1's loss and per-parameter gradients agree
    with the plain-version path from the same state and masks (loss within
    1e-2 relative, each leaf's gradient within a relative L2 error of
@@ -163,7 +165,7 @@ HU_TOL = 1e-3  # hu_resize vs plain, on the window's 0..255 scale
 # with the same argmax
 INT8_AGREE = 0.99
 FWD_KERNELS = ("conv5_head", "conv5_stem", "conv5_fused_epilogue", "pin")
-BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head",
+BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head_tma",
                "conv5_wgrad_tma")
 SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_stem": "medicalseg_torch/csrc/conv5.cu",
@@ -173,6 +175,7 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_head": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
+           "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
 REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_stem": "medicalseg_tpu/ops/pallas_conv5.py:423",
@@ -182,6 +185,7 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_head": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_tma": "medicalseg_tpu/ops/pallas_conv5.py:832",
+            "conv5_wgrad_head_tma": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86"}
 TRAIN_SEED = 0
 # kernel path vs plain path, relative L2 error per leaf. bf16 at 128^3:
@@ -496,8 +500,10 @@ def phase_kernels_bwd():
         line.update(wgrad_ms=ms_w, wgrad_plain_ms=plain_w,
                     wgrad_library_ms=lib_w, bound_ms=bound, bound_by=by,
                     per_step=count)
-        if form == "conv5_wgrad_tma":
-            q = c5.conv5_wgrad_tma_geometry(BATCH, e, e, e, ci, co)
+        if form in ("conv5_wgrad_tma", "conv5_wgrad_head_tma"):
+            q = (c5.conv5_wgrad_tma_geometry if form == "conv5_wgrad_tma"
+                 else c5.conv5_wgrad_head_tma_geometry)(BATCH, e, e, e, ci,
+                                                         co)
             first, second = (c5.conv5_wgrad_kl(xb, gb, kind) for _ in "12")
             torch.cuda.synchronize()
             line.update(wgrad_repeat_bit_identical=torch.equal(first, second),
@@ -507,6 +513,10 @@ def phase_kernels_bwd():
             check(line["wgrad_repeat_bit_identical"], "two launches of the "
                   "{} weight gradient disagree".format(name))
             del first, second
+        if form == "conv5_wgrad_head_tma":
+            # the kernel this route replaced, forced, in the same process
+            line["wgrad_old_ms"] = time_ms(lambda: c5._conv5_wgrad_cuda(
+                xb, gb, kind, form="head").to(torch.bfloat16).float())
         add_stats(stats, form, count, ms_w, plain_w, bound, by, lib_w)
         if kind != "stem":
             ms_d = time_ms(lambda: c5.conv5_dgrad_kl(gb, w))
@@ -525,8 +535,8 @@ def phase_kernels_bwd():
 
 KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                "wgrad_kernel", "wgrad_reduce_kernel", "wgrad_tma_kernel",
-               "wgrad_tma_reduce_kernel", "pin_vec_kernel",
-               "pin_kernel")
+               "wgrad_tma_reduce_kernel", "wgrad_head_tma_kernel",
+               "pin_vec_kernel", "pin_kernel")
 
 
 def profile_call(fn):
@@ -1053,8 +1063,9 @@ def phase_train():
     fwd = 2  # remat: each block's forward runs again in the backward
     expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 3 * fwd,
               "conv5_fused_epilogue": 0, "conv5_dgrad": 3 * 15,
-              "conv5_wgrad_stem": 3, "conv5_wgrad_head": 3,
-              "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 3 * 14}
+              "conv5_wgrad_stem": 3, "conv5_wgrad_head": 0,
+              "conv5_wgrad_head_tma": 3, "conv5_wgrad_mid": 0,
+              "conv5_wgrad_tma": 3 * 14}
     got = {k: launches[k] for k in expect}
     check(got == expect, "launch counts {} != expected {}".format(
         got, expect))

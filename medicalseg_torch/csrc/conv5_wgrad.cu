@@ -36,7 +36,10 @@
 // to 125 x 256 x 256) get few splits and many (ci tile, co tile, kd) blocks
 // (grid.y), shallow levels the opposite.
 //   * wgrad_mma_kernel: bf16, every form but the stem, on the tensor cores
-//     (mma.sync m16n8k16); see its own note below.
+//     (mma.sync m16n8k16); see its own note below. On the main path the
+//     square and wide convs (<4>) and the narrow head (<1>) run the
+//     tensor-copy kernels of csrc/conv5_wgrad_tma.cu instead; this one
+//     keeps the views a tensor copy cannot describe.
 //   * wgrad_kernel: f32 (exact f32 products and sums) and the Ci = 1 stem,
 //     on the CUDA cores. grid.y picks a (ci tile, co tile) of dW and, when
 //     kdn == 1, the depth tap kd; with kdn == 5 (the stem, where g is the

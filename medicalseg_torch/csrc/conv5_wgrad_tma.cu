@@ -1,6 +1,7 @@
 // Weight gradient of the 5^3 SAME convolution (stride 1), bf16, for the
-// square and wide convs (Co > 16), fed by an asynchronous TMA ring, for
-// Hopper (sm_90a):
+// square and wide convs (Co > 16) and, with the taps moved onto g, the
+// narrow heads (Co <= 16), fed by an asynchronous TMA ring, for Hopper
+// (sm_90a):
 //
 //   dW[kd, kh, kw, ci, co] =
 //       sum over (n, d, h, w) of x[n, d+kd-2, ci, h+kh-2, w+kw-2] * g[n, d, co, h, w]
@@ -11,8 +12,11 @@
 // Replaces medicalseg_tpu/ops/pallas_conv5.py:_wgrad_mid_kernel_ck /
 // _wgrad_mid_kernel (:697, :646; pallas_call :832), and the 128- and
 // 256-channel stacks that the JAX package leaves to XLA's VJP
-// (_conv5_kl_bwd, :1374-1402). csrc/conv5_wgrad.cu keeps the narrow head
-// (Co <= 16), the stem, f32, and the views a tensor copy cannot describe.
+// (_conv5_kl_bwd, :1374-1402); wgrad_head_tma_kernel (below) replaces the
+// narrow-head branch of _wgrad_kernel_ck / _wgrad_kernel (:539, :465;
+// pallas_call :912 via _conv5_wgrad_kl, :863), which also puts the taps on
+// g (:890, :896-900). csrc/conv5_wgrad.cu keeps the stem, f32, and the
+// views a tensor copy cannot describe.
 //
 // Layout: x [N, D, Ci, H, W] and g [N, D, Co, H, W] are views given by
 // element strides for N, C, D and H; W is the contiguous axis, and each
@@ -318,6 +322,191 @@ wgrad_tma_kernel(float* __restrict__ part, const __grid_constant__ CUtensorMap x
       }
 }
 
+// ---- the narrow head (Co <= 16): taps on g ----
+//
+// dW[kd, kh, kw, ci, co] = sum over u of x[ci, u] * g[co, u - tap + 2]
+// (u = v + tap - 2), so for each (kd, kh) one GEMM with M = ci (32), N =
+// (co, kw) (3 channels x 5 taps = 15, padded to 16: two n8 tiles) and K =
+// voxels u, x unshifted and g shifted. A block owns 32 input channels x 3
+// output channels x all 25 (kd, kh): 25 x 32 x 16 f32 accumulators, 40 a
+// thread over 10 warps, so each x box is staged once (the taps-on-x form
+// stages it once per kd). Warp (kd, n8 tile) holds the 5 kh x 2 m16 tiles
+// of its depth tap; all ten read the same A words, but each its own B
+// words, so no two warps load the same g word. A K step is 16 consecutive
+// w of one tile row. Per stage the loader brings the x box [32 ci][rows]
+// [cols] at the tile (no halo) and the g box [5 d][3 co][rows][cols] that
+// covers every shift: depths ud - 2 .. ud + 2, rows h0 - 2 .., columns from
+// 8 left of the tile (a box starts on 16 bytes). A thread's B column n =
+// (co, kw) is fixed, so its shift is too: at an even kw a B register is the
+// aligned word, at an odd kw __byte_perm(lo, hi, 0x5432) of two; the
+// thread uses one selector for both (0x3210 keeps lo). Column 15 is
+// padding and its B is masked to zero. Bound: at 32 -> 3 the operations
+// (0.10 ms at 989 TF/s for 2 x 128^3) and the bytes of x (0.09 ms) are
+// close; what limits the kernel is its shared-memory loads, 28 a warp per
+// K step (8 of x, 20 of g) for 10 mma.sync.
+constexpr int HEAD_COG = 3;             // output channels of a block
+constexpr int HEAD_WARPS = 2 * KS;      // (kd, n8 tile)
+constexpr int HEAD_THREADS = 32 * (HEAD_WARPS + 1);
+constexpr int G_LEFT = 8;               // the g box starts this many columns left
+
+struct HGeom {
+  int n, d, ci, h, w, co;
+  int th;              // rows of a voxel tile (its width is the template's TW)
+  int xrows, xw;       // x box: rows (th, padded) and columns (tw, padded)
+  int grows, gw;       // g box: rows (th + 4, padded) and columns
+  int stages;
+  uint32_t x_bytes;    // bytes of the x box (the g box follows it)
+  uint32_t g_bytes;    // bytes of the g box
+  uint32_t stage;      // bytes of one stage, a multiple of 128
+  long long tiles_per_split;
+};
+
+template <int TW>
+__global__ void __launch_bounds__(HEAD_THREADS, 1)
+wgrad_head_tma_kernel(float* __restrict__ part,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap gmap, HGeom q) {
+  extern __shared__ __align__(128) uint8_t smem_h[];
+  const uint32_t bars = smem_u32(smem_h);
+  const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
+  const uint32_t ring = bars + BAR_BYTES;
+
+  const int co_groups = (q.co + HEAD_COG - 1) / HEAD_COG;
+  const int o0 = (blockIdx.x % co_groups) * HEAD_COG;
+  const int c0 = (blockIdx.x / co_groups) * CIB;
+
+  const int tiles_w = (q.w + TW - 1) / TW;
+  const int tiles_h = (q.h + q.th - 1) / q.th;
+  const long long tiles = (long long)q.n * q.d * tiles_h * tiles_w;
+  const long long first = (long long)blockIdx.y * q.tiles_per_split;
+  const long long last = min(tiles, first + q.tiles_per_split);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < q.stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, HEAD_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == HEAD_WARPS) {
+    // ===================== loader =====================
+    if (lane == 0) {
+      uint32_t it = 0;
+      for (long long t = first; t < last; ++t, ++it) {
+        long long rest = t;
+        const int w0 = (int)(rest % tiles_w) * TW;
+        rest /= tiles_w;
+        const int h0 = (int)(rest % tiles_h) * q.th;
+        rest /= tiles_h;
+        const int ud = (int)(rest % q.d);
+        const int nb = (int)(rest / q.d);
+        const uint32_t slot = it % q.stages;
+        mbar_wait(empty + 8 * slot, ((it / q.stages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * slot;
+        const uint32_t dst = ring + slot * q.stage;
+        mbar_expect_tx(bar, q.x_bytes + q.g_bytes);
+        tma_load_5d(dst, &xmap, bar, w0, h0, c0, ud, nb);
+        tma_load_5d(dst + q.x_bytes, &gmap, bar, w0 - G_LEFT, h0 - HALO, o0,
+                    ud - HALO, nb);
+      }
+    }
+    return;
+  }
+
+  // ===================== consumers =====================
+  const int kd = warp >> 1;
+  const int nf = warp & 1;
+  const int r = lane >> 2;
+  const int p = lane & 3;
+  // the thread's B column n = (co, kw); column 15 is padding, read as
+  // column 14 and masked
+  const int n = 8 * nf + r;
+  const bool pad = n >= KS * HEAD_COG;
+  const int co_l = pad ? HEAD_COG - 1 : n / KS;
+  const int kw = pad ? KS - 1 : n % KS;
+  const uint32_t mask = pad ? 0u : 0xffffffffu;
+  const uint32_t sel = (kw & 1) ? 0x5432u : 0x3210u;
+  const int xc = q.xrows * q.xw / 2;  // words between x channels
+  const int xrw = q.xw / 2;           // words between x rows
+  const int gc = q.grows * q.gw / 2;  // words between g channels
+  const int grw = q.gw / 2;
+  const int gdw = HEAD_COG * gc;      // words between g depths
+  const int xoff = r * xc + p;
+  // voxel (row, w0 + 2p) at tap (kd, kh = 0, kw) reads g box depth 4 - kd,
+  // row row + 4, column 2p + G_LEFT + 2 - kw
+  const int goff = (2 * HALO - kd) * gdw + co_l * gc + 2 * HALO * grw + p +
+                   ((G_LEFT + HALO - kw) >> 1);
+
+  float acc[KS][2][4];
+#pragma unroll
+  for (int k = 0; k < KS; ++k)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][m][e] = 0.f;
+
+  uint32_t it = 0;
+  for (long long t = first; t < last; ++t, ++it) {
+    const uint32_t slot = it % q.stages;
+    mbar_wait(full + 8 * slot, (it / q.stages) & 1);
+    const uint32_t* xs =
+        reinterpret_cast<const uint32_t*>(smem_h + BAR_BYTES + slot * q.stage) +
+        xoff;
+    const uint32_t* gs = reinterpret_cast<const uint32_t*>(
+                             smem_h + BAR_BYTES + slot * q.stage + q.x_bytes) +
+                         goff;
+#pragma unroll 1
+    for (int row = 0; row < q.th; ++row) {
+#pragma unroll
+      for (int ws = 0; ws < TW; ws += 16) {
+        const uint32_t* xr = xs + row * xrw + ws / 2;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          a[m][0] = xr[m * 16 * xc];
+          a[m][1] = xr[m * 16 * xc + 8 * xc];
+          a[m][2] = xr[m * 16 * xc + 4];
+          a[m][3] = xr[m * 16 * xc + 8 * xc + 4];
+        }
+        const uint32_t* gr = gs + row * grw + ws / 2;
+#pragma unroll
+        for (int kh = 0; kh < KS; ++kh) {
+          const uint32_t* gk = gr - kh * grw;
+          const uint32_t b0 = __byte_perm(gk[0], gk[1], sel) & mask;
+          const uint32_t b1 = __byte_perm(gk[4], gk[5], sel) & mask;
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            mma_bf16(acc[kh][m], a[m][0], a[m][1], a[m][2], a[m][3], b0, b1);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+  }
+
+  // accumulator fragment: rows lane / 4 and + 8 (ci), columns 2 * (lane % 4)
+  // + {0, 1} of the warp's n8 tile ((co, kw) = divmod(column, 5))
+  const size_t size = (size_t)KS * KS * KS * q.ci * q.co;
+  float* out = part + (size_t)blockIdx.y * size;
+#pragma unroll
+  for (int kh = 0; kh < KS; ++kh)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = c0 + m * 16 + r + (e >> 1) * 8;
+        const int col = 8 * nf + 2 * p + (e & 1);
+        const int co = o0 + col / KS;
+        if (col < KS * HEAD_COG && ci < q.ci && co < q.co)
+          out[(((size_t)(kd * KS + kh) * KS + col % KS) * q.ci + ci) * q.co +
+              co] = acc[kh][m][e];
+      }
+}
+
 // out[i] = sum over the partials of part[p][i], in the order p = 0, 1, ...
 __global__ void wgrad_tma_reduce_kernel(const float* __restrict__ part,
                                         float* __restrict__ out, int parts,
@@ -350,18 +539,19 @@ EncodeTiledFn encode_tiled() {
 }
 
 // The tensor map of a bf16 [N, D, C, H, W] view as (w, h, c, d, n) with a
-// [1][1][32][rows][cols] box. False when the view cannot be described (base
-// or strides not multiples of 16 bytes).
+// [1][depths][chans][rows][cols] box. False when the view cannot be
+// described (base or strides not multiples of 16 bytes).
 bool make_tmap(CUtensorMap* map, const void* base, int n, int d, int c, int h,
                int w, long long s_n, long long s_c, long long s_d, long long s_h,
-               int rows, int cols) {
+               int rows, int cols, int chans = CIB, int depths = 1) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
   const cuuint64_t dims[5] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)c,
                               (cuuint64_t)d, (cuuint64_t)n};
   const cuuint64_t strides[4] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_c * 2,
                                  (cuuint64_t)s_d * 2, (cuuint64_t)s_n * 2};
-  const cuuint32_t box[5] = {(cuuint32_t)cols, (cuuint32_t)rows, 32, 1, 1};
+  const cuuint32_t box[5] = {(cuuint32_t)cols, (cuuint32_t)rows,
+                             (cuuint32_t)chans, (cuuint32_t)depths, 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < 4; ++i)
     if (strides[i] == 0 || strides[i] % 16) return false;
@@ -389,6 +579,31 @@ cudaError_t launch_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
   float* dst = splits == 1 ? out : part;
   kern<<<dim3((unsigned)chan_blocks, splits), THREADS, smem, s>>>(dst, xmap, gmap,
                                                                    q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const long long size = (long long)KS * KS * KS * q.ci * q.co;
+  wgrad_tma_reduce_kernel<<<(unsigned)((size + 255) / 256), 256, 0, s>>>(
+      part, out, splits, size);
+  return cudaGetLastError();
+}
+
+
+template <int TW>
+cudaError_t launch_head_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
+                            float* part, float* out, int splits,
+                            const HGeom& q, cudaStream_t s) {
+  const long long chan_blocks = (long long)((q.ci + CIB - 1) / CIB) *
+                                ((q.co + HEAD_COG - 1) / HEAD_COG);
+  const size_t smem = BAR_BYTES + (size_t)q.stages * q.stage;
+  if (chan_blocks > 0x7fffffffLL || splits > 65535 || smem > 227 * 1024)
+    return cudaErrorInvalidValue;
+  auto kern = wgrad_head_tma_kernel<TW>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  float* dst = splits == 1 ? out : part;
+  kern<<<dim3((unsigned)chan_blocks, splits), HEAD_THREADS, smem, s>>>(
+      dst, xmap, gmap, q);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const long long size = (long long)KS * KS * KS * q.ci * q.co;
@@ -436,6 +651,49 @@ extern "C" int conv5_wgrad_tma_launch(
     case 8: return launch_tma<8>(xmap, gmap, pf, of, splits, q, s);
     case 16: return launch_tma<16>(xmap, gmap, pf, of, splits, q, s);
     case 32: return launch_tma<32>(xmap, gmap, pf, of, splits, q, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launches the bf16 weight gradient of a narrow head (Co <= 16) fed by
+// tensor copies on `stream`: a th x tw voxel tile (tw 16 or 32), an x box
+// of xrows x xw (32 channels, at the tile; an odd number of 16-byte units
+// per channel) and a g box of grows x gw (3 channels x 5 depths, covering
+// rows th0 - 2 .. and columns tw0 - 8 ..), a ring of `stages` (2 to 8), the
+// (n, d, tile) list dealt to `splits` blocks. `part` is f32 scratch of
+// splits * 125 * ci * co elements (unused when splits == 1), `out` the f32
+// [5, 5, 5, ci, co] result. Returns cudaGetLastError() after the launches
+// (0 on success), cudaErrorInvalidValue for a geometry or a view the kernel
+// does not take.
+extern "C" int conv5_wgrad_head_tma_launch(
+    const void* x, const void* g, void* part, void* out, int th, int tw,
+    int xrows, int xw, int grows, int gw, int stages, int splits, int n, int d,
+    int ci, int h, int w, int co, long long xs_n, long long xs_c, long long xs_d,
+    long long xs_h, long long gs_n, long long gs_c, long long gs_d,
+    long long gs_h, void* stream) {
+  if (th < 1 || splits < 1 || stages < 2 || stages > MAX_STAGES || co < 1 ||
+      co > 16 || xrows < th || xw < tw || grows < th + 2 * HALO ||
+      gw < tw + G_LEFT + HALO || ((xrows * xw / 8) & 1) == 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap, gmap;
+  if (!make_tmap(&xmap, x, n, d, ci, h, w, xs_n, xs_c, xs_d, xs_h, xrows, xw) ||
+      !make_tmap(&gmap, g, n, d, co, h, w, gs_n, gs_c, gs_d, gs_h, grows, gw,
+                 HEAD_COG, KS))
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)n * d * ((h + th - 1) / th) *
+                          ((w + tw - 1) / tw);
+  const long long per = (tiles + splits - 1) / splits;
+  const uint32_t x_bytes = (uint32_t)(CIB * xrows * xw * 2);
+  const uint32_t g_bytes = (uint32_t)(KS * HEAD_COG * grows * gw * 2);
+  const uint32_t stage = (x_bytes + g_bytes + 127) / 128 * 128;
+  const HGeom q{n, d, ci, h, w, co, th, xrows, xw, grows, gw, stages, x_bytes,
+                g_bytes, stage, per};
+  float* pf = static_cast<float*>(part);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tw) {
+    case 16: return launch_head_tma<16>(xmap, gmap, pf, of, splits, q, s);
+    case 32: return launch_head_tma<32>(xmap, gmap, pf, of, splits, q, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -59,12 +59,13 @@ P = K // 2  # halo
 # under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
 # same kernel launched for a backward counts under "conv5_dgrad" only. A
 # weight gradient counts under its form (:func:`conv5_wgrad_form`): "stem"
-# (Ci = 1), "head" (Co <= 16), "tma" (bf16 wider convs on views a tensor
-# copy can describe) or "mid" (every other wider conv).
+# (Ci = 1), "head_tma" (bf16 narrow heads, Co <= 16, on views a tensor copy
+# can describe), "head" (every other narrow head), "tma" (bf16 wider convs
+# on such views) or "mid" (every other wider conv).
 LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
-            "conv5_wgrad_head": 0, "conv5_wgrad_mid": 0,
-            "conv5_wgrad_tma": 0}
+            "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
+            "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_BLOCKS = 1056  # 8 blocks per SM of an H100 before tiles shrink
@@ -216,8 +217,9 @@ def _wgrad_lib():
 def _wgrad_tma_lib():
     lib = _build.library("conv5_wgrad_tma")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.conv5_wgrad_tma_launch.argtypes = [vp] * 4 + [i] * 14 + [ll] * 8 + [vp]
-    lib.conv5_wgrad_tma_launch.restype = ctypes.c_int
+    for fn in (lib.conv5_wgrad_tma_launch, lib.conv5_wgrad_head_tma_launch):
+        fn.argtypes = [vp] * 4 + [i] * 14 + [ll] * 8 + [vp]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -634,18 +636,21 @@ def _tma_view(t):
 def conv5_wgrad_form(xk, gk, kind):
     """The weight-gradient kernel that takes these operands, named by its
     :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): 'stem' (``kind =
-    'stem'``, Ci = 1), 'head' (Co <= 16), 'tma' (bf16, both views
-    describable by a tensor copy: ``wgrad_tma_kernel``) or 'mid' (every
-    other conv: ``wgrad_mma_kernel<4>`` in bf16, ``wgrad_kernel`` in f32).
-    Every view of the main path is contiguous after :func:`pin_kl`, so
-    every square and wide conv of a train step is 'tma'."""
+    'stem'``, Ci = 1); for narrow heads (Co <= 16) 'head_tma' (bf16, both
+    views describable by a tensor copy: ``wgrad_head_tma_kernel``) or
+    'head' (``wgrad_mma_kernel<1|2>`` in bf16, ``wgrad_kernel`` in f32);
+    for wider convs 'tma' (bf16, both views describable:
+    ``wgrad_tma_kernel``) or 'mid' (``wgrad_mma_kernel<4>`` in bf16,
+    ``wgrad_kernel`` in f32). Every view of the main path is contiguous
+    after :func:`pin_kl`, so the narrow head of a train step is 'head_tma'
+    and every square and wide conv 'tma'."""
     if kind == "stem":
         return "stem"
+    copyable = (xk.dtype == torch.bfloat16 and _tma_view(xk)
+                and _tma_view(gk))
     if gk.shape[2] <= 16:
-        return "head"
-    if xk.dtype == torch.bfloat16 and _tma_view(xk) and _tma_view(gk):
-        return "tma"
-    return "mid"
+        return "head_tma" if copyable else "head"
+    return "tma" if copyable else "mid"
 
 
 def conv5_wgrad_tma_geometry(n, d, h, w, ci, co):
@@ -690,6 +695,62 @@ def _wgrad_tma_geometry(n, d, h, w, ci, co):
                 grid=(chan_blocks, splits), threads=32 * (2 * K + 1))
 
 
+def conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co):
+    """Launch geometry of ``wgrad_head_tma_kernel``
+    (``csrc/conv5_wgrad_tma.cu``), the narrow head's weight gradient with
+    the taps on g, a dict (a fresh copy of a cached one):
+
+    * ``th`` x ``tw``: the voxel tile of one ring stage (tw 16 or 32 by W,
+      the tensor copy filling columns past W with zeros; th up to 8 rows);
+      a K step is 16 consecutive w of one row;
+    * ``xrows`` x ``xw``: the x box per channel, the tile itself (no halo:
+      x is not shifted), padded by 8 columns and to an odd row count so
+      that each channel is an odd number of 16-byte units (conflict-free A
+      loads); ``grows`` x ``gw``: the g box per (depth, channel), the tile
+      with its 2-voxel halo in h and from 8 columns left of it (a box starts
+      on 16 bytes), padded until a channel's pitch is 6-26 words mod 32
+      banks, so that the two or three channels one B load touches (each 6
+      words wide) miss each other's banks;
+    * ``x_bytes`` (32 channels), ``g_bytes`` (5 depths x 3 channels),
+      ``stage`` (their sum rounded to 128 bytes); ``stages``: as many as
+      fit the block's shared memory, at most 8; ``smem``;
+    * ``chan_blocks``: (Ci / 32) x (Co / 3) blocks, each holding 25 (kd,
+      kh) x 32 ci x 16 (co, kw) f32 accumulators (50 KB of registers, 40 a
+      thread over 10 warps, one block per SM); ``splits``: blocks along
+      the voxel tiles, about one wave of blocks, each with a tile at least
+      (the partials summed in split order by a second pass); ``grid``;
+    * ``threads``: 10 consumer warps (depth tap x n8 tile) and the loader
+      warp."""
+    return dict(_wgrad_head_tma_geometry(n, d, h, w, ci, co))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_head_tma_geometry(n, d, h, w, ci, co):
+    tw = 16 if w <= 16 else 32
+    th = max(1, min(8, _pow2ceil(h)))
+    xw, xrows = tw + 8, th + 1 - th % 2
+    gw0 = -(-(tw + 10) // 8) * 8
+
+    def fits(rows, cols):
+        return 6 <= rows * cols // 2 % 32 <= 26
+
+    grows, gw = min(((r, c) for r in range(th + 4, th + 12)
+                     for c in (gw0, gw0 + 8) if fits(r, c)),
+                    key=lambda rc: (rc[0] * rc[1], rc))
+    x_bytes, g_bytes = 64 * xrows * xw, 2 * 15 * grows * gw
+    stage = -(-(x_bytes + g_bytes) // 128) * 128
+    stages = min(_TMA_MAX_STAGES, (_SMEM_MAX - _TMA_BAR_BYTES) // stage)
+    tiles = n * d * -(-h // th) * -(-w // tw)
+    chan_blocks = -(-ci // 32) * -(-co // 3)
+    splits = max(1, min(tiles, 65535, -(-_SMS // chan_blocks)))
+    splits = -(-tiles // -(-tiles // splits))
+    return dict(th=th, tw=tw, xrows=xrows, xw=xw, grows=grows, gw=gw,
+                x_bytes=x_bytes, g_bytes=g_bytes, stage=stage, stages=stages,
+                smem=_TMA_BAR_BYTES + stages * stage, chan_blocks=chan_blocks,
+                splits=splits, grid=(chan_blocks, splits),
+                threads=32 * (2 * K + 1))
+
+
 def _wgrad_tma_splits(tiles, tile_vox, chan_blocks, ci, co):
     """Blocks along the voxel tiles for ``chan_blocks`` channel blocks, one
     block per SM: the count that makes the launch shortest by a model in
@@ -727,8 +788,8 @@ def _check_wgrad(xk, gk, kind):
 
 def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     """Launch the weight-gradient kernel that :func:`conv5_wgrad_form`
-    names; ``form='mid'`` takes ``wgrad_mma_kernel<4>`` (bf16) where the
-    tensor-copy kernel would run, to time the two side by side."""
+    names; ``form='mid'`` / ``'head'`` takes ``wgrad_mma_kernel`` (bf16)
+    where a tensor-copy kernel would run, to time the two side by side."""
     if xk.device.type != "cuda" or gk.device != xk.device:
         raise RuntimeError("wgrad kernel needs CUDA tensors on one device, "
                            "got {} and {}".format(xk.device, gk.device))
@@ -743,6 +804,8 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     mma = xk.dtype == torch.bfloat16 and form in ("head", "mid")
     if form == "tma":
         q = conv5_wgrad_tma_geometry(n, d, h, ww, ci, co)
+    elif form == "head_tma":
+        q = conv5_wgrad_head_tma_geometry(n, d, h, ww, ci, co)
     elif mma:
         q = conv5_wgrad_mma_geometry(n, d, h, ww, ci, co)
     else:
@@ -767,8 +830,10 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     xs, gs = xk.stride(), gk.stride()
     ptrs = (xk.data_ptr(), gk.data_ptr(),
             None if part is None else part.data_ptr(), out.data_ptr())
-    if form == "tma":
-        fn = _wgrad_tma_lib().conv5_wgrad_tma_launch
+    if form in ("tma", "head_tma"):
+        lib = _wgrad_tma_lib()
+        fn = (lib.conv5_wgrad_tma_launch if form == "tma" else
+              lib.conv5_wgrad_head_tma_launch)
         cfg = (q["th"], q["tw"], q["xrows"], q["xw"], q["grows"], q["gw"],
                q["stages"], q["splits"])
     elif mma:

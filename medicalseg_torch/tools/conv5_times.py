@@ -19,14 +19,16 @@ warm-up, median of five. Needs one NVIDIA GPU.
 registers and spills of each instantiation), then per weight gradient of
 one backward (the eight square and wide convs, the 32 -> 3 head and the
 stem) the route that runs (``conv5_wgrad_form``) and its time, beside
-``wgrad_mma_kernel<4>`` forced at the square and wide shapes (the kernel
-the tensor-copy route replaced); whether a second launch gives the same
-bits; the error against ``conv5_wgrad_kl_plain`` scaled by the result's
-magnitude (fatal above 2e-2); ``conv3d_weight``; the operation bound; the
-geometry; last the sums over one backward. ``--variant SRC.cu`` (any
-number) builds each candidate source of ``conv5_wgrad_tma.cu`` (same C
-interface) with the same flags and times it beside the built kernel at
-the shapes the tensor-copy route takes, with the same checks.
+the kernel each tensor-copy route replaced, forced (``old``:
+``wgrad_mma_kernel<4>`` at the square and wide shapes,
+``wgrad_mma_kernel<1>`` at the narrow head); whether a second launch
+gives the same bits; the error against ``conv5_wgrad_kl_plain`` scaled by
+the result's magnitude (fatal above 2e-2); ``conv3d_weight``; the
+operation bound; the geometry; last the sums over one backward.
+``--variant SRC.cu`` (any number) builds each candidate source of
+``conv5_wgrad_tma.cu`` (same C interface: both launchers) with the same
+flags and times it beside the built kernel at the shapes the two
+tensor-copy routes take, with the same checks.
 """
 import argparse
 import ctypes
@@ -79,9 +81,10 @@ def ptxas_lines(name, tag):
             print(line[:200])
 
 
-def build_variant(src):
-    """Compile a candidate of ``csrc/conv5_wgrad_tma.cu`` beside the built
-    libraries; print its registers and spills; return the loaded library."""
+def build_variant(src, ref, names):
+    """Compile a candidate source beside the built libraries; print its
+    registers and spills; return the loaded library, its functions
+    ``names`` typed as those of the built library ``ref``."""
     out = _build.BUILD_DIR / "variant-{}.so".format(Path(src).stem)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -92,18 +95,20 @@ def build_variant(src):
     if proc.returncode:
         sys.exit("conv5_times: {} does not build".format(src))
     lib = ctypes.CDLL(str(out))
-    ref = c5._wgrad_tma_lib().conv5_wgrad_tma_launch
-    lib.conv5_wgrad_tma_launch.argtypes = ref.argtypes
-    lib.conv5_wgrad_tma_launch.restype = ref.restype
+    for name in names:
+        getattr(lib, name).argtypes = getattr(ref, name).argtypes
+        getattr(lib, name).restype = getattr(ref, name).restype
     return lib
 
 
 def wgrad_main(variants):
     print(torch.cuda.get_device_name(0))
-    ptxas_lines("conv5_wgrad_tma", "wgrad_tma")
+    ptxas_lines("conv5_wgrad_tma", "tma")
     ptxas_lines("conv5_wgrad", "wgrad")
     built = c5._wgrad_tma_lib
-    libs = [(Path(v).name, build_variant(v)) for v in variants]
+    libs = [(Path(v).name, build_variant(
+        v, built(), ("conv5_wgrad_tma_launch", "conv5_wgrad_head_tma_launch")))
+        for v in variants]
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     total = np.zeros(3)
@@ -121,23 +126,28 @@ def wgrad_main(variants):
         err = ((got - ref).abs() / (ref.abs().max() + ref.abs())).max().item()
         del got, ref
         ms = time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind))
-        old = (time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind, form="mid"))
-               if form == "tma" else ms)
+        # the kernel each tensor-copy route replaced, forced beside it
+        old_form = {"tma": "mid", "head_tma": "head"}.get(form)
+        old = (time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind, form=old_form))
+               if old_form else ms)
         xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
         lib = time_ms(lambda: torch.nn.grad.conv3d_weight(
             xn, (co, ci, 5, 5, 5), gn, padding=2))
         del xn, gn
         q = (c5.conv5_wgrad_tma_geometry(BATCH, e, e, e, ci, co)
              if form == "tma" else
+             c5.conv5_wgrad_head_tma_geometry(BATCH, e, e, e, ci, co)
+             if form == "head_tma" else
              c5.conv5_wgrad_mma_geometry(BATCH, e, e, e, ci, co)
              if kind == "head" else
              c5.conv5_wgrad_geometry(BATCH, e, e, e, ci, co, kind))
         flops = 2.0 * BATCH * e ** 3 * 125 * ci * co
         geo = {k: q[k] for k in ("th", "tw", "stages", "splits", "chan_blocks",
                                  "smem") if k in q}
-        if form == "tma":
-            totals["built"] = totals.get("built", 0.0) + count * ms
-        for vname, vlib in (libs if form == "tma" else []):
+        if form in ("tma", "head_tma"):
+            totals["built", form] = totals.get(("built", form), 0.0) + \
+                count * ms
+        for vname, vlib in (libs if form in ("tma", "head_tma") else []):
             c5._wgrad_tma_lib = lambda vlib=vlib: vlib
             try:
                 got = c5._conv5_wgrad_cuda(x, g, kind)
@@ -151,8 +161,9 @@ def wgrad_main(variants):
                 c5._wgrad_tma_lib = built
             print("{:10s} variant {} wgrad {:.3f} scaled_err {:.2e} repeats "
                   "{}".format(name, vname, v_ms, v_err, v_same), flush=True)
-            totals[vname] = totals.get(vname, 0.0) + count * v_ms
-        print("{:10s} route {} wgrad {:.3f} mma4 {:.3f} conv3d_weight {:.3f} "
+            totals[vname, form] = totals.get((vname, form), 0.0) + \
+                count * v_ms
+        print("{:10s} route {} wgrad {:.3f} old {:.3f} conv3d_weight {:.3f} "
               "bound {:.4f} TF/s {:.0f} scaled_err {:.2e} repeats {} "
               "geometry {}".format(name, form, ms, old, lib,
                                    flops / PEAK_BF16 * 1e3, flops / ms / 1e9,
@@ -162,11 +173,11 @@ def wgrad_main(variants):
             sys.exit("conv5_times: {} wgrad disagrees with its plain version "
                      "or does not repeat".format(name))
         del x, g
-    print("per backward: wgrad {:.2f} mma4 {:.2f} conv3d_weight {:.2f}".format(
+    print("per backward: wgrad {:.2f} old {:.2f} conv3d_weight {:.2f}".format(
         *total))
-    for vname, ms in totals.items():
-        print("per backward, square and wide convs: variant {} {:.2f}".format(
-            vname, ms))
+    for (vname, form), ms in totals.items():
+        print("per backward, route {}: variant {} {:.2f}".format(
+            form, vname, ms))
 
 
 def main():

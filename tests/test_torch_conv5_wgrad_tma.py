@@ -124,8 +124,12 @@ def test_gate_sends_every_main_path_view_to_the_tma_kernel(ci, edge):
     ("ragged-w100", (1, 3, 24, 7, 100), 33, torch.bfloat16, "head", "mid"),
     ("ragged-w10", (1, 5, 3, 9, 10), 40, torch.bfloat16, "head", "mid"),
     ("f32", (2, 8, 64, 8, 16), 64, torch.float32, "head", "mid"),
-    ("narrow-head", (2, 8, 32, 8, 16), 3, torch.bfloat16, "head", "head"),
-    ("co16", (2, 8, 32, 8, 16), 16, torch.bfloat16, "head", "head"),
+    ("narrow-head", (2, 8, 32, 8, 16), 3, torch.bfloat16, "head",
+     "head_tma"),
+    ("co16", (2, 8, 32, 8, 16), 16, torch.bfloat16, "head", "head_tma"),
+    ("narrow-head-f32", (2, 8, 32, 8, 16), 3, torch.float32, "head", "head"),
+    ("narrow-head-w12", (2, 8, 32, 8, 12), 3, torch.bfloat16, "head",
+     "head"),
     ("stem", (2, 8, 1, 8, 16), 16, torch.bfloat16, "stem", "stem"),
     ("co17", (1, 4, 5, 6, 8), 17, torch.bfloat16, "head", "tma")])
 def test_gate_forms(what, x_shape, co, dtype, kind, form):

@@ -235,10 +235,14 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     got = c5.conv5_wgrad_kl(x, g, kind)
     torch.cuda.synchronize()
     form = c5.conv5_wgrad_form(x, g, kind)
-    # bf16 square and wide convs on W-aligned views take the tensor-copy
-    # kernel; the ragged views (W = 100, W = 10) keep wgrad_mma_kernel<4>
-    assert (form == "tma") == (dtype == torch.bfloat16 and co > 16 and
-                               shape[4] % 8 == 0)
+    # bf16 convs on W-aligned views take a tensor-copy kernel (square and
+    # wide: wgrad_tma_kernel, narrow heads: wgrad_head_tma_kernel); the
+    # ragged views (W = 100, W = 10) keep wgrad_mma_kernel
+    copyable = (dtype == torch.bfloat16 and kind == "head" and
+                shape[4] % 8 == 0)
+    assert form == ("stem" if kind == "stem" else
+                    ("head_tma" if copyable else "head") if co <= 16 else
+                    ("tma" if copyable else "mid"))
     assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
     assert sum(c5.LAUNCHES.values()) == 1
     assert got.shape == (5, 5, 5, shape[2], co)
@@ -284,6 +288,57 @@ def test_wgrad_tma_kernel_matches_plain_and_repeats(dev, what, shape, co):
         "conv5_wgrad_tma": 1}
     _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
     assert torch.equal(got, c5.conv5_wgrad_kl(x, g))
+
+
+# The narrow head's tensor-copy weight gradient (wgrad_head_tma_kernel):
+# (what, [N, D, Ci, H, W], Co) at the V-Net head (32 -> 3), each tile
+# width (tw 16, 32; W narrower than a tile), ragged channel counts (two ci
+# tiles, several 3-channel co groups, Co = 16, Co = 1), split and unsplit
+HEAD_TMA_CASES = [("c32-co3-tw32-split", (2, 6, 32, 16, 32), 3),
+                  ("c32-co3-tw16", (1, 3, 32, 8, 16), 3),
+                  ("c8-co1-w8", (2, 2, 8, 4, 8), 1),
+                  ("ci40-co7", (1, 3, 40, 6, 24), 7),
+                  ("c32-co16-h9-w40", (1, 5, 32, 9, 40), 16)]
+
+
+@pytest.mark.parametrize("what,shape,co", HEAD_TMA_CASES,
+                         ids=[c[0] for c in HEAD_TMA_CASES])
+def test_wgrad_head_tma_kernel_matches_plain_and_repeats(dev, what, shape,
+                                                         co):
+    """Against the plain version (scaled bf16 tolerance), bit for bit on a
+    second launch (the split partials are summed in a fixed order), and
+    counted under its own key."""
+    x, g = _wgrad_operands(shape, co, dev, seed=12)
+    n, d, ci, h, w = shape
+    q = c5.conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co)
+    if "split" in what:
+        assert q["splits"] > 1
+    c5.reset_launches()
+    got = c5.conv5_wgrad_kl(x, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
+        "conv5_wgrad_head_tma": 1}
+    _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
+    assert torch.equal(got, c5.conv5_wgrad_kl(x, g))
+
+
+def test_wgrad_head_tma_kernel_raises_on_a_view_it_cannot_take(dev):
+    """A base 2 bytes into an allocation is not a view a tensor copy can
+    describe: the gate sends it to wgrad_mma_kernel<1>, and forced onto
+    the tensor-copy kernel the launch is refused and the wrapper raises;
+    nothing falls back to the plain version."""
+    x, g = _wgrad_operands((1, 3, 32, 8, 16), 3, dev, seed=13)
+    flat = torch.empty(g.numel() + 1, dtype=g.dtype, device=dev)
+    view = flat[1:].view(g.shape)
+    view.copy_(g)
+    assert c5.conv5_wgrad_form(x, view, "head") == "head"
+    c5.reset_launches()
+    _scaled_close(c5.conv5_wgrad_kl(x, view), c5.conv5_wgrad_kl_plain(
+        x, view), torch.bfloat16)
+    assert c5.LAUNCHES["conv5_wgrad_head"] == 1
+    with pytest.raises(RuntimeError, match="launch failed"):
+        c5._conv5_wgrad_cuda(x, view, "head", form="head_tma")
+    assert c5.LAUNCHES["conv5_wgrad_head_tma"] == 0
 
 
 @pytest.mark.parametrize("what", ["ncdhw-view", "g-view", "unaligned-base",
@@ -498,10 +553,14 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     # kernel where W is a multiple of 8 (7 convs at 32, 16 and 8 at this
     # input; all 14 at 128^3) and wgrad_mma_kernel<4> at W = 4 and 2; in
     # f32 the CUDA-core kernel
+    # the narrow head: its tensor-copy kernel in bf16 (W = 32), the
+    # CUDA-core kernel in f32
     wide = (7, 7) if dtype == torch.bfloat16 else (14, 0)
+    head = (0, 1) if dtype == torch.bfloat16 else (1, 0)
     assert (c5.LAUNCHES["conv5_wgrad_stem"], c5.LAUNCHES["conv5_wgrad_head"],
+            c5.LAUNCHES["conv5_wgrad_head_tma"],
             c5.LAUNCHES["conv5_wgrad_mid"],
-            c5.LAUNCHES["conv5_wgrad_tma"]) == (1, 1) + wide
+            c5.LAUNCHES["conv5_wgrad_tma"]) == (1,) + head + wide
     assert c5.LAUNCHES["conv5_fused_epilogue"] == 0
     for name, p in state.model.named_parameters():
         assert p.grad is not None, name
