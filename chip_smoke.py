@@ -13,7 +13,8 @@ JSON line; any failure raises and the script exits non-zero:
 2. build: compile ``medicalseg_torch/csrc/*.cu`` (one ``nvcc`` each, in
    parallel) and report the seconds.
 3. kernels: at every 5^3 conv shape of the 128^3 batch-2 V-Net forward,
-   hold each kernel (head, stem, fused epilogue) against its plain PyTorch
+   hold each kernel (head, bf16 stem, fused epilogue; the f32 stem's
+   ``conv5_kernel``) against its plain PyTorch
    version in bf16 (atol = rtol = 2e-2, one bf16 ulp at the outputs'
    magnitude) and f32 (atol = rtol = 1e-4, TF32 off: summation order
    only), and the pin kernel against ``contiguous()`` on the permuted
@@ -26,7 +27,13 @@ JSON line; any failure raises and the script exits non-zero:
    launch, a weight seen for the first time), the launch geometry (tile,
    channel tile, ring stages, K splits), ``vs_library`` (the kernel's ms
    over the library's) and, where K is split, whether two launches agree
-   bit for bit (fatal if not). Per pin view the path that ran (16-byte
+   bit for bit (fatal if not). For the bf16 stem (``stem_tc_kernel``) the
+   device time without and with the epilogue (``device_ms``,
+   ``device_ms_fused``: ten calls replayed from one CUDA graph), the
+   host-timed and device times of ``conv5_kernel`` forced in the same
+   process (``ms_old``, ``device_ms_old``, each also ``_fused``: the
+   kernel it replaced), a fatal bit-for-bit repeat check and its
+   geometry. Per pin view the path that ran (16-byte
    words or element-wise) and, beside the host-timed ``ms``, the device
    time of the kernel and of ``contiguous()`` with the host's dispatch
    taken out (ten calls replayed from one CUDA graph): at the small views
@@ -164,11 +171,12 @@ HU_TOL = 1e-3  # hu_resize vs plain, on the window's 0..255 scale
 # int8 against bf16 serving, same random-init weights: share of voxels
 # with the same argmax
 INT8_AGREE = 0.99
-FWD_KERNELS = ("conv5_head", "conv5_stem", "conv5_fused_epilogue", "pin")
+FWD_KERNELS = ("conv5_head", "conv5_stem_tc", "conv5_fused_epilogue",
+               "pin")
 BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head_tma",
                "conv5_wgrad_tma")
 SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
-           "conv5_stem": "medicalseg_torch/csrc/conv5.cu",
+           "conv5_stem_tc": "medicalseg_torch/csrc/conv5_stem.cu",
            "conv5_fused_epilogue": "medicalseg_torch/csrc/conv5_wg.cu",
            "pin": "medicalseg_torch/csrc/pin.cu",
            "conv5_dgrad": "medicalseg_torch/csrc/conv5_wg.cu",
@@ -178,7 +186,7 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
 REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
-            "conv5_stem": "medicalseg_tpu/ops/pallas_conv5.py:423",
+            "conv5_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:423",
             "conv5_fused_epilogue": "medicalseg_tpu/ops/pallas_conv5.py:1288",
             "pin": "medicalseg_tpu/ops/pallas_conv5.py:1412",
             "conv5_dgrad": "medicalseg_tpu/ops/pallas_conv5.py:1383",
@@ -319,6 +327,33 @@ def wg_columns(x, w, b, ep, ci, co, dgrad, ms, lib_ms, prefix=""):
     return {prefix + k: v for k, v in cols.items()}
 
 
+def stem_columns(x, w, b, ep):
+    """The extra columns of the bf16 stem: the device time of the kernel
+    without and with the epilogue, host dispatch taken out, and the times
+    of ``conv5_kernel`` (the kernel ``stem_tc_kernel`` replaced), forced in
+    the same process; a fatal bit-for-bit repeat check; the geometry."""
+    n, e = x.shape[0], x.shape[1]
+    cols = {}
+    for tag, e_ in (("", None), ("_fused", ep)):
+        first, second = (c5.conv5_kl_fused(x, w, b, ep) if e_ else
+                         c5.conv5_kl(x, w, b, "stem") for _ in "12")
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), "two launches of the stem kernel "
+              "disagree")
+        del first, second
+
+        def call(form=None, e_=e_):
+            return c5._conv5_cuda(x, w, b, "stem", e_, form=form)
+
+        cols.update({"device_ms" + tag: graph_ms(call),
+                     "ms_old" + tag: time_ms(lambda: call("stem")),
+                     "device_ms_old" + tag: graph_ms(lambda: call("stem"))})
+    cols["repeat_bit_identical"] = True
+    cols["geometry"] = dict(kernel="stem_tc_kernel",
+                            **c5.conv5_stem_tc_geometry(n, e, e, e))
+    return cols
+
+
 # ----------------------------------------------------------------------
 def phase_device():
     if not torch.cuda.is_available():
@@ -359,8 +394,9 @@ def phase_kernels():
         ep = (0.5 + torch.rand((co,), generator=gen, device=dev),
               torch.randn((co,), generator=gen, device=dev),
               torch.rand((co,), generator=gen, device=dev))
+        form = "conv5_" + c5.conv5_form(x.to(torch.bfloat16), co, kind)
         line = {"phase": "kernels", "conv": name, "kind": kind, "ci": ci,
-                "co": co, "shape": [BATCH, e, ci, e, e]}
+                "co": co, "shape": [BATCH, e, ci, e, e], "form": form}
         for dtype in (torch.bfloat16, torch.float32):
             xd = x.to(dtype)
             for fused in (False, True):
@@ -378,11 +414,10 @@ def phase_kernels():
                       "{} {} disagrees with its plain version: max |d| "
                       "{}".format(name, tag, err))
                 if dtype == torch.bfloat16:
-                    key = "conv5_fused_epilogue" if fused else "conv5_" + kind
+                    key = "conv5_fused_epilogue" if fused else form
                     stats[key]["err"] = max(stats[key]["err"], err)
                     if fused and kind == "stem":
-                        stats["conv5_stem"]["err"] = max(
-                            stats["conv5_stem"]["err"], err)
+                        stats[form]["err"] = max(stats[form]["err"], err)
                 del got, ref
         xb = x.to(torch.bfloat16)
         ms = time_ms(lambda: c5.conv5_kl(xb, w, b, kind))
@@ -399,8 +434,10 @@ def phase_kernels():
                     bound_by=by, per_forward=count)
         if kind == "head":
             line.update(wg_columns(xb, w, b, ep, ci, co, False, ms_f, lib))
+        else:
+            line.update(stem_columns(xb, w, b, ep))
         emit(line)
-        add("conv5_" + kind, count, ms, plain, bound, by, lib)
+        add(form, count, ms, plain, bound, by, lib)
         add("conv5_fused_epilogue", count, ms_f, plain_f, bound, by, None)
         del x, xb, x_ncdhw
 
@@ -536,7 +573,7 @@ def phase_kernels_bwd():
 KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                "wgrad_kernel", "wgrad_reduce_kernel", "wgrad_tma_kernel",
                "wgrad_tma_reduce_kernel", "wgrad_head_tma_kernel",
-               "pin_vec_kernel", "pin_kernel")
+               "stem_tc_kernel", "pin_vec_kernel", "pin_kernel")
 
 
 def profile_call(fn):
@@ -628,7 +665,7 @@ def make_predictor(workdir, save, *extra, config="deploy.yaml"):
 
 def forward_counts(forwards):
     """The launch counts ``forwards`` eval forwards of V-Net imply."""
-    expect = {"conv5_head": 15 * forwards, "conv5_stem": forwards,
+    expect = {"conv5_head": 15 * forwards, "conv5_stem_tc": forwards,
               "conv5_fused_epilogue": 16 * forwards, "pin": 8 * forwards}
     expect.update({k: 0 for k in c5.LAUNCHES if k not in expect})
     return expect
@@ -1061,7 +1098,8 @@ def phase_train():
     check(all(np.isfinite(losses)), "non-finite loss: {}".format(losses))
     check(losses[-1] < losses[0], "the loss did not fall: {}".format(losses))
     fwd = 2  # remat: each block's forward runs again in the backward
-    expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 3 * fwd,
+    expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 0,
+              "conv5_stem_tc": 3 * fwd,
               "conv5_fused_epilogue": 0, "conv5_dgrad": 3 * 15,
               "conv5_wgrad_stem": 3, "conv5_wgrad_head": 0,
               "conv5_wgrad_head_tma": 3, "conv5_wgrad_mid": 0,

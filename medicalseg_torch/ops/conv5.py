@@ -1,7 +1,8 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
-hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5.cu``,
-``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu`` and ``csrc/pin.cu``.
+hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5_stem.cu``,
+``csrc/conv5.cu``, ``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu``
+and ``csrc/pin.cu``.
 
 Counterpart of ``medicalseg_tpu/ops/pallas_conv5.py``, forward and
 backward. The public functions keep the JAX package's layouts at their
@@ -18,9 +19,9 @@ boundary:
 the CPU and on the card alike (the JAX ``_conv5_kl_bwd`` / ``_pin_bwd``):
 dx is the same conv of the cotangent with the flipped, io-transposed
 weight through the forward kernel, dw comes from the weight-gradient
-kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16, Co > 16, views a tensor copy
-can describe: :func:`conv5_wgrad_form`) and ``csrc/conv5_wgrad.cu`` (the
-rest), db is a plain f32 sum.
+kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
+convs on views a tensor copy can describe: :func:`conv5_wgrad_form`) and
+``csrc/conv5_wgrad.cu`` (the rest), db is a plain f32 sum.
 :func:`conv5_kl_fused` is inference-only.
 
 One wrapper covers every 5^3 conv of V-Net: Ci from 1 to 256, Co from 1
@@ -28,11 +29,13 @@ to 256, in bfloat16 or float32, with f32 accumulation and a single cast of
 the result. Every bf16 head conv, forward and input gradient, runs on the
 tensor cores through the warpgroup kernel (``conv5_wg_kernel`` of
 ``csrc/conv5_wg.cu``: wgmma, mbarrier rings, a deterministic split of K
-where the grid is short of blocks; :func:`conv5_wg_geometry`); f32 convs
-and the ``kind="stem"`` (Ci = 1) form run on the CUDA cores
-(``conv5_kernel`` of ``csrc/conv5.cu``). The choice is by dtype and kind
-alone. No shape gate: the TPU's lane and VMEM eligibility
-rules do not apply here. The packed bf16 weights of the warpgroup kernel
+where the grid is short of blocks; :func:`conv5_wg_geometry`); the bf16
+``kind="stem"`` (Ci = 1) form with Co <= 16 runs on the tensor cores
+through ``stem_tc_kernel`` of ``csrc/conv5_stem.cu``
+(:func:`conv5_stem_tc_geometry`); f32 convs and wider stems run on the
+CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``). The choice is by
+dtype, kind and Co alone (:func:`conv5_form`): the TPU's lane and VMEM
+eligibility rules do not apply here. The packed bf16 weights of the warpgroup kernel
 are kept while their parameter is unchanged (:func:`_packed_weight`).
 
 Every wrapper has a plain PyTorch version beside it (``*_plain``). A
@@ -55,14 +58,16 @@ K = 5  # kernel edge
 P = K // 2  # halo
 
 # Launches of each kernel since the last reset_launches(). A forward conv
-# launch counts under "conv5_head" or "conv5_stem" by its form, and also
+# launch counts under its form (:func:`conv5_form`): "conv5_head",
+# "conv5_stem_tc" (bf16 stems) or "conv5_stem" (other stems), and also
 # under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
 # same kernel launched for a backward counts under "conv5_dgrad" only. A
 # weight gradient counts under its form (:func:`conv5_wgrad_form`): "stem"
 # (Ci = 1), "head_tma" (bf16 narrow heads, Co <= 16, on views a tensor copy
 # can describe), "head" (every other narrow head), "tma" (bf16 wider convs
 # on such views) or "mid" (every other wider conv).
-LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_fused_epilogue": 0,
+LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_stem_tc": 0,
+            "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
             "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
             "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0}
@@ -77,6 +82,8 @@ _WGRAD_SMEM = 100 * 1024  # wgrad: shared memory of a block (2 blocks per SM)
 _WGRAD_THREADS = 384  # wgrad: the kernel's __launch_bounds__
 _TMA_MAX_STAGES = 8  # wgrad_tma_kernel: most stages of its ring
 _TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
+_STEM_BLOCKS = 1056  # stem_tc_kernel: depth chunks until 8 blocks per SM
+_STEM_CO = 16  # stem_tc_kernel: most output channels (N of its GEMM)
 
 
 def reset_launches():
@@ -189,6 +196,15 @@ def _conv5_lib():
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.conv5_launch.argtypes = [vp] * 5 + [i] * 11 + [ll] * 8 + [vp]
     lib.conv5_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _conv5_stem_lib():
+    lib = _build.library("conv5_stem")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_stem_tc_launch.argtypes = [vp] * 5 + [i] * 6 + [ll] * 7 + [vp]
+    lib.conv5_stem_tc_launch.restype = ctypes.c_int
     return lib
 
 
@@ -392,14 +408,19 @@ _PACKED = {}
 
 
 def _packed_weight(w, nt, dgrad=False):
-    """:func:`_pack_weights_wg` of ``w``, kept while the tensor ``w`` views
+    """:func:`_pack_weights_wg` of ``w`` (``nt='stem'``:
+    :func:`_pack_weights_stem`), kept while the tensor ``w`` views
     (a layer passes a permuted view of its parameter) is alive and
     unchanged: an in-place update (an optimizer step, ``load_state_dict``)
     moves its ``_version`` and the weights are packed again. Entries belong
     to one tensor object and leave with it. Inference tensors carry no
     version and are packed per call."""
+    def pack(w):
+        return (_pack_weights_stem(w) if nt == "stem" else
+                _pack_weights_wg(w, nt, dgrad))
+
     if w.is_inference():
-        return _pack_weights_wg(w, nt, dgrad)
+        return pack(w)
     base = w if w._base is None else w._base
     entry = _PACKED.get(id(base))
     if (entry is None or entry[0]() is not base
@@ -412,7 +433,7 @@ def _packed_weight(w, nt, dgrad=False):
         _PACKED[id(base)] = entry
     form = (tuple(w.shape), w.stride(), w.storage_offset(), nt, dgrad)
     if form not in entry[3]:
-        entry[3][form] = _pack_weights_wg(w.detach(), nt, dgrad)
+        entry[3][form] = pack(w.detach())
     return entry[3][form]
 
 
@@ -425,6 +446,54 @@ def _pack_weights(w, dtype, cot):
     wf = F.pad(w.to(dtype).float(), (0, tiles * cot - co))
     return wf.reshape(K * K * K, ci, tiles, cot).permute(
         2, 0, 1, 3).contiguous()
+
+
+def conv5_form(xk, co, kind):
+    """The forward kernel that takes a conv of ``xk`` into ``co`` output
+    channels, named by its :data:`LAUNCHES` entry (``'conv5_' + form``):
+    'stem_tc' (bf16, ``kind='stem'``, Co <= 16: ``stem_tc_kernel``),
+    'stem' (every other stem: ``conv5_kernel``) or 'head' (bf16:
+    ``conv5_wg_kernel``, f32: ``conv5_kernel``)."""
+    if kind != "stem":
+        return "head"
+    return ("stem_tc" if xk.dtype == torch.bfloat16 and co <= _STEM_CO
+            else "stem")
+
+
+def conv5_stem_tc_geometry(n, d, h, w):
+    """Launch geometry of ``stem_tc_kernel`` (``csrc/conv5_stem.cu``), a
+    dict: ``th`` x ``tw`` = 8 x 32, the (h, w) tile of a block (warp i
+    computes row i as two m16 tiles); ``dc``: output depths a block walks
+    (``chunks`` of them cover D), as many chunks as bring the grid to
+    about 8 blocks per SM, each chunk at least 8 depths deep (a chunk reads
+    4 input slices more than it writes); ``grid``: (tiles, n * chunks);
+    ``threads``; ``smem``: the ring of ten input slots (12 rows x 40
+    columns of bf16), the per-warp output staging (16 channels x 40) and
+    the channels' bias and epilogue (4 x 16 f32);
+    ``blocks_per_sm``: 2 (its ``__launch_bounds__``: at most 128 registers
+    a thread, 40 of them the held weight fragments)."""
+    tiles = -(-h // 8) * -(-w // 32)
+    chunks = max(1, min(-(-d // 8), -(-_STEM_BLOCKS // (tiles * n))))
+    dc = -(-d // chunks)
+    chunks = -(-d // dc)
+    return dict(th=8, tw=32, dc=dc, chunks=chunks,
+                grid=(tiles, n * chunks), threads=256,
+                smem=10 * 12 * 40 * 2 + 8 * 16 * 40 * 2 + 4 * 16 * 4,
+                blocks_per_sm=2)
+
+
+def _pack_weights_stem(w):
+    """[5, 5, 5, 1, Co] -> ``stem_tc_kernel``'s 32-bit words [80, 16]: K
+    pair j < 75 is (kd, kh, kp) in row-major order and holds the bf16 pair
+    (w[kd, kh, 2 kp, co], w[kd, kh, 2 kp + 1, co]) in its (low, high)
+    halves; the sixth kw, the pairs 75..79 and the channels past Co are
+    zero."""
+    co = w.shape[4]
+    wb = w.to(torch.bfloat16).reshape(K * K, K, co)
+    wb = F.pad(wb, (0, _STEM_CO - co, 0, 1)).reshape(75, 2, _STEM_CO)
+    wb = F.pad(wb, (0, 0, 0, 0, 0, 5))
+    return wb.permute(0, 2, 1).contiguous().view(torch.int32).reshape(
+        80, _STEM_CO)
 
 
 def _check_conv(xk, w, b, kind, ep):
@@ -451,11 +520,35 @@ def _check_conv(xk, w, b, kind, ep):
             xk.dtype))
 
 
-def _conv5_cuda(xk, w, b, kind, ep, dgrad=False):
+def _stem_tc_launch(xk, w, b, epk, y):
+    """``stem_tc_kernel`` of ``xk`` [N, D, 1, H, W] into ``y``, with the
+    packed epilogue ``epk`` or None."""
+    n, d, _, h, ww = xk.shape
+    q = conv5_stem_tc_geometry(n, d, h, ww)
+    if q["grid"][1] > 65535:
+        raise ValueError("conv5 stem launch too large for {}".format(
+            tuple(xk.shape)))
+    wpk = _packed_weight(w, "stem")
+    bias = b.float().contiguous()
+    xs, ys = xk.stride(), y.stride()
+    with _on_device(xk.device) as stream:
+        rc = _conv5_stem_lib().conv5_stem_tc_launch(
+            xk.data_ptr(), wpk.data_ptr(), bias.data_ptr(),
+            None if epk is None else epk.data_ptr(), y.data_ptr(), q["dc"],
+            n, d, h, ww, y.shape[2], xs[0], xs[1], xs[3], ys[0], ys[2],
+            ys[1], ys[3], stream)
+    if rc != 0:
+        raise RuntimeError("conv5 stem kernel launch failed: CUDA error "
+                           "{}".format(rc))
+
+
+def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     """Launch the forward kernel on ``xk``: the conv with ``w`` and bias
     ``b``, or with ``dgrad`` the input gradient of that conv (``xk`` is
     the cotangent, ``b`` is None), which counts under ``conv5_dgrad`` in
-    :data:`LAUNCHES` where a forward counts under its form."""
+    :data:`LAUNCHES` where a forward counts under its form
+    (:func:`conv5_form`); ``form='stem'`` takes ``conv5_kernel`` where
+    ``stem_tc_kernel`` would run, to time the two side by side."""
     if xk.device.type != "cuda":
         raise RuntimeError("conv5 kernel needs a CUDA tensor, got device "
                            + str(xk.device))
@@ -471,9 +564,16 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False):
     epk = (None if ep is None else
            torch.cat([v.float().reshape(-1) for v in ep]).contiguous())
     y = torch.empty((n, d, co, h, ww), dtype=xk.dtype, device=xk.device)
+    form = "dgrad" if dgrad else form or conv5_form(xk, co, kind)
+    if form == "stem_tc":
+        _stem_tc_launch(xk, w, b, epk, y)
+        LAUNCHES["conv5_stem_tc"] += 1
+        if ep is not None:
+            LAUNCHES["conv5_fused_epilogue"] += 1
+        return y
     part = None
     # bf16 head convs run on the tensor cores; f32 (exact f32 sums) and
-    # the Ci = 1 stem on the CUDA cores
+    # stems wider than stem_tc_kernel's 16 channels on the CUDA cores
     if xk.dtype == torch.bfloat16 and kind == "head":
         q = _wg_geometry(n, d, h, ww, ci, co)
         if (q["smem"] > _SMEM_MAX // q["blocks_per_sm"]
@@ -512,7 +612,7 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False):
     if rc != 0:
         raise RuntimeError("conv5 kernel launch failed: CUDA error {}".format(
             rc))
-    LAUNCHES["conv5_dgrad" if dgrad else "conv5_" + kind] += 1
+    LAUNCHES["conv5_" + form] += 1
     if ep is not None:
         LAUNCHES["conv5_fused_epilogue"] += 1
     return y

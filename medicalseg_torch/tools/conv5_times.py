@@ -4,7 +4,8 @@
 ``--wgrad``, on the weight-gradient kernels (``csrc/conv5_wgrad_tma.cu``,
 ``csrc/conv5_wgrad.cu``).
 
-    python -m medicalseg_torch.tools.conv5_times [--wgrad]
+    python -m medicalseg_torch.tools.conv5_times [--wgrad | --stem]
+        [--variant SRC.cu]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -12,8 +13,17 @@ the fused forward and the input gradient against their plain versions
 (bf16, atol = rtol = 2e-2), checks that a second launch gives the same
 bits, and prints their times with warm packed weights beside
 ``F.conv3d`` / ``conv3d_input``, the operation bound and the geometry
-that ran; last the sums over one forward / backward. CUDA events, one
-warm-up, median of five. Needs one NVIDIA GPU.
+that ran; last the sums over one forward / backward. Then the bf16 stem
+(``in_tr``, 1 -> 16): ``stem_tc_kernel`` (``csrc/conv5_stem.cu``,
+printing its registers and spills) without and with the epilogue, held
+to the plain version and to a repeat, beside ``conv5_kernel`` forced
+(the kernel it replaced), ``F.conv3d`` and the bound by bytes; ``dev``
+is the device time of the same call with the host's dispatch taken out
+(ten calls replayed from one CUDA graph); ``--stem`` prints this row
+alone. ``--variant SRC.cu`` (any
+number) builds each candidate of ``conv5_stem.cu`` (same C interface)
+and times it beside the built kernel with the same checks. CUDA events,
+one warm-up, median of five. Needs one NVIDIA GPU.
 
 ``--wgrad``: builds ``conv5_wgrad_tma`` and ``conv5_wgrad`` (printing
 registers and spills of each instantiation), then per weight gradient of
@@ -51,6 +61,7 @@ CONVS = [("down_tr32", 32, 32, 64, 1), ("down_tr64", 64, 64, 32, 2),
          ("out_tr", 32, 3, 128, 1)]
 BATCH = 2
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
 
 def time_ms(fn, reps=5):
@@ -99,6 +110,70 @@ def build_variant(src, ref, names):
         getattr(lib, name).argtypes = getattr(ref, name).argtypes
         getattr(lib, name).restype = getattr(ref, name).restype
     return lib
+
+
+def graph_ms(fn, calls=10):
+    """Device time of one ``fn()``: ``calls`` calls captured into one CUDA
+    graph, the median replay over ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay) / calls
+    del graph
+    return ms
+
+
+def stem_main(variants):
+    """The in_tr row: the bf16 stem's kernel, the kernel it replaced, its
+    candidates and the library call, with the same checks."""
+    ptxas_lines("conv5_stem", "stem")
+    built = c5._conv5_stem_lib
+    libs = [(Path(v).name, build_variant(v, built(),
+                                         ("conv5_stem_tc_launch",)))
+            for v in variants]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    e, co = 128, 16
+    x = torch.randn((BATCH, e, 1, e, e), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = torch.randn((5, 5, 5, 1, co), generator=gen, device=dev) / 125 ** 0.5
+    b = torch.randn((co,), generator=gen, device=dev)
+    ep = (0.5 + torch.rand((co,), generator=gen, device=dev),
+          torch.randn((co,), generator=gen, device=dev),
+          torch.rand((co,), generator=gen, device=dev))
+    xn = x.transpose(1, 2).contiguous()
+    wo = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
+    lib = time_ms(lambda: F.conv3d(xn, wo, b.to(torch.bfloat16), padding=2))
+    bound = BATCH * e ** 3 * (1 + co) * 2 / PEAK_BYTES * 1e3
+    for vname, vlib in [("built", None)] + libs:
+        if vlib is not None:
+            c5._conv5_stem_lib = lambda vlib=vlib: vlib
+        try:
+            for tag, e_ in (("plain", None), ("fused", ep)):
+                def call(form=None):
+                    return c5._conv5_cuda(x, w, b, "stem", e_, form=form)
+                got, ref = call(), c5.conv5_kl_plain(x, w, b, e_)
+                ok = torch.allclose(got.float(), ref.float(), atol=2e-2,
+                                    rtol=2e-2)
+                same = torch.equal(got, call())
+                del got, ref
+                ms, dev_ms = time_ms(call), graph_ms(call)
+                old = time_ms(lambda: call("stem"))
+                old_dev = graph_ms(lambda: call("stem"))
+                print("in_tr      {} {} stem_tc {:.3f} dev {:.3f} conv5_kernel "
+                      "{:.3f} dev {:.3f} library {:.3f} bound {:.4f} agrees {} "
+                      "repeats {} geometry {}".format(
+                          vname, tag, ms, dev_ms, old, old_dev, lib, bound,
+                          ok, same, c5.conv5_stem_tc_geometry(
+                              BATCH, e, e, e)), flush=True)
+                if not (ok and same):
+                    sys.exit("conv5_times: the stem disagrees with its plain "
+                             "version or does not repeat")
+        finally:
+            c5._conv5_stem_lib = built
 
 
 def wgrad_main(variants):
@@ -184,9 +259,11 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--wgrad", action="store_true",
                         help="time the weight gradients instead")
+    parser.add_argument("--stem", action="store_true",
+                        help="time the bf16 stem alone")
     parser.add_argument("--variant", action="append", default=[],
-                        help="with --wgrad: a candidate conv5_wgrad_tma.cu "
-                        "to time beside the built one")
+                        help="a candidate conv5_stem.cu (with --wgrad: "
+                        "conv5_wgrad_tma.cu) to time beside the built one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("conv5_times: no CUDA device")
@@ -195,6 +272,8 @@ def main():
     if args.wgrad:
         return wgrad_main(args.variant)
     print(torch.cuda.get_device_name(0))
+    if args.stem:
+        return stem_main(args.variant)
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()
     for i, line in enumerate(lines):
@@ -247,6 +326,7 @@ def main():
                      "does not repeat".format(name))
     print("per forward / backward: fwd {:.2f} dgrad {:.2f} library {:.2f} "
           "{:.2f}".format(*total))
+    stem_main(args.variant)
 
 
 if __name__ == "__main__":

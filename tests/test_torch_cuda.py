@@ -93,6 +93,74 @@ def test_conv5_kernel_matches_plain(dev, kind, shape, co, fused, dtype):
     _close(got, c5.conv5_kl_plain(x, w, b, ep), dtype)
 
 
+# The bf16 stem on the tensor cores (stem_tc_kernel): (what, [N, D, 1, H,
+# W], Co) at the V-Net stem, ragged tiles in h, w and depth chunks, Co <
+# 16, and W not a multiple of 8 (element stores at the row's end)
+STEM_CASES = [("vnet-1-16", (2, 6, 1, 16, 32), 16),
+              ("chunks-h9-w40", (1, 20, 1, 9, 40), 16),
+              ("co5-w7", (2, 3, 1, 5, 7), 5),
+              ("w100", (1, 12, 1, 20, 100), 16)]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("what,shape,co", STEM_CASES,
+                         ids=[c[0] for c in STEM_CASES])
+def test_stem_tc_kernel_matches_plain_and_repeats(dev, what, shape, co,
+                                                  fused):
+    """Against the plain version (bf16 tolerance), bit for bit on a second
+    launch, counted under its own key (and the epilogue's)."""
+    x, w, b, ep = _conv_inputs(shape, co, dev, seed=4)
+    x, ep = x.bfloat16(), ep if fused else None
+    assert c5.conv5_form(x, co, "stem") == "stem_tc"
+
+    def call():
+        return (c5.conv5_kl_fused(x, w, b, ep, "stem") if fused else
+                c5.conv5_kl(x, w, b, "stem"))
+
+    c5.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    want = {"conv5_stem_tc": 1}
+    if fused:
+        want["conv5_fused_epilogue"] = 1
+    assert {k: v for k, v in c5.LAUNCHES.items() if v} == want
+    assert got.shape == (*shape[:2], co, *shape[3:])
+    assert got.dtype == torch.bfloat16
+    _close(got, c5.conv5_kl_plain(x, w, b, ep), torch.bfloat16)
+    assert torch.equal(got, call())
+
+
+def test_stem_tc_kernel_reads_a_strided_view(dev):
+    """A depth slice of a wider tensor and a misaligned base: the kernel
+    takes any W-contiguous view (its own strides, 2-byte loads)."""
+    x, w, b, _ = _conv_inputs((1, 8, 1, 10, 24), 16, dev, seed=5)
+    x = x.bfloat16()
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    for xv in (x[:, 2:7], view):
+        c5.reset_launches()
+        got = c5.conv5_kl(xv, w, b, "stem")
+        torch.cuda.synchronize()
+        assert c5.LAUNCHES["conv5_stem_tc"] == 1
+        _close(got, c5.conv5_kl_plain(xv, w, b), torch.bfloat16)
+
+
+def test_stem_tc_kernel_raises_on_what_it_cannot_take(dev):
+    """W not the contiguous axis raises; 17 output channels are
+    conv5_kernel's by the gate, and forced onto stem_tc_kernel the launch
+    is refused and the wrapper raises; nothing falls back."""
+    x, w, b, _ = _conv_inputs((1, 4, 1, 8, 16), 17, dev, seed=6)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        c5.conv5_kl(x.transpose(3, 4), w, b, "stem")
+    assert c5.conv5_form(x, 17, "stem") == "stem"
+    c5.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        c5._conv5_cuda(x, w, b, "stem", None, form="stem_tc")
+    assert c5.LAUNCHES["conv5_stem_tc"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_conv5_reads_a_strided_view(dev, dtype):
@@ -419,11 +487,16 @@ def test_launch_counts_one_per_kernel_launch(dev):
     c5.conv5_kl_fused(x, w, b, ep)
     c5.conv5_kl_fused(x[:, :, :1].contiguous(), w[:, :, :, :1], b, ep,
                       kind="stem")
+    xs = x[:, :, :1].bfloat16()
+    c5.conv5_kl(xs, w[:, :, :, :1], b, "stem")
+    c5.conv5_kl_fused(xs, w[:, :, :, :1], b, ep, kind="stem")
     c5.pin_kl(x)  # contiguous: no copy, no launch
     c5.pin_kl(x.transpose(1, 2))
+    xb, gb = x.bfloat16(), torch.randn((1, 4, 3, 8, 16), device=dev).bfloat16()
+    c5.conv5_wgrad_kl(xb, gb)
     assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
-        "conv5_head": 2, "conv5_stem": 1, "conv5_fused_epilogue": 2,
-        "pin": 1}
+        "conv5_head": 2, "conv5_stem": 1, "conv5_stem_tc": 2,
+        "conv5_fused_epilogue": 3, "pin": 1, "conv5_wgrad_head_tma": 1}
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -547,7 +620,10 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     assert torch.isfinite(metrics["loss"]) and state.step == 1
     fwd = 2 if remat else 1
     assert c5.LAUNCHES["conv5_head"] == 15 * fwd
-    assert c5.LAUNCHES["conv5_stem"] == fwd
+    # the stem: stem_tc_kernel in bf16, conv5_kernel in f32
+    stem = "conv5_stem_tc" if dtype == torch.bfloat16 else "conv5_stem"
+    assert (c5.LAUNCHES[stem], c5.LAUNCHES["conv5_stem"] +
+            c5.LAUNCHES["conv5_stem_tc"]) == (fwd, fwd)
     assert c5.LAUNCHES["conv5_dgrad"] == 15
     # the 14 square and wide weight gradients: in bf16 the tensor-copy
     # kernel where W is a multiple of 8 (7 convs at 32, 16 and 8 at this
