@@ -328,24 +328,26 @@ wgrad_tma_kernel(float* __restrict__ part, const __grid_constant__ CUtensorMap x
 // (u = v + tap - 2), so for each (kd, kh) one GEMM with M = ci (32), N =
 // (co, kw) (3 channels x 5 taps = 15, padded to 16: two n8 tiles) and K =
 // voxels u, x unshifted and g shifted. A block owns 32 input channels x 3
-// output channels x all 25 (kd, kh): 25 x 32 x 16 f32 accumulators, 40 a
-// thread over 10 warps, so each x box is staged once (the taps-on-x form
-// stages it once per kd). Warp (kd, n8 tile) holds the 5 kh x 2 m16 tiles
-// of its depth tap; all ten read the same A words, but each its own B
-// words, so no two warps load the same g word. A K step is 16 consecutive
-// w of one tile row. Per stage the loader brings the x box [32 ci][rows]
-// [cols] at the tile (no halo) and the g box [5 d][3 co][rows][cols] that
-// covers every shift: depths ud - 2 .. ud + 2, rows h0 - 2 .., columns from
-// 8 left of the tile (a box starts on 16 bytes). A thread's B column n =
-// (co, kw) is fixed, so its shift is too: at an even kw a B register is the
-// aligned word, at an odd kw __byte_perm(lo, hi, 0x5432) of two; the
-// thread uses one selector for both (0x3210 keeps lo). Column 15 is
-// padding and its B is masked to zero. Bound: at 32 -> 3 the operations
+// output channels x all 25 (kd, kh): 25 x 32 x 16 f32 accumulators, so
+// each x box is staged once (the taps-on-x form stages it once per kd).
+// Warp (kd, row parity) runs the K steps of every other tile row for the 5
+// kh, both m16 and both n8 tiles (80 accumulators a thread); the two warps
+// of a kd add their sums at the end, in a fixed order. A K step is 16
+// consecutive w of one tile row. Per stage the loader brings the x box
+// [32 ci][rows][cols] at the tile (no halo) and the g box [5 d][3 co][rows]
+// [cols] that covers every shift: depths ud - 2 .. ud + 2, rows h0 - 2 ..,
+// columns from 8 left of the tile (a box starts on 16 bytes). A thread's
+// two B columns (one per n8 tile) are fixed, and chosen to share their
+// words: rows 0-5 of the tiles hold (co, kw) and (co, kw + 1) for even kw,
+// the aligned word at kw and __byte_perm(word left of it, it, 0x5432) at
+// kw + 1; rows 6 and 7 hold kw = 4 of the three channels (aligned words)
+// and the padding column, masked to zero. So a B fragment pair of the two
+// tiles costs two shared loads, not four. Bound: at 32 -> 3 the operations
 // (0.10 ms at 989 TF/s for 2 x 128^3) and the bytes of x (0.09 ms) are
 // close; what limits the kernel is its shared-memory loads, 28 a warp per
-// K step (8 of x, 20 of g) for 10 mma.sync.
+// K step (8 of x, 20 of g) for 20 mma.sync.
 constexpr int HEAD_COG = 3;             // output channels of a block
-constexpr int HEAD_WARPS = 2 * KS;      // (kd, n8 tile)
+constexpr int HEAD_WARPS = 2 * KS;      // (kd, row parity)
 constexpr int HEAD_THREADS = 32 * (HEAD_WARPS + 1);
 constexpr int G_LEFT = 8;               // the g box starts this many columns left
 
@@ -418,36 +420,46 @@ wgrad_head_tma_kernel(float* __restrict__ part,
   }
 
   // ===================== consumers =====================
+  // warp (kd, row parity) runs the K steps of its tile rows for all 5 kh,
+  // both m16 tiles and both n8 tiles; the two warps of a kd add up at the
+  // end
   const int kd = warp >> 1;
-  const int nf = warp & 1;
+  const int rp = warp & 1;
   const int r = lane >> 2;
   const int p = lane & 3;
-  // the thread's B column n = (co, kw); column 15 is padding, read as
-  // column 14 and masked
-  const int n = 8 * nf + r;
-  const bool pad = n >= KS * HEAD_COG;
-  const int co_l = pad ? HEAD_COG - 1 : n / KS;
-  const int kw = pad ? KS - 1 : n % KS;
-  const uint32_t mask = pad ? 0u : 0xffffffffu;
-  const uint32_t sel = (kw & 1) ? 0x5432u : 0x3210u;
+  // the thread's two B columns (one per n8 tile) share their two g words:
+  // rows 0-5 hold (co, kw even) and (co, kw + 1), read from the words
+  // at kw and one left of it; row 6 holds kw = 4 of channels 0 and 1, row
+  // 7 kw = 4 of channel 2 and the padding column
+  const bool pair = r < 6;
+  const int co_u = pair ? r >> 1 : (r == 6 ? 0 : 2);
+  const int co_v = pair ? r >> 1 : (r == 6 ? 1 : 2);
+  const int kwe = pair ? 2 * (r & 1) : KS - 1;
+  const uint32_t sel0 = pair ? 0x7654u : 0x3210u;  // tile 0: v, or u
+  const uint32_t sel1 = pair ? 0x5432u : 0x7654u;  // tile 1: u:v, or v
+  const uint32_t mask1 = r == 7 ? 0u : 0xffffffffu;
   const int xc = q.xrows * q.xw / 2;  // words between x channels
   const int xrw = q.xw / 2;           // words between x rows
   const int gc = q.grows * q.gw / 2;  // words between g channels
   const int grw = q.gw / 2;
   const int gdw = HEAD_COG * gc;      // words between g depths
   const int xoff = r * xc + p;
-  // voxel (row, w0 + 2p) at tap (kd, kh = 0, kw) reads g box depth 4 - kd,
-  // row row + 4, column 2p + G_LEFT + 2 - kw
-  const int goff = (2 * HALO - kd) * gdw + co_l * gc + 2 * HALO * grw + p +
-                   ((G_LEFT + HALO - kw) >> 1);
+  // voxel (row, w0 + 2p) at tap (kd, kh = 0, kwe) reads g box depth 4 - kd,
+  // row row + 4, column 2p + G_LEFT + 2 - kwe: word p + (10 - kwe) / 2
+  const int gbase = (2 * HALO - kd) * gdw + 2 * HALO * grw + p +
+                    (G_LEFT + HALO - kwe) / 2;
+  const int off_u = gbase + co_u * gc - (pair ? 1 : 0);
+  const int off_v = gbase + co_v * gc;
 
-  float acc[KS][2][4];
+  float acc[KS][2][2][4];
 #pragma unroll
   for (int k = 0; k < KS; ++k)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[k][m][e] = 0.f;
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[k][m][f][e] = 0.f;
 
   uint32_t it = 0;
   for (long long t = first; t < last; ++t, ++it) {
@@ -457,10 +469,9 @@ wgrad_head_tma_kernel(float* __restrict__ part,
         reinterpret_cast<const uint32_t*>(smem_h + BAR_BYTES + slot * q.stage) +
         xoff;
     const uint32_t* gs = reinterpret_cast<const uint32_t*>(
-                             smem_h + BAR_BYTES + slot * q.stage + q.x_bytes) +
-                         goff;
+        smem_h + BAR_BYTES + slot * q.stage + q.x_bytes);
 #pragma unroll 1
-    for (int row = 0; row < q.th; ++row) {
+    for (int row = rp; row < q.th; row += 2) {
 #pragma unroll
       for (int ws = 0; ws < TW; ws += 16) {
         const uint32_t* xr = xs + row * xrw + ws / 2;
@@ -472,15 +483,23 @@ wgrad_head_tma_kernel(float* __restrict__ part,
           a[m][2] = xr[m * 16 * xc + 4];
           a[m][3] = xr[m * 16 * xc + 8 * xc + 4];
         }
-        const uint32_t* gr = gs + row * grw + ws / 2;
+        const int grow = row * grw + ws / 2;
 #pragma unroll
         for (int kh = 0; kh < KS; ++kh) {
-          const uint32_t* gk = gr - kh * grw;
-          const uint32_t b0 = __byte_perm(gk[0], gk[1], sel) & mask;
-          const uint32_t b1 = __byte_perm(gk[4], gk[5], sel) & mask;
+          const uint32_t* gu = gs + off_u + grow - kh * grw;
+          const uint32_t* gv = gs + off_v + grow - kh * grw;
+          const uint32_t u0 = gu[0], v0 = gv[0], u1 = gu[4], v1 = gv[4];
+          const uint32_t b00 = __byte_perm(u0, v0, sel0);
+          const uint32_t b01 = __byte_perm(u1, v1, sel0);
+          const uint32_t b10 = __byte_perm(u0, v0, sel1) & mask1;
+          const uint32_t b11 = __byte_perm(u1, v1, sel1) & mask1;
 #pragma unroll
-          for (int m = 0; m < 2; ++m)
-            mma_bf16(acc[kh][m], a[m][0], a[m][1], a[m][2], a[m][3], b0, b1);
+          for (int m = 0; m < 2; ++m) {
+            mma_bf16(acc[kh][m][0], a[m][0], a[m][1], a[m][2], a[m][3], b00,
+                     b01);
+            mma_bf16(acc[kh][m][1], a[m][0], a[m][1], a[m][2], a[m][3], b10,
+                     b11);
+          }
         }
       }
     }
@@ -488,23 +507,48 @@ wgrad_head_tma_kernel(float* __restrict__ part,
     if (lane == 0) mbar_arrive(empty + 8 * slot);
   }
 
-  // accumulator fragment: rows lane / 4 and + 8 (ci), columns 2 * (lane % 4)
-  // + {0, 1} of the warp's n8 tile ((co, kw) = divmod(column, 5))
+  // the odd-row warps hand their sums to the even-row warps through the
+  // ring (every copy has landed and been consumed), which add them in a
+  // fixed order; then the accumulator fragment: rows lane / 4 and + 8
+  // (ci), column 2 * (lane % 4) + {0, 1} of n8 tile f, the (co, kw) of
+  // that column's thread row
+  float* red = reinterpret_cast<float*>(smem_h + BAR_BYTES) +
+               (size_t)kd * (KS * 2 * 2 * 4) * 32 + lane;
+  constexpr int NACC = KS * 2 * 2 * 4;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * HEAD_WARPS) : "memory");
+  if (rp == 1) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) red[i * 32] = (&acc[0][0][0][0])[i];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * HEAD_WARPS) : "memory");
+  if (rp == 1) return;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) (&acc[0][0][0][0])[i] += red[i * 32];
+
   const size_t size = (size_t)KS * KS * KS * q.ci * q.co;
   float* out = part + (size_t)blockIdx.y * size;
 #pragma unroll
-  for (int kh = 0; kh < KS; ++kh)
+  for (int e = 0; e < 4; ++e) {
+    // the column's thread row: lane 4 * rr + p holds column rr
+    const int rr = 2 * p + (e & 1);
+    const bool cpair = rr < 6;
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int f = 0; f < 2; ++f) {
+      const int co_l = cpair ? rr >> 1 : (rr == 6 ? f : 2);
+      const int kw = cpair ? 2 * (rr & 1) + f : KS - 1;
+      const int co = o0 + co_l;
+      if ((rr == 7 && f == 1) || co >= q.co) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = c0 + m * 16 + r + (e >> 1) * 8;
-        const int col = 8 * nf + 2 * p + (e & 1);
-        const int co = o0 + col / KS;
-        if (col < KS * HEAD_COG && ci < q.ci && co < q.co)
-          out[(((size_t)(kd * KS + kh) * KS + col % KS) * q.ci + ci) * q.co +
-              co] = acc[kh][m][e];
-      }
+      for (int kh = 0; kh < KS; ++kh)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int ci = c0 + m * 16 + r + (e >> 1) * 8;
+          if (ci < q.ci)
+            out[(((size_t)(kd * KS + kh) * KS + kw) * q.ci + ci) * q.co + co] =
+                acc[kh][m][f][e];
+        }
+    }
+  }
 }
 
 // out[i] = sum over the partials of part[p][i], in the order p = 0, 1, ...

@@ -808,19 +808,19 @@ def conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co):
       that each channel is an odd number of 16-byte units (conflict-free A
       loads); ``grows`` x ``gw``: the g box per (depth, channel), the tile
       with its 2-voxel halo in h and from 8 columns left of it (a box starts
-      on 16 bytes), padded until a channel's pitch is 6-26 words mod 32
-      banks, so that the two or three channels one B load touches (each 6
-      words wide) miss each other's banks;
+      on 16 bytes), padded until the three channels one B load touches
+      (each 6 words wide, a pitch apart) lie at least 6 banks apart;
     * ``x_bytes`` (32 channels), ``g_bytes`` (5 depths x 3 channels),
       ``stage`` (their sum rounded to 128 bytes); ``stages``: as many as
       fit the block's shared memory, at most 8; ``smem``;
     * ``chan_blocks``: (Ci / 32) x (Co / 3) blocks, each holding 25 (kd,
-      kh) x 32 ci x 16 (co, kw) f32 accumulators (50 KB of registers, 40 a
-      thread over 10 warps, one block per SM); ``splits``: blocks along
-      the voxel tiles, about one wave of blocks, each with a tile at least
-      (the partials summed in split order by a second pass); ``grid``;
-    * ``threads``: 10 consumer warps (depth tap x n8 tile) and the loader
-      warp."""
+      kh) x 32 ci x 16 (co, kw) f32 accumulators twice, once per tile-row
+      parity (100 KB of registers, 80 a thread over 10 warps, one block per
+      SM); ``splits``: blocks along the voxel tiles, about one wave of
+      blocks, each with a tile at least (the partials summed in split
+      order by a second pass); ``grid``;
+    * ``threads``: 10 consumer warps (depth tap x tile-row parity) and the
+      loader warp."""
     return dict(_wgrad_head_tma_geometry(n, d, h, w, ci, co))
 
 
@@ -832,10 +832,11 @@ def _wgrad_head_tma_geometry(n, d, h, w, ci, co):
     gw0 = -(-(tw + 10) // 8) * 8
 
     def fits(rows, cols):
-        return 6 <= rows * cols // 2 % 32 <= 26
+        pitch = rows * cols // 2
+        return all(6 <= k * pitch % 32 <= 26 for k in (1, 2))
 
     grows, gw = min(((r, c) for r in range(th + 4, th + 12)
-                     for c in (gw0, gw0 + 8) if fits(r, c)),
+                     for c in (gw0, gw0 + 8, gw0 + 16) if fits(r, c)),
                     key=lambda rc: (rc[0] * rc[1], rc))
     x_bytes, g_bytes = 64 * xrows * xw, 2 * 15 * grows * gw
     stage = -(-(x_bytes + g_bytes) // 128) * 128

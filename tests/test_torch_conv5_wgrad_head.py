@@ -46,15 +46,13 @@ def _one_torch_thread():
 # (a) launch geometry
 # ----------------------------------------------------------------------
 def _bank_span(q):
-    """The banks one B load of a warp touches: per channel of the n8 tile
-    the words at offsets -1 .. 4 (p = 0..3, kw = 0..4), channels a pitch
-    apart. True when no bank is hit by two different words."""
+    """The banks one B load of a warp touches: per channel the words at
+    offsets 3 .. 8 of the thread's column (p = 0..3, the word at an even
+    kw or one left of it), the three channels a pitch apart. True when no
+    bank is hit by two different words."""
     pitch = q["grows"] * q["gw"] // 2
-    for chans in ((0, 1), (1, 2)):
-        banks = [(c * pitch + off) % 32 for c in chans for off in range(-1, 5)]
-        if len(set(banks)) != len(banks):
-            return False
-    return True
+    banks = [(c * pitch + off) % 32 for c in range(3) for off in range(3, 9)]
+    return len(set(banks)) == len(banks)
 
 
 def _check_geometry(n, d, h, w, ci, co):
@@ -82,11 +80,11 @@ def _check_geometry(n, d, h, w, ci, co):
     assert q["smem"] == 128 + q["stages"] * q["stage"] <= SMEM_MAX
     assert q["stages"] == 8 or q["smem"] + q["stage"] > SMEM_MAX
     # 10 consumer warps and the loader; 25 (kd, kh) x 32 ci x 16 (co, kw)
-    # f32 accumulators are 40 a consumer thread
+    # f32 accumulators, once per tile-row parity, are 80 a consumer thread
     assert q["threads"] == 32 * 11
-    acc = 25 * 32 * 16
-    assert acc // (32 * 10) == 40
-    assert q["threads"] * 2 * 40 <= REGISTERS and 2 * 40 < THREAD_REGISTERS
+    acc = 2 * 25 * 32 * 16
+    assert acc // (32 * 10) == 80
+    assert q["threads"] * 2 * 80 <= REGISTERS and 2 * 80 < THREAD_REGISTERS
     # the grid: every (ci tile, 3-channel co group) a block column
     assert q["chan_blocks"] == -(-ci // 32) * -(-co // 3)
     assert q["grid"] == (q["chan_blocks"], q["splits"])
@@ -205,15 +203,25 @@ def _halves(word):
     return bits.view(torch.bfloat16).float()
 
 
+# (co, kw) of B column n of the two n8 tiles: thread row r holds column r
+# of tile 0 and of tile 1; rows 0-5 a channel's (kw, kw + 1) for even kw,
+# row 6 kw = 4 of channels 0 and 1, row 7 kw = 4 of channel 2 and the
+# padding column (None)
+COLUMNS = ([(r >> 1, 2 * (r & 1)) for r in range(6)] + [(0, 4), (2, 4)] +
+           [(r >> 1, 2 * (r & 1) + 1) for r in range(6)] + [(1, 4), None])
+
+
 def _emulate_head(xk, gk, q):
     """The kernel's arithmetic: per (n, d, tile) the x box at the tile and
     the g box of 5 depths x 3 channels from 2 depths, 2 rows and 8 columns
     before it, cut as the tensor copy brings them (zeros outside the
     volume); per K step (16 w of one row) the A words of x as they lie and,
-    for each (kd, kh) and B column n = (co, kw), the g word at the
-    thread's shift (aligned at even kw, byte-permuted at odd kw; column 15
-    masked to zero); one [ci, 16] x [16, 16] product added to the split's
-    f32 sum per (kd, kh), tiles in the split's order, the partials summed
+    for each (kd, kh), the thread's two g words (at an even kw and one
+    left of it, or kw = 4 of two channels) and the B words of its two
+    columns from them (the aligned word, or __byte_perm(lo, hi, 0x5432) for
+    kw + 1; the padding column masked to zero); one [ci, 16] x [16, 16]
+    product per (kd, kh) added to the f32 sum of the K step's row parity,
+    tiles in the split's order, the two parities added, the partials summed
     in split order. Returns f32 [5, 5, 5, Ci, Co]."""
     n, d, ci, h, w = xk.shape
     co = gk.shape[2]
@@ -229,12 +237,15 @@ def _emulate_head(xk, gk, q):
     # the thread's K index k = 8 * half + 2 * pair + j
     k = torch.arange(16)
     half, pair, j = k // 8, k % 8 // 2, k % 2
-    cols = torch.arange(16)
-    co_l = torch.where(cols < 15, cols // 5, 2)
-    kw = torch.where(cols < 15, cols % 5, 4)
+    # per column: the (channel, word offset) of the word it is made of and,
+    # for kw + 1 columns, of the word left of it (else the same word)
+    chan = torch.tensor([c[0] if c else 2 for c in COLUMNS])
+    kws = torch.tensor([c[1] if c else 4 for c in COLUMNS])
+    odd = kws % 2 == 1
+    valid = torch.tensor([c is not None for c in COLUMNS])
     parts = []
     for s in range(q["splits"]):
-        acc = torch.zeros((groups, 5, 5, cip, 16))
+        acc = torch.zeros((2, groups, 5, 5, cip, 16))  # [row parity, ...]
         for t in range(s * per, min(tiles, (s + 1) * per)):
             w0 = t % tiles_w * tw
             h0 = t // tiles_w % tiles_h * th
@@ -248,27 +259,32 @@ def _emulate_head(xk, gk, q):
                     for ws in range(0, tw, 16):
                         a = _halves(xw[:, row, ws // 2 + 4 * half + pair])
                         a = a[:, k, j]  # [cip, 16]
-                        lo = (ws // 2 + 4 * half[:, None] + pair[:, None]
-                              + (10 - kw[None, :]) // 2)  # [16 k, 16 n]
+                        # the even kw's word; a kw + 1 column also reads
+                        # the word left of it
+                        even = (ws // 2 + 4 * half[:, None] + pair[:, None]
+                                + (10 - (kws - odd.long())[None, :]) // 2)
                         for kd in range(5):
                             for kh in range(5):
                                 rows = gw[4 - kd, :, row + 4 - kh]
-                                lo_w = rows[co_l[None, :], lo]
-                                hi_w = rows[co_l[None, :], lo + 1]
+                                v = rows[chan[None, :], even]
+                                u = rows[chan[None, :], even - 1]
                                 word = torch.where(
-                                    kw[None, :] % 2 == 1,
-                                    _byte_perm(lo_w, hi_w, 0x5432),
-                                    _byte_perm(lo_w, hi_w, 0x3210))
+                                    odd[None, :], _byte_perm(u, v, 0x5432),
+                                    _byte_perm(v, v, 0x3210))
                                 b = _halves(word)[k, :, j]  # [16 k, 16 n]
-                                b = torch.where(cols[None, :] < 15, b, 0.0)
-                                acc[o, kd, kh] += a @ b
+                                b = torch.where(valid[None, :], b, 0.0)
+                                acc[row % 2, o, kd, kh] += a @ b
         parts.append(acc)
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part
+    total = None
+    for part in parts:
+        both = part[0] + part[1]  # the even-row warp adds the odd-row sums
+        total = both if total is None else total + both
     # column n = (co, kw): dW[kd, kh, kw, ci, 3 * o + co]
-    dw = total[..., :15].reshape(groups, 5, 5, cip, 3, 5)
-    dw = dw.permute(1, 2, 5, 3, 0, 4).reshape(5, 5, 5, cip, 3 * groups)
+    dw = torch.zeros((5, 5, 5, cip, 3 * groups))
+    for n, col in enumerate(COLUMNS):
+        if col is not None:
+            c, kw = col
+            dw[:, :, kw, :, c::3] = total[..., n].permute(1, 2, 3, 0)
     return dw[..., :ci, :co]
 
 
@@ -314,17 +330,31 @@ def test_emulated_splits_and_fixed_order_reduce(splits):
 def test_g_shift_words(kw):
     """The B word of K pair p at tap kw: g at columns (2p + 8 + 2 - kw,
     + 1) of a box that starts 8 columns left of the tile, i.e. g[u - kw +
-    2] for u = 2p, 2p + 1; one aligned word at even kw, __byte_perm of two
-    at odd kw."""
+    2] for u = 2p, 2p + 1: at even kw the word (10 - kw) / 2 + p, at odd
+    kw __byte_perm of the word left of the even kw - 1's and that word."""
     row = torch.arange(1, 49, dtype=torch.float32)  # bf16-exact
     words = _words(row)
-    sel = 0x5432 if kw % 2 else 0x3210
     for p in range(4):
-        lo = p + (10 - kw) // 2
-        got = _halves(_byte_perm(words[lo], words[lo + 1], sel))
+        even = p + (10 - kw + kw % 2) // 2
+        got = _halves(_byte_perm(words[even - 1], words[even], 0x5432)
+                      if kw % 2 else words[even])
         u = 2 * p
         assert got.tolist() == [row[8 + u - kw + 2].item(),
                                 row[8 + u + 1 - kw + 2].item()]
+
+
+def test_columns_cover_every_tap_once():
+    """The 16 B columns hold each (co, kw) of the 3 x 5 once, and each
+    thread row's two columns read the same words: a channel's even kw and
+    kw + 1, or kw = 4 (aligned) of two channels."""
+    real = [c for c in COLUMNS if c is not None]
+    assert sorted(real) == [(c, k) for c in range(3) for k in range(5)]
+    for r in range(8):
+        first, second = COLUMNS[r], COLUMNS[8 + r]
+        if r < 6:
+            assert second == (first[0], first[1] + 1) and first[1] % 2 == 0
+        else:
+            assert first[1] == 4 and (second is None or second[1] == 4)
 
 
 def test_emulation_matches_pallas_interpret():
