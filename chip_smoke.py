@@ -181,7 +181,6 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "pin": "medicalseg_torch/csrc/pin.cu",
            "conv5_dgrad": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu",
-           "conv5_wgrad_head": "medicalseg_torch/csrc/conv5_wgrad.cu",
            "conv5_wgrad_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
@@ -191,7 +190,6 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "pin": "medicalseg_tpu/ops/pallas_conv5.py:1412",
             "conv5_dgrad": "medicalseg_tpu/ops/pallas_conv5.py:1383",
             "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912",
-            "conv5_wgrad_head": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_tma": "medicalseg_tpu/ops/pallas_conv5.py:832",
             "conv5_wgrad_head_tma": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86"}
@@ -335,15 +333,14 @@ def stem_columns(x, w, b, ep):
     n, e = x.shape[0], x.shape[1]
     cols = {}
     for tag, e_ in (("", None), ("_fused", ep)):
-        first, second = (c5.conv5_kl_fused(x, w, b, ep) if e_ else
-                         c5.conv5_kl(x, w, b, "stem") for _ in "12")
+        def call(form=None, e_=e_):
+            return c5._conv5_cuda(x, w, b, "stem", e_, form=form)
+
+        first, second = call(), call()
         torch.cuda.synchronize()
         check(torch.equal(first, second), "two launches of the stem kernel "
               "disagree")
         del first, second
-
-        def call(form=None, e_=e_):
-            return c5._conv5_cuda(x, w, b, "stem", e_, form=form)
 
         cols.update({"device_ms" + tag: graph_ms(call),
                      "ms_old" + tag: time_ms(lambda: call("stem")),

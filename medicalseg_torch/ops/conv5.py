@@ -35,8 +35,9 @@ through ``stem_tc_kernel`` of ``csrc/conv5_stem.cu``
 (:func:`conv5_stem_tc_geometry`); f32 convs and wider stems run on the
 CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``). The choice is by
 dtype, kind and Co alone (:func:`conv5_form`): the TPU's lane and VMEM
-eligibility rules do not apply here. The packed bf16 weights of the warpgroup kernel
-are kept while their parameter is unchanged (:func:`_packed_weight`).
+eligibility rules do not apply here. The packed bf16 weights of the
+warpgroup and stem kernels are kept while their parameter is unchanged
+(:func:`_packed_weight`).
 
 Every wrapper has a plain PyTorch version beside it (``*_plain``). A
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
@@ -465,8 +466,9 @@ def conv5_stem_tc_geometry(n, d, h, w):
     dict: ``th`` x ``tw`` = 8 x 32, the (h, w) tile of a block (warp i
     computes row i as two m16 tiles); ``dc``: output depths a block walks
     (``chunks`` of them cover D), as many chunks as bring the grid to
-    about 8 blocks per SM, each chunk at least 8 depths deep (a chunk reads
-    4 input slices more than it writes); ``grid``: (tiles, n * chunks);
+    about 8 blocks per SM but at most D / 8 of them, rounded up (a chunk
+    reads 4 input slices more than it writes); ``grid``: (tiles, n *
+    chunks);
     ``threads``; ``smem``: the ring of ten input slots (12 rows x 40
     columns of bf16), the per-warp output staging (16 channels x 40) and
     the channels' bias and epilogue (4 x 16 f32);
@@ -959,8 +961,10 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     cotangent ``gk`` [N, D, Co, H, W] (same dtype, W contiguous) -> f32
     [5, 5, 5, Ci, Co]. One wrapper for every conv of V-Net (stem, narrow
     head, square and wide stacks): bf16 runs on the tensor cores, the
-    square and wide convs through ``wgrad_tma_kernel`` (tensor-copy ring)
-    where :func:`conv5_wgrad_form` says 'tma', else ``wgrad_mma_kernel``;
+    square and wide convs through ``wgrad_tma_kernel`` and the narrow heads
+    through ``wgrad_head_tma_kernel`` (tensor-copy rings) where
+    :func:`conv5_wgrad_form` says 'tma' / 'head_tma', else
+    ``wgrad_mma_kernel``;
     the Ci = 1 stem, like f32, runs on the CUDA cores (``wgrad_kernel``);
     the voxel axis is reduced deterministically (partials and a second
     pass, no atomics).

@@ -4,8 +4,7 @@
 ``--wgrad``, on the weight-gradient kernels (``csrc/conv5_wgrad_tma.cu``,
 ``csrc/conv5_wgrad.cu``).
 
-    python -m medicalseg_torch.tools.conv5_times [--wgrad | --stem]
-        [--variant SRC.cu]
+    python -m medicalseg_torch.tools.conv5_times [--wgrad] [--variant SRC.cu]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -19,8 +18,7 @@ printing its registers and spills) without and with the epilogue, held
 to the plain version and to a repeat, beside ``conv5_kernel`` forced
 (the kernel it replaced), ``F.conv3d`` and the bound by bytes; ``dev``
 is the device time of the same call with the host's dispatch taken out
-(ten calls replayed from one CUDA graph); ``--stem`` prints this row
-alone. ``--variant SRC.cu`` (any
+(ten calls replayed from one CUDA graph). ``--variant SRC.cu`` (any
 number) builds each candidate of ``conv5_stem.cu`` (same C interface)
 and times it beside the built kernel with the same checks. CUDA events,
 one warm-up, median of five. Needs one NVIDIA GPU.
@@ -259,8 +257,6 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--wgrad", action="store_true",
                         help="time the weight gradients instead")
-    parser.add_argument("--stem", action="store_true",
-                        help="time the bf16 stem alone")
     parser.add_argument("--variant", action="append", default=[],
                         help="a candidate conv5_stem.cu (with --wgrad: "
                         "conv5_wgrad_tma.cu) to time beside the built one")
@@ -272,8 +268,6 @@ def main():
     if args.wgrad:
         return wgrad_main(args.variant)
     print(torch.cuda.get_device_name(0))
-    if args.stem:
-        return stem_main(args.variant)
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()
     for i, line in enumerate(lines):
