@@ -76,14 +76,19 @@ JSON line; any failure raises and the script exits non-zero:
    their plain versions: the input gradient (the forward kernel on the
    flipped, io-transposed weight; not for the stem, whose input is the
    image) with the forward's tolerances, and the weight gradient in its
-   three forms (stem; narrow head and square / wide: the two tensor-copy
-   kernels of ``csrc/conv5_wgrad_tma.cu``, each with a fatal bit-for-bit
-   repeat check and its geometry; at the narrow head also the time of
-   ``wgrad_mma_kernel<1>``, the kernel it replaced, forced in the same
-   process as ``wgrad_old_ms``). dW sums one product per
-   voxel, up to 4.2 M of them, so its tolerance is relative to the
-   tensor's magnitude: |d| <= tol * (max |dW| + |dW|), tol = 2e-2 in bf16
-   (dW is rounded to bf16, as the JAX package's is) and 1e-4 in f32.
+   three forms (the stem's tensor-core kernel of
+   ``csrc/conv5_stem_wgrad.cu``, also at the flagship's stem shape, batch
+   3 x 12 x 512 x 512; narrow head and square / wide: the two tensor-copy
+   kernels of ``csrc/conv5_wgrad_tma.cu``; each with a fatal bit-for-bit
+   repeat check and its geometry; at the stem and the narrow head also the
+   time of the kernel each replaced, ``wgrad_kernel`` and
+   ``wgrad_mma_kernel<1>``, forced in the same process as
+   ``wgrad_old_ms``, and at the stem both device times from graph
+   replays, ``wgrad_device_ms`` and ``wgrad_device_ms_old``). dW sums
+   one product per voxel, up to 9.4 M of them, so its tolerance is
+   relative to the tensor's magnitude: |d| <= tol * (max |dW| + |dW|),
+   tol = 2e-2 in bf16 (dW is rounded to bf16, as the JAX package's is)
+   and 1e-4 in f32.
    Times as in phase 3 (the plain weight gradient once), with
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` as the library
    yardstick, and for the input gradient the same packing, geometry,
@@ -97,8 +102,9 @@ JSON line; any failure raises and the script exits non-zero:
    after step 1 every parameter has a finite, non-zero gradient; the
    launch counts of the three timed steps are what the model implies (per
    step, with remat recomputing each block once: 2 x 16 forward convs, 15
-   dgrads, 16 wgrads as 1 stem + 1 narrow head + 14 square / wide, both
-   of the latter on the tensor-copy kernels, 2 x 8 forward pins and
+   dgrads, 16 wgrads as 1 stem (on its tensor-core kernel) + 1 narrow head
+   + 14 square / wide, both of the latter on the tensor-copy kernels, 2 x
+   8 forward pins and
    none in the backward); step 1's loss and per-parameter gradients agree
    with the plain-version path from the same state and masks (loss within
    1e-2 relative, each leaf's gradient within a relative L2 error of
@@ -150,6 +156,9 @@ LUNG_TPU = os.path.join(ROOT, "configs", "lung_coronavirus",
                         "vnet_lung_coronavirus_128_128_128_15k_tpu.yml")
 BATCH = 2
 EDGE = 128  # served volume edge
+# the flagship's stem input as the weight gradient sees it: [N, D, 1, H, W]
+# (configs/synthetic/vnetdeepsup_synspine_15k.yml: batch 3, 12 x 512 x 512)
+FLAGSHIP_STEM = (3, 12, 512, 512)
 # The 5^3 convs of one V-Net forward at 128^3: (name, kind, Ci, Co, edge,
 # convs per forward). 16 convs: the stem, the NConv stacks, the head.
 CONVS = [("in_tr", "stem", 1, 16, 128, 1),
@@ -173,14 +182,14 @@ HU_TOL = 1e-3  # hu_resize vs plain, on the window's 0..255 scale
 INT8_AGREE = 0.99
 FWD_KERNELS = ("conv5_head", "conv5_stem_tc", "conv5_fused_epilogue",
                "pin")
-BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem", "conv5_wgrad_head_tma",
-               "conv5_wgrad_tma")
+BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem_tc",
+               "conv5_wgrad_head_tma", "conv5_wgrad_tma")
 SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_stem_tc": "medicalseg_torch/csrc/conv5_stem.cu",
            "conv5_fused_epilogue": "medicalseg_torch/csrc/conv5_wg.cu",
            "pin": "medicalseg_torch/csrc/pin.cu",
            "conv5_dgrad": "medicalseg_torch/csrc/conv5_wg.cu",
-           "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu",
+           "conv5_wgrad_stem_tc": "medicalseg_torch/csrc/conv5_stem_wgrad.cu",
            "conv5_wgrad_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
@@ -189,7 +198,7 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_fused_epilogue": "medicalseg_tpu/ops/pallas_conv5.py:1288",
             "pin": "medicalseg_tpu/ops/pallas_conv5.py:1412",
             "conv5_dgrad": "medicalseg_tpu/ops/pallas_conv5.py:1383",
-            "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912",
+            "conv5_wgrad_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_tma": "medicalseg_tpu/ops/pallas_conv5.py:832",
             "conv5_wgrad_head_tma": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86"}
@@ -276,11 +285,11 @@ def add_stats(stats, key, count, ms, plain_ms, bound, by, lib_ms):
                        else s["library_ms"] + count * lib_ms)
 
 
-def conv_bound_ms(ci, co, edge, itemsize):
-    """The least time of one conv, forward or backward: the same 2 * 125 *
-    Ci * Co FLOP per voxel, and both activations (x and y, g and dx, or x
-    and g) moved once beside the f32 weights (read, or dW written)."""
-    vox = BATCH * edge ** 3
+def conv_bound_ms(ci, co, vox, itemsize):
+    """The least time of one conv of ``vox`` voxels, forward or backward:
+    the same 2 * 125 * Ci * Co FLOP per voxel, and both activations (x and
+    y, g and dx, or x and g) moved once beside the f32 weights (read, or dW
+    written)."""
     flops = 2.0 * vox * 125 * ci * co
     nbytes = vox * (ci + co) * itemsize + 4 * (125 * ci * co + co)
     ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -425,7 +434,7 @@ def phase_kernels():
         w_oidhw = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
         b16 = b.to(torch.bfloat16)
         lib = time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, b16, padding=2))
-        bound, by = conv_bound_ms(ci, co, e, 2)
+        bound, by = conv_bound_ms(ci, co, BATCH * e ** 3, 2)
         line.update(ms=ms, ms_fused=ms_f, plain_ms=plain,
                     plain_ms_fused=plain_f, library_ms=lib, bound_ms=bound,
                     bound_by=by, per_forward=count)
@@ -476,15 +485,20 @@ def phase_kernels_bwd():
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = torch.device("cuda")
     stats = new_stats(BWD_KERNELS)
-    for name, kind, ci, co, e, count in CONVS:
-        x = torch.randn((BATCH, e, ci, e, e), generator=gen, device=dev)
-        g = torch.randn((BATCH, e, co, e, e), generator=gen, device=dev)
+    # the convs of one cube backward, and the flagship's stem (counted
+    # apart: the kernels line sums one cube backward)
+    shapes = [(name, kind, ci, co, (BATCH, e, e, e), count)
+              for name, kind, ci, co, e, count in CONVS]
+    shapes.append(("in_tr_flagship", "stem", 1, 16, FLAGSHIP_STEM, 0))
+    for name, kind, ci, co, (n, d, h, ww), count in shapes:
+        x = torch.randn((n, d, ci, h, ww), generator=gen, device=dev)
+        g = torch.randn((n, d, co, h, ww), generator=gen, device=dev)
         w = torch.randn((5, 5, 5, ci, co), generator=gen,
                         device=dev) / (125 * ci) ** 0.5
         form = "conv5_wgrad_" + c5.conv5_wgrad_form(
             x.to(torch.bfloat16), g.to(torch.bfloat16), kind)
         line = {"phase": "kernels_bwd", "conv": name, "kind": kind, "ci": ci,
-                "co": co, "shape": [BATCH, e, ci, e, e], "wgrad_form": form}
+                "co": co, "shape": [n, d, ci, h, ww], "wgrad_form": form}
         plain_w = plain_d = None
         for dtype in (torch.bfloat16, torch.float32):
             tag = str(dtype)[6:]
@@ -524,7 +538,7 @@ def phase_kernels_bwd():
             del xd, gd
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
         del x, g
-        bound, by = conv_bound_ms(ci, co, e, 2)
+        bound, by = conv_bound_ms(ci, co, n * d * h * ww, 2)
         x_ncdhw = xb.transpose(1, 2).contiguous()
         g_ncdhw = gb.transpose(1, 2).contiguous()
         w_oidhw = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
@@ -534,23 +548,41 @@ def phase_kernels_bwd():
         line.update(wgrad_ms=ms_w, wgrad_plain_ms=plain_w,
                     wgrad_library_ms=lib_w, bound_ms=bound, bound_by=by,
                     per_step=count)
-        if form in ("conv5_wgrad_tma", "conv5_wgrad_head_tma"):
-            q = (c5.conv5_wgrad_tma_geometry if form == "conv5_wgrad_tma"
-                 else c5.conv5_wgrad_head_tma_geometry)(BATCH, e, e, e, ci,
-                                                         co)
+        if form in ("conv5_wgrad_tma", "conv5_wgrad_head_tma",
+                    "conv5_wgrad_stem_tc"):
+            if form == "conv5_wgrad_stem_tc":
+                q = c5.conv5_wgrad_stem_tc_geometry(n, d, h, ww)
+                keys = ("th", "tw", "dc", "chunks", "items", "per", "blocks",
+                        "smem")
+            else:
+                q = (c5.conv5_wgrad_tma_geometry if form == "conv5_wgrad_tma"
+                     else c5.conv5_wgrad_head_tma_geometry)(n, d, h, ww, ci,
+                                                             co)
+                keys = ("th", "tw", "stages", "splits", "chan_blocks", "smem")
             first, second = (c5.conv5_wgrad_kl(xb, gb, kind) for _ in "12")
             torch.cuda.synchronize()
             line.update(wgrad_repeat_bit_identical=torch.equal(first, second),
-                        wgrad_geometry={k: q[k] for k in (
-                            "th", "tw", "stages", "splits", "chan_blocks",
-                            "smem")})
+                        wgrad_geometry={k: q[k] for k in keys})
             check(line["wgrad_repeat_bit_identical"], "two launches of the "
                   "{} weight gradient disagree".format(name))
             del first, second
-        if form == "conv5_wgrad_head_tma":
-            # the kernel this route replaced, forced, in the same process
-            line["wgrad_old_ms"] = time_ms(lambda: c5._conv5_wgrad_cuda(
-                xb, gb, kind, form="head").to(torch.bfloat16).float())
+        # the kernel each of these routes replaced, forced, in the same
+        # process; for the stem also both device times (graph replays)
+        old_form = {"conv5_wgrad_head_tma": "head",
+                    "conv5_wgrad_stem_tc": "stem"}.get(form)
+        if old_form:
+            def old_call(old_form=old_form):
+                return c5._conv5_wgrad_cuda(xb, gb, kind, form=old_form).to(
+                    torch.bfloat16).float()
+
+            line["wgrad_old_ms"] = time_ms(old_call)
+        if form == "conv5_wgrad_stem_tc":
+            line.update(
+                wgrad_device_ms=graph_ms(lambda: c5.conv5_wgrad_kl(
+                    xb, gb, kind)),
+                wgrad_device_ms_old=graph_ms(old_call),
+                wgrad_old_scaled_err=scaled_err(old_call(), c5.conv5_wgrad_kl(
+                    xb, gb, kind)))
         add_stats(stats, form, count, ms_w, plain_w, bound, by, lib_w)
         if kind != "stem":
             ms_d = time_ms(lambda: c5.conv5_dgrad_kl(gb, w))
@@ -570,7 +602,8 @@ def phase_kernels_bwd():
 KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                "wgrad_kernel", "wgrad_reduce_kernel", "wgrad_tma_kernel",
                "wgrad_tma_reduce_kernel", "wgrad_head_tma_kernel",
-               "stem_tc_kernel", "pin_vec_kernel", "pin_kernel")
+               "stem_tc_kernel", "stem_wgrad_tc_kernel",
+               "stem_wgrad_reduce_kernel", "pin_vec_kernel", "pin_kernel")
 
 
 def profile_call(fn):
@@ -1098,7 +1131,8 @@ def phase_train():
     expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 0,
               "conv5_stem_tc": 3 * fwd,
               "conv5_fused_epilogue": 0, "conv5_dgrad": 3 * 15,
-              "conv5_wgrad_stem": 3, "conv5_wgrad_head": 0,
+              "conv5_wgrad_stem": 0, "conv5_wgrad_stem_tc": 3,
+              "conv5_wgrad_head": 0,
               "conv5_wgrad_head_tma": 3, "conv5_wgrad_mid": 0,
               "conv5_wgrad_tma": 3 * 14}
     got = {k: launches[k] for k in expect}

@@ -24,8 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("conv5", "conv5_wg", "conv5_stem", "conv5_wgrad",
-           "conv5_wgrad_tma", "pin", "hu_resize")
+SOURCES = ("conv5", "conv5_wg", "conv5_stem", "conv5_stem_wgrad",
+           "conv5_wgrad", "conv5_wgrad_tma", "pin", "hu_resize")
 
 
 def _nvcc() -> str:

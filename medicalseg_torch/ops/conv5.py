@@ -1,8 +1,8 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
 hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5_stem.cu``,
-``csrc/conv5.cu``, ``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu``
-and ``csrc/pin.cu``.
+``csrc/conv5.cu``, ``csrc/conv5_stem_wgrad.cu``, ``csrc/conv5_wgrad.cu``,
+``csrc/conv5_wgrad_tma.cu`` and ``csrc/pin.cu``.
 
 Counterpart of ``medicalseg_tpu/ops/pallas_conv5.py``, forward and
 backward. The public functions keep the JAX package's layouts at their
@@ -20,7 +20,8 @@ the CPU and on the card alike (the JAX ``_conv5_kl_bwd`` / ``_pin_bwd``):
 dx is the same conv of the cotangent with the flipped, io-transposed
 weight through the forward kernel, dw comes from the weight-gradient
 kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
-convs on views a tensor copy can describe: :func:`conv5_wgrad_form`) and
+convs on views a tensor copy can describe: :func:`conv5_wgrad_form`),
+``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16) and
 ``csrc/conv5_wgrad.cu`` (the rest), db is a plain f32 sum.
 :func:`conv5_kl_fused` is inference-only.
 
@@ -63,14 +64,14 @@ P = K // 2  # halo
 # "conv5_stem_tc" (bf16 stems) or "conv5_stem" (other stems), and also
 # under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
 # same kernel launched for a backward counts under "conv5_dgrad" only. A
-# weight gradient counts under its form (:func:`conv5_wgrad_form`): "stem"
-# (Ci = 1), "head_tma" (bf16 narrow heads, Co <= 16, on views a tensor copy
+# weight gradient counts under its form (:func:`conv5_wgrad_form`):
+# "stem_tc" (bf16 stems, Co <= 16), "stem" (other stems), "head_tma" (bf16 narrow heads, Co <= 16, on views a tensor copy
 # can describe), "head" (every other narrow head), "tma" (bf16 wider convs
 # on such views) or "mid" (every other wider conv).
 LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_stem_tc": 0,
             "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
-            "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
+            "conv5_wgrad_stem_tc": 0, "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
             "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +86,7 @@ _TMA_MAX_STAGES = 8  # wgrad_tma_kernel: most stages of its ring
 _TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
 _STEM_BLOCKS = 1056  # stem_tc_kernel: depth chunks until 8 blocks per SM
 _STEM_CO = 16  # stem_tc_kernel: most output channels (N of its GEMM)
+_STEM_WG_RESIDENT = 2 * _SMS  # stem_wgrad_tc_kernel: 2 blocks an SM
 
 
 def reset_launches():
@@ -206,6 +208,16 @@ def _conv5_stem_lib():
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.conv5_stem_tc_launch.argtypes = [vp] * 5 + [i] * 6 + [ll] * 7 + [vp]
     lib.conv5_stem_tc_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_wgrad_lib():
+    lib = _build.library("conv5_stem_wgrad")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_stem_wgrad_tc_launch.argtypes = ([vp] * 4 + [i] * 8 + [ll] * 7
+                                               + [vp])
+    lib.conv5_stem_wgrad_tc_launch.restype = ctypes.c_int
     return lib
 
 
@@ -737,22 +749,53 @@ def _tma_view(t):
 
 def conv5_wgrad_form(xk, gk, kind):
     """The weight-gradient kernel that takes these operands, named by its
-    :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): 'stem' (``kind =
-    'stem'``, Ci = 1); for narrow heads (Co <= 16) 'head_tma' (bf16, both
+    :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): for stems (``kind
+    = 'stem'``, Ci = 1) 'stem_tc' (bf16, Co <= 16:
+    ``stem_wgrad_tc_kernel``, any W-contiguous view) or 'stem'
+    (``wgrad_kernel``); for narrow heads (Co <= 16) 'head_tma' (bf16, both
     views describable by a tensor copy: ``wgrad_head_tma_kernel``) or
     'head' (``wgrad_mma_kernel<1|2>`` in bf16, ``wgrad_kernel`` in f32);
     for wider convs 'tma' (bf16, both views describable:
     ``wgrad_tma_kernel``) or 'mid' (``wgrad_mma_kernel<4>`` in bf16,
     ``wgrad_kernel`` in f32). Every view of the main path is contiguous
-    after :func:`pin_kl`, so the narrow head of a train step is 'head_tma'
-    and every square and wide conv 'tma'."""
+    after :func:`pin_kl`, so the stem of a bf16 train step is 'stem_tc',
+    the narrow head 'head_tma' and every square and wide conv 'tma'."""
     if kind == "stem":
-        return "stem"
+        return ("stem_tc" if xk.dtype == torch.bfloat16 and
+                gk.shape[2] <= _STEM_CO else "stem")
     copyable = (xk.dtype == torch.bfloat16 and _tma_view(xk)
                 and _tma_view(gk))
     if gk.shape[2] <= 16:
         return "head_tma" if copyable else "head"
     return "tma" if copyable else "mid"
+
+
+def conv5_wgrad_stem_tc_geometry(n, d, h, w):
+    """Launch geometry of ``stem_wgrad_tc_kernel``
+    (``csrc/conv5_stem_wgrad.cu``), a dict: ``th`` x ``tw`` = 8 x 32, the
+    (h, w) tile of a work item (warp i takes row i, two K steps of 16 w);
+    ``dc``: the depths of an item, ``chunks`` of them cover D (more than one
+    only where the volumes' tiles alone leave the card short of blocks, and
+    at least 8 depths each: an item stages 4 input slices more than it
+    has depths); ``tiles`` per depth chunk and volume; ``items`` = n *
+    chunks * tiles, ``per`` of them a block, so that ``blocks`` (the grid)
+    is one wave of two blocks an SM; each block writes one partial of
+    ``part_floats`` (125 x Co) and a second pass adds them in block order;
+    ``threads``; ``smem``: the ring of ten input slots (12 rows of 44
+    words, 540 words a slot: two copies of each row, the second one element
+    to the right) and one g slice (16 channels x 132 words), static;
+    ``blocks_per_sm``: 2 (its ``__launch_bounds__``: at most 128 registers
+    a thread, 64 of them accumulators)."""
+    tiles = -(-h // 8) * -(-w // 32)
+    chunks = max(1, min(d // 8, _STEM_WG_RESIDENT // (n * tiles)))
+    dc = -(-d // chunks)
+    chunks = -(-d // dc)
+    items = n * chunks * tiles
+    per = -(-items // _STEM_WG_RESIDENT)
+    blocks = -(-items // per)
+    return dict(th=8, tw=32, dc=dc, chunks=chunks, tiles=tiles, items=items,
+                per=per, blocks=blocks, grid=(blocks,), threads=256,
+                smem=4 * (10 * 540 + 16 * 132), blocks_per_sm=2)
 
 
 def conv5_wgrad_tma_geometry(n, d, h, w, ci, co):
@@ -889,10 +932,38 @@ def _check_wgrad(xk, gk, kind):
                         "got {} and {}".format(xk.dtype, gk.dtype))
 
 
+def _stem_wgrad_tc_launch(xk, gk):
+    """``stem_wgrad_tc_kernel`` of ``xk`` [N, D, 1, H, W] and ``gk`` [N, D,
+    Co, H, W] -> f32 [5, 5, 5, 1, Co]."""
+    n, d, _, h, ww = xk.shape
+    co = gk.shape[2]
+    q = conv5_wgrad_stem_tc_geometry(n, d, h, ww)
+    if q["tiles"] >= 2 ** 31:
+        raise ValueError("stem wgrad launch too large for {}".format(
+            tuple(xk.shape)))
+    out = torch.empty((K, K, K, 1, co), dtype=torch.float32,
+                      device=xk.device)
+    part = (torch.empty((q["blocks"], K * K * K * co), dtype=torch.float32,
+                        device=xk.device) if q["blocks"] > 1 else None)
+    xs, gs = xk.stride(), gk.stride()
+    with _on_device(xk.device) as stream:
+        rc = _stem_wgrad_lib().conv5_stem_wgrad_tc_launch(
+            xk.data_ptr(), gk.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            q["dc"], q["per"], q["blocks"], n, d, h, ww, co, xs[0], xs[1],
+            xs[3], gs[0], gs[2], gs[1], gs[3], stream)
+    if rc != 0:
+        raise RuntimeError("stem wgrad kernel launch failed: CUDA error "
+                           "{}".format(rc))
+    return out
+
+
 def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     """Launch the weight-gradient kernel that :func:`conv5_wgrad_form`
     names; ``form='mid'`` / ``'head'`` takes ``wgrad_mma_kernel`` (bf16)
-    where a tensor-copy kernel would run, to time the two side by side."""
+    where a tensor-copy kernel would run, and ``form='stem'`` takes
+    ``wgrad_kernel`` where ``stem_wgrad_tc_kernel`` would, to time the two
+    side by side."""
     if xk.device.type != "cuda" or gk.device != xk.device:
         raise RuntimeError("wgrad kernel needs CUDA tensors on one device, "
                            "got {} and {}".format(xk.device, gk.device))
@@ -902,8 +973,12 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     n, d, ci, h, ww = xk.shape
     co = gk.shape[2]
     form = form or conv5_wgrad_form(xk, gk, kind)
-    # bf16 on the tensor cores, except the Ci = 1 stem (one row of an m16
-    # fragment); f32 keeps exact f32 products and sums on the CUDA cores
+    if form == "stem_tc":
+        out = _stem_wgrad_tc_launch(xk, gk)
+        LAUNCHES["conv5_wgrad_stem_tc"] += 1
+        return out
+    # bf16 on the tensor cores; f32, and the stem where forced, on the CUDA
+    # cores (f32 keeps exact f32 products and sums)
     mma = xk.dtype == torch.bfloat16 and form in ("head", "mid")
     if form == "tma":
         q = conv5_wgrad_tma_geometry(n, d, h, ww, ci, co)
@@ -964,10 +1039,10 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     square and wide convs through ``wgrad_tma_kernel`` and the narrow heads
     through ``wgrad_head_tma_kernel`` (tensor-copy rings) where
     :func:`conv5_wgrad_form` says 'tma' / 'head_tma', else
-    ``wgrad_mma_kernel``;
-    the Ci = 1 stem, like f32, runs on the CUDA cores (``wgrad_kernel``);
-    the voxel axis is reduced deterministically (partials and a second
-    pass, no atomics).
+    ``wgrad_mma_kernel``, and the stem (Ci = 1, Co <= 16) through
+    ``stem_wgrad_tc_kernel``; f32 and wider stems run on the CUDA cores
+    (``wgrad_kernel``); the voxel axis is reduced deterministically
+    (partials and a second pass, no atomics).
 
     Rounding: the f32 sums are rounded to x's dtype and widened again.
     The JAX layer casts its f32 kernel to the activation dtype before the

@@ -4,7 +4,8 @@
 ``--wgrad``, on the weight-gradient kernels (``csrc/conv5_wgrad_tma.cu``,
 ``csrc/conv5_wgrad.cu``).
 
-    python -m medicalseg_torch.tools.conv5_times [--wgrad] [--variant SRC.cu]
+    python -m medicalseg_torch.tools.conv5_times [--wgrad | --wgrad-stem]
+        [--variant SRC.cu]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -37,6 +38,17 @@ operation bound; the geometry; last the sums over one backward.
 ``conv5_wgrad_tma.cu`` (same C interface: both launchers) with the same
 flags and times it beside the built kernel at the shapes the two
 tensor-copy routes take, with the same checks.
+
+``--wgrad-stem``: builds ``conv5_stem_wgrad`` (printing registers and
+spills), then at the stem's two main-path shapes (the cube's 2 x 128^3
+and the flagship's 3 x 12 x 512 x 512, 1 -> 16 channels) holds
+``stem_wgrad_tc_kernel`` to ``conv5_wgrad_kl_plain`` (scaled error, fatal
+above 2e-2) and to a repeat, and prints its time and device time (graph
+replays) beside ``wgrad_kernel`` forced (``old``, the kernel it
+replaced), ``conv3d_weight``, the bound by bytes (x and g read once) and
+the geometry. ``--variant SRC.cu`` builds each candidate of
+``conv5_stem_wgrad.cu`` (same C interface) and times it beside the built
+kernel with the same checks.
 """
 import argparse
 import ctypes
@@ -200,7 +212,8 @@ def wgrad_main(variants):
         del got, ref
         ms = time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind))
         # the kernel each tensor-copy route replaced, forced beside it
-        old_form = {"tma": "mid", "head_tma": "head"}.get(form)
+        old_form = {"tma": "mid", "head_tma": "head",
+                    "stem_tc": "stem"}.get(form)
         old = (time_ms(lambda: c5._conv5_wgrad_cuda(x, g, kind, form=old_form))
                if old_form else ms)
         xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
@@ -211,12 +224,14 @@ def wgrad_main(variants):
              if form == "tma" else
              c5.conv5_wgrad_head_tma_geometry(BATCH, e, e, e, ci, co)
              if form == "head_tma" else
+             c5.conv5_wgrad_stem_tc_geometry(BATCH, e, e, e)
+             if form == "stem_tc" else
              c5.conv5_wgrad_mma_geometry(BATCH, e, e, e, ci, co)
              if kind == "head" else
              c5.conv5_wgrad_geometry(BATCH, e, e, e, ci, co, kind))
         flops = 2.0 * BATCH * e ** 3 * 125 * ci * co
         geo = {k: q[k] for k in ("th", "tw", "stages", "splits", "chan_blocks",
-                                 "smem") if k in q}
+                                 "per", "blocks", "smem") if k in q}
         if form in ("tma", "head_tma"):
             totals["built", form] = totals.get(("built", form), 0.0) + \
                 count * ms
@@ -253,13 +268,69 @@ def wgrad_main(variants):
             form, vname, ms))
 
 
+def wgrad_stem_main(variants):
+    """The stem's weight gradient at its cube and flagship shapes: the
+    built kernel and its candidates beside the kernel it replaced and the
+    library call, with the same checks."""
+    print(torch.cuda.get_device_name(0))
+    ptxas_lines("conv5_stem_wgrad", "stem_wgrad")
+    built = c5._stem_wgrad_lib
+    libs = [(Path(v).name, build_variant(v, built(),
+                                         ("conv5_stem_wgrad_tc_launch",)))
+            for v in variants]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, (n, d, h, w) in (("cube", (BATCH, 128, 128, 128)),
+                               ("flagship", (3, 12, 512, 512))):
+        x = torch.randn((n, d, 1, h, w), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        g = torch.randn((n, d, 16, h, w), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ref = c5.conv5_wgrad_kl_plain(x, g)
+
+        def call(form=None):
+            return c5._conv5_wgrad_cuda(x, g, "stem", form=form)
+
+        old, old_dev = time_ms(lambda: call("stem")), graph_ms(
+            lambda: call("stem"))
+        xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            xn, (16, 1, 5, 5, 5), gn, padding=2))
+        del xn, gn
+        bound = n * d * h * w * 17 * 2 / PEAK_BYTES * 1e3
+        for vname, vlib in [("built", None)] + libs:
+            if vlib is not None:
+                c5._stem_wgrad_lib = lambda vlib=vlib: vlib
+            try:
+                got = call().to(torch.bfloat16).float()
+                err = ((got - ref).abs() /
+                       (ref.abs().max() + ref.abs())).max().item()
+                same = torch.equal(call(), call())
+                ms, dev_ms = time_ms(call), graph_ms(call)
+            finally:
+                c5._stem_wgrad_lib = built
+            print("in_tr {:8s} {} stem_wgrad_tc {:.3f} dev {:.3f} "
+                  "wgrad_kernel {:.3f} dev {:.3f} conv3d_weight {:.3f} bound "
+                  "{:.4f} scaled_err {:.2e} repeats {} geometry {}".format(
+                      name, vname, ms, dev_ms, old, old_dev, lib, bound, err,
+                      same, c5.conv5_wgrad_stem_tc_geometry(n, d, h, w)),
+                  flush=True)
+            if not (err <= 2e-2 and same):
+                sys.exit("conv5_times: the stem's weight gradient disagrees "
+                         "with its plain version or does not repeat")
+        del x, g, ref
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--wgrad", action="store_true",
                         help="time the weight gradients instead")
+    parser.add_argument("--wgrad-stem", action="store_true",
+                        help="time the stem's weight gradient instead")
     parser.add_argument("--variant", action="append", default=[],
                         help="a candidate conv5_stem.cu (with --wgrad: "
-                        "conv5_wgrad_tma.cu) to time beside the built one")
+                        "conv5_wgrad_tma.cu, with --wgrad-stem: "
+                        "conv5_stem_wgrad.cu) to time beside the built one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("conv5_times: no CUDA device")
@@ -267,6 +338,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.wgrad:
         return wgrad_main(args.variant)
+    if args.wgrad_stem:
+        return wgrad_stem_main(args.variant)
     print(torch.cuda.get_device_name(0))
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()

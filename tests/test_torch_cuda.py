@@ -308,7 +308,9 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     # ragged views (W = 100, W = 10) keep wgrad_mma_kernel
     copyable = (dtype == torch.bfloat16 and kind == "head" and
                 shape[4] % 8 == 0)
-    assert form == ("stem" if kind == "stem" else
+    # bf16 stems take the tensor-core stem kernel, f32 stems wgrad_kernel
+    assert form == (("stem_tc" if dtype == torch.bfloat16 else "stem")
+                    if kind == "stem" else
                     ("head_tma" if copyable else "head") if co <= 16 else
                     ("tma" if copyable else "mid"))
     assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
@@ -388,6 +390,62 @@ def test_wgrad_head_tma_kernel_matches_plain_and_repeats(dev, what, shape,
         "conv5_wgrad_head_tma": 1}
     _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
     assert torch.equal(got, c5.conv5_wgrad_kl(x, g))
+
+
+# The bf16 stem's weight gradient (stem_wgrad_tc_kernel): (what, [N, D, 1,
+# H, W], Co) at the stem shapes of the cube (128^3, batch 2) and of the
+# flagship (12 x 512 x 512, batch 3), and small ragged ones (W < 16, W not
+# a multiple of the tile, D < 5, Co < 16, two depth chunks, several items
+# a block)
+STEM_WGRAD_CASES = [("cube", (2, 128, 1, 128, 128), 16),
+                    ("flagship", (3, 12, 1, 512, 512), 16),
+                    ("w7-d3", (1, 3, 1, 5, 7), 16),
+                    ("h9-w40-co5", (2, 4, 1, 9, 40), 5),
+                    ("chunks", (1, 16, 1, 8, 8), 16),
+                    ("items", (4, 8, 1, 64, 200), 16)]
+
+
+@pytest.mark.parametrize("what,shape,co", STEM_WGRAD_CASES,
+                         ids=[c[0] for c in STEM_WGRAD_CASES])
+def test_stem_wgrad_tc_kernel_matches_plain_and_repeats(dev, what, shape,
+                                                        co):
+    """Against the plain version (scaled bf16 tolerance), bit for bit on a
+    second launch (the blocks' partials are summed in a fixed order), and
+    counted under its own key; the kernel it replaced, forced, agrees."""
+    x, g = _wgrad_operands(shape, co, dev, seed=15)
+    q = c5.conv5_wgrad_stem_tc_geometry(shape[0], shape[1], *shape[3:])
+    if what == "chunks":
+        assert q["chunks"] == 2
+    if what == "items":
+        assert q["per"] > 1
+    c5.reset_launches()
+    got = c5.conv5_wgrad_kl(x, g, "stem")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
+        "conv5_wgrad_stem_tc": 1}
+    assert got.shape == (5, 5, 5, 1, co) and got.dtype == torch.float32
+    ref = c5.conv5_wgrad_kl_plain(x, g)
+    _scaled_close(got, ref, torch.bfloat16)
+    assert torch.equal(got, c5.conv5_wgrad_kl(x, g, "stem"))
+    old = c5._conv5_wgrad_cuda(x, g, "stem", form="stem")
+    assert c5.LAUNCHES["conv5_wgrad_stem"] == 1
+    _scaled_close(old.to(torch.bfloat16).float(), ref, torch.bfloat16)
+
+
+def test_stem_wgrad_tc_kernel_reads_strided_views(dev):
+    """x as a depth slice of a wider tensor and g from a base 2 bytes into
+    an allocation: the kernel reads both by their strides (g by element
+    where a row segment is not on 16 bytes)."""
+    x, g = _wgrad_operands((1, 6, 1, 9, 40), 16, dev, seed=16)
+    wide = torch.zeros((1, 8, 1, 9, 40), dtype=x.dtype, device=dev)
+    wide[:, 1:7] = x
+    flat = torch.empty(g.numel() + 1, dtype=g.dtype, device=dev)
+    view = flat[1:].view(g.shape)
+    view.copy_(g)
+    c5.reset_launches()
+    got = c5.conv5_wgrad_kl(wide[:, 1:7], view, "stem")
+    assert c5.LAUNCHES["conv5_wgrad_stem_tc"] == 1
+    _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
 
 
 def test_wgrad_head_tma_kernel_raises_on_a_view_it_cannot_take(dev):
@@ -631,12 +689,16 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     # f32 the CUDA-core kernel
     # the narrow head: its tensor-copy kernel in bf16 (W = 32), the
     # CUDA-core kernel in f32
+    # the stem: stem_wgrad_tc_kernel in bf16, the CUDA-core kernel in f32
     wide = (7, 7) if dtype == torch.bfloat16 else (14, 0)
     head = (0, 1) if dtype == torch.bfloat16 else (1, 0)
-    assert (c5.LAUNCHES["conv5_wgrad_stem"], c5.LAUNCHES["conv5_wgrad_head"],
+    stem = (0, 1) if dtype == torch.bfloat16 else (1, 0)
+    assert (c5.LAUNCHES["conv5_wgrad_stem"],
+            c5.LAUNCHES["conv5_wgrad_stem_tc"],
+            c5.LAUNCHES["conv5_wgrad_head"],
             c5.LAUNCHES["conv5_wgrad_head_tma"],
             c5.LAUNCHES["conv5_wgrad_mid"],
-            c5.LAUNCHES["conv5_wgrad_tma"]) == (1,) + head + wide
+            c5.LAUNCHES["conv5_wgrad_tma"]) == stem + head + wide
     assert c5.LAUNCHES["conv5_fused_epilogue"] == 0
     for name, p in state.model.named_parameters():
         assert p.grad is not None, name
