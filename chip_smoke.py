@@ -113,6 +113,22 @@ JSON line; any failure raises and the script exits non-zero:
    to 2e-2 and the loss to 1e-5); the loss falls. Prints ms per step (the
    median of the three), patches/s, peak memory with and without remat,
    and the profiler's device time by kernel and idle share of one step.
+10. train_flagship: the flagship config
+   (``configs/synthetic/vnetdeepsup_synspine_15k.yml``: VNetDeepSup,
+   bf16, per-block remat, 20 classes, four MixedLoss heads, SGD with
+   momentum, poly LR) built by ``Config``, seeded init, at the YAML's
+   batch of 3 on seeded 12 x 512 x 512 volumes and labels in [0, 20)
+   made on the card. First one step at batch 1 through the kernels and
+   through the plain versions from the same state and masks (loss within
+   1e-2 relative, each leaf's gradient within 0.35 relative L2, every
+   leaf, the three heads ``Conv_0..2`` among them, finite and non-zero);
+   then two warm-up steps and three timed ones at batch 3, the counts set
+   to 0 just before the timed ones: every conv count what the model
+   implies (the stem's weight gradient on ``stem_wgrad_tc_kernel``,
+   out_tr's 32 -> 20 on ``wgrad_tma_kernel``), at least 8 pins a forward.
+   Prints ms per step (median of three), patches/s, peak memory, the
+   launches of one step and one profiled step's device time by kernel and
+   idle share.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -154,6 +170,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LUNG_TPU = os.path.join(ROOT, "configs", "lung_coronavirus",
                         "vnet_lung_coronavirus_128_128_128_15k_tpu.yml")
+SPINE = os.path.join(ROOT, "configs", "synthetic",
+                     "vnetdeepsup_synspine_15k.yml")
 BATCH = 2
 EDGE = 128  # served volume edge
 # the flagship's stem input as the weight gradient sees it: [N, D, 1, H, W]
@@ -1171,6 +1189,139 @@ def phase_train():
     return launches
 
 
+def phase_train_flagship():
+    """The flagship step: the spine config's VNetDeepSup (bf16, per-block
+    remat, 20 classes), its four MixedLoss heads, SGD with momentum and
+    poly LR, all built by ``Config``, at the YAML's batch of 3 on seeded
+    12 x 512 x 512 volumes and labels in [0, 20), made on the card. First
+    one step at batch 1 of the same volumes through the kernels and
+    through the plain versions from the same state and masks (loss and
+    per-leaf gradients held as in the cube phase); then at batch 3 two
+    warm-up steps, three timed ones with the counts set to 0 just before
+    them (every kernel of the path launched, the conv counts exactly
+    what the model implies), one profiled step."""
+    cfg = Config(SPINE)
+    mc = cfg.dic["model"]
+    check(mc["type"] == "VNetDeepSup" and mc["remat"] is True and
+          mc["dtype"] == "bfloat16" and mc["num_classes"] == 20 and
+          cfg.batch_size == 3, "spine config changed")
+    classes, batch = mc["num_classes"], cfg.batch_size
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    images = torch.rand((batch,) + FLAGSHIP_STEM[1:] + (1,), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, classes, (batch,) + FLAGSHIP_STEM[1:],
+                           generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg.loss)
+
+    def new_state(weights=None):
+        model = build_model(mc, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        if weights is not None:
+            model.load_state_dict(weights)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED)
+
+    def run(state, n=batch):
+        """One step on the first ``n`` volumes with the same dropout masks
+        every time: (loss, ms on the host clock, synchronized)."""
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, images[:n], labels[:n])
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    state = new_state()
+    model = state.model
+    check(type(model).__name__ == "VNetDeepSup" and
+          model.dtype == torch.bfloat16 and model.remat,
+          "model is not the bf16 remat VNetDeepSup of the config")
+    start = copy.deepcopy(model.state_dict())
+
+    # batch 1: the kernel path against the plain versions, same start
+    one = new_state(start)
+    loss_k, _ = run(one, 1)
+    grads = {}
+    for name, p in one.model.named_parameters():
+        check(p.grad is not None, name + " has no gradient")
+        check(bool(torch.isfinite(p.grad).all()), name + ": non-finite "
+              "gradient")
+        check(p.grad.abs().sum().item() > 0, name + ": zero gradient")
+        grads[name] = p.grad.float().clone()
+    del one
+    ref = new_state(start)
+    with plain_ops():
+        c5.reset_launches()
+        loss_p, plain_ms = run(ref, 1)
+        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    ref_grads = {n: p.grad.float() for n, p in ref.model.named_parameters()}
+    del ref
+    rels = grad_rel_l2(grads, ref_grads)
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    rel_sorted = sorted(rels.values())
+    check(abs(loss_k - loss_p) <= LOSS_REL * abs(loss_p),
+          "flagship step-1 loss {} vs plain path {}".format(loss_k, loss_p))
+    check(worst[1] <= GRAD_REL_L2, "flagship gradient of {} differs from "
+          "the plain path's by {} relative L2".format(*worst))
+    heads_rel = {n: rels[n] for n in rels if n.startswith("Conv_")}
+    del grads, ref_grads
+    torch.cuda.empty_cache()
+
+    # batch 3: warm-up, then the timed steps
+    torch.cuda.reset_peak_memory_stats()
+    loss1, warm_ms = run(state)
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and
+              p.grad.abs().sum().item() > 0, name + ": no finite, non-zero "
+              "gradient at batch {}".format(batch))
+    loss2, _ = run(state)
+    c5.reset_launches()
+    timed = [run(state) for _ in range(3)]
+    launches = dict(c5.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss1, loss2] + [l for l, _ in timed]
+    step_ms = [ms for _, ms in timed]
+    check(all(np.isfinite(losses)), "non-finite loss: {}".format(losses))
+    check(losses[-1] < losses[0], "the loss did not fall: {}".format(losses))
+    # per step, remat running each block's forward twice: 15 head convs
+    # and the stem forward, 15 dgrads, the stem's weight gradient and 15
+    # square / wide ones (out_tr's 32 -> 20 among them); 8 pins a forward
+    # at least (the backward pins a cotangent that arrives in another
+    # layout)
+    fwd = 2
+    expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 0,
+              "conv5_stem_tc": 3 * fwd, "conv5_fused_epilogue": 0,
+              "conv5_dgrad": 3 * 15, "conv5_wgrad_stem": 0,
+              "conv5_wgrad_stem_tc": 3, "conv5_wgrad_head": 0,
+              "conv5_wgrad_head_tma": 0, "conv5_wgrad_mid": 0,
+              "conv5_wgrad_tma": 3 * 15}
+    got = {k: launches[k] for k in expect}
+    check(got == expect, "flagship launch counts {} != expected {}".format(
+        got, expect))
+    check(launches["pin"] >= 3 * fwd * 8, "pin launches {} < {}".format(
+        launches["pin"], 3 * fwd * 8))
+
+    profile = profile_call(lambda: run(state))
+    mean_ms = float(np.median(step_ms))
+    emit({"phase": "train_flagship", "config": os.path.relpath(SPINE, ROOT),
+          "batch": batch, "shape": list(FLAGSHIP_STEM[1:]),
+          "classes": classes, "dtype": "bfloat16", "remat": True,
+          "steps": len(losses), "losses": losses,
+          "batch1_loss": loss_k, "batch1_loss_plain_path": loss_p,
+          "batch1_plain_path_step_ms": plain_ms,
+          "worst_grad_rel_l2_vs_plain": list(worst),
+          "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2],
+          "heads_grad_rel_l2_vs_plain": heads_rel,
+          "ms_per_step": mean_ms, "ms_per_step_each": step_ms,
+          "patches_per_s": batch / mean_ms * 1e3, "warmup_step_ms": warm_ms,
+          "peak_mem_gb": peak,
+          "launches_per_step": {k: v / 3 for k, v in launches.items()},
+          "profile": profile})
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -1186,6 +1337,11 @@ def main():
     stats.update(phase_kernels_bwd())
     train_launches = phase_train()
     launches.update({k: train_launches[k] for k in BWD_KERNELS})
+    flagship = phase_train_flagship()
+    for key in ("conv5_head", "conv5_stem_tc", "pin") + BWD_KERNELS:
+        if key != "conv5_wgrad_head_tma":  # out_tr has 20 classes there
+            check(flagship[key] > 0, key + " never launched on the "
+                  "flagship's path")
     kernels = []
     for key, s in stats.items():
         check(launches[key] > 0, key + " never launched on the main path")

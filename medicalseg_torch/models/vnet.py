@@ -183,13 +183,19 @@ class VNet(nn.Module):
             if isinstance(m, ChannelDropout):
                 m.generator = generator
 
-    def forward(self, x):
+    def block_runner(self):
+        """run(block, *args): a transition's forward, under ``remat`` when
+        the model rematerializes and gradients are being recorded."""
         if self.remat and self.training and torch.is_grad_enabled():
             def run(block, *args):
                 return remat(block, *args)
         else:
             def run(block, *args):
                 return block(*args)
+        return run
+
+    def forward(self, x):
+        run = self.block_runner()
         xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
         out16 = run(self.in_tr, xk)
         out32 = run(self.down_tr32, out16)

@@ -2,12 +2,15 @@
 """3-D resize (zoom) with static shapes: separable per-axis interpolation.
 
 Counterpart of the static family of ``medicalseg_tpu/ops/resize.py``. The
-coordinate convention is scipy's ``zoom`` with ``grid_mode=False``:
-``src = i * (in - 1) / (out - 1)`` (endpoints aligned). Order 1 is three
-small matrix products, one per axis, in float32 (on the card with TF32
-off: values reach 255 and a 10-bit mantissa would cost 0.1); order 0 is
-three gathers. The interpolation matrices and index vectors are built on
-the host in float64 and moved to the volume's device.
+coordinate convention of :func:`resize3d` is scipy's ``zoom`` with
+``grid_mode=False``: ``src = i * (in - 1) / (out - 1)`` (endpoints
+aligned). Order 1 is three small matrix products, one per axis, in float32
+(on the card with TF32 off: values reach 255 and a 10-bit mantissa would
+cost 0.1); order 0 is three gathers. :func:`upsample_trilinear_batch`, the
+deep-supervision heads' upsample, takes the half-pixel convention instead
+(``src = (i + 0.5) * in / out - 0.5``, edges clamped) and runs in the
+tensor's own dtype. The interpolation matrices and index vectors are built
+on the host in float64 and moved to the volume's device.
 """
 
 import contextlib
@@ -53,6 +56,49 @@ def _linear_matrix(in_size, out_size, dtype=torch.float32, device=None):
     w[np.arange(out_size), lo] = 1.0 - frac
     w[np.arange(out_size), np.minimum(lo + 1, in_size - 1)] += frac
     return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def _linear_matrix_halfpixel(in_size, out_size, dtype=torch.float32,
+                             device=None):
+    """Static (out, in) order-1 matrix with half-pixel coordinates (``src
+    = (i + 0.5) * in / out - 0.5``, clamped to the edges): the
+    ``F.interpolate(align_corners=False)`` convention, as opposed to
+    :func:`_linear_matrix`'s endpoint-aligned one."""
+    coords = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+    coords = np.clip(coords, 0.0, in_size - 1)
+    lo = np.floor(coords).astype(np.int64)
+    lo = np.clip(lo, 0, max(in_size - 2, 0))
+    frac = coords - lo
+    w = np.zeros((out_size, in_size), dtype=np.float32)
+    w[np.arange(out_size), lo] = 1.0 - frac
+    w[np.arange(out_size), np.minimum(lo + 1, in_size - 1)] += frac
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def upsample_trilinear_batch(x, size):
+    """Half-pixel trilinear resize of an NDHWC batch [N, D, H, W, C] to
+    ``size`` (d, h, w), as three per-axis matrix products in ``x``'s dtype
+    (an integer batch in float32), one for each axis that changes. For the
+    deep-supervision heads, which upsample their logits to the input size
+    every step. Upsampling (or the identity) only: a downscale raises, as
+    a fixed two-tap matrix does not anti-alias."""
+    size = tuple(int(s) for s in size)
+    n, d, h, w, c = x.shape
+    if (d, h, w) == size:
+        return x
+    if any(o < i for o, i in zip(size, (d, h, w))):
+        raise ValueError(
+            "upsample_trilinear_batch only upsamples; got {} -> {}".format(
+                (d, h, w), size))
+    dt = x.dtype if x.dtype.is_floating_point else torch.float32
+    out = x.to(dt)
+    for axis, spec in ((1, "ad,ndhwc->nahwc"), (2, "bh,ndhwc->ndbwc"),
+                       (3, "xw,ndhwc->ndhxc")):
+        if out.shape[axis] != size[axis - 1]:
+            mat = _linear_matrix_halfpixel(out.shape[axis], size[axis - 1],
+                                           dt, x.device)
+            out = torch.einsum(spec, mat, out)
+    return out.to(x.dtype)
 
 
 def _nearest_indices(in_size, out_size, device=None):

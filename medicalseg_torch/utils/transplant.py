@@ -3,7 +3,9 @@
 
 The JAX side is flax's variable tree ``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays; the port's side is the
-``state_dict`` of ``medicalseg_torch.models.VNet``. The mapping is the one
+``state_dict`` of ``medicalseg_torch.models.VNet`` or ``VNetDeepSup``
+(whose three heads ``Conv_0..2`` sit at the top of both trees; a tree
+that holds ``Conv_0`` moves them too). The mapping is the one
 the JAX package's torch-alignment test uses
 (``tests/test_vnet_torch_parity.py``):
 
@@ -47,9 +49,14 @@ _UP = (("up_tr256", "UpTransition_0", 2),
        ("up_tr32", "UpTransition_3", 1))
 
 
-def _layout() -> Iterator[Tuple[str, Tuple[str, ...], str]]:
+_HEADS = ("Conv_0", "Conv_1", "Conv_2")  # VNetDeepSup's 3^3 heads
+
+
+def _layout(deepsup: bool = False
+            ) -> Iterator[Tuple[str, Tuple[str, ...], str]]:
     """(torch module prefix, flax module path, kind) of every parameterised
-    leaf module of VNet; kind is 'conv', 'deconv', 'bn' or 'prelu'."""
+    leaf module of VNet, and with ``deepsup`` of VNetDeepSup's heads; kind
+    is 'conv', 'deconv', 'bn' or 'prelu'."""
     def bn_act(prefix, path):
         yield prefix + ".bn1", path + ("BatchNorm3D_0",), "bn"
         yield prefix + ".relu1", path + ("Activation_0", "PReLU_0"), "prelu"
@@ -75,6 +82,9 @@ def _layout() -> Iterator[Tuple[str, Tuple[str, ...], str]]:
         yield tname + ".relu2", (fname, "Activation_1", "PReLU_0"), "prelu"
     yield from lu("out_tr", ("OutputTransition_0", "ConvBNAct_0"))
     yield "out_tr.conv2", ("OutputTransition_0", "Conv_0"), "conv"
+    if deepsup:
+        for head in _HEADS:
+            yield head, (head,), "conv"
 
 
 def _get(tree, path):
@@ -131,7 +141,7 @@ def state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
     the parameters' entries). Quantized kernels stay int8."""
     params, stats = variables["params"], variables.get("batch_stats")
     sd = OrderedDict()
-    for prefix, path, kind in _layout():
+    for prefix, path, kind in _layout(_HEADS[0] in params):
         p = _get(params, path)
         if p is None and kind == "prelu":
             continue  # elu=True: no PReLU parameters
@@ -166,7 +176,7 @@ def flax_from_state_dict(state_dict) -> Dict[str, dict]:
     def a(key):
         return state_dict[key].detach().cpu().float().numpy()
 
-    for prefix, path, kind in _layout():
+    for prefix, path, kind in _layout(_HEADS[0] + ".weight" in state_dict):
         if kind == "prelu" and prefix + ".alpha" not in state_dict:
             continue
         if kind == "conv":
