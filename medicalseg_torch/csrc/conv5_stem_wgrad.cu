@@ -16,8 +16,11 @@
 //
 // Layout: x is a [N, D, 1, H, W] view given by element strides for N, D
 // and H, g a [N, D, Co, H, W] view given by strides for N, C, D and H; W
-// is contiguous in both, at any alignment (16-byte loads of g where a row
-// segment allows them, element loads elsewhere).
+// is contiguous in both, at any alignment. Where every run of 8 elements
+// of g is an aligned 16-byte word (W and g's strides multiples of 8, base
+// on 16 bytes: the main path) g is staged by the copy engine (cp.async),
+// else through registers (16-byte loads where a row segment allows them,
+// element loads elsewhere).
 //
 // Bound on an H100 SXM: 2 * 125 * Co FLOP per voxel against 2 bytes of x
 // and 2 * Co of g read, so the stem's weight gradient is bound by the bytes
@@ -45,13 +48,17 @@
 // keeps the five input slices of the current depth in a ring of ten slots
 // (each slice stored twice, as in stem_tc_kernel of csrc/conv5_stem.cu, so
 // the five slices of a depth are consecutive slots and the offsets stay
-// fixed) and the g slice of that depth, and prefetches the next slice of
-// each into registers while the tensor cores run: every x and g byte of an
-// item is read from memory once. Each warp holds all 128 taps x 16
-// channels, 64 f32 accumulators a thread. At the end the eight warps' sums
-// are added in warp order through shared memory, each block writes one
-// partial dW, and stem_wgrad_reduce_kernel sums the partials in block
-// order: no atomics, two launches give identical bits.
+// fixed), prefetching the next input slice into registers while the
+// tensor cores run, and the g slices in a ring of three stages that the
+// copy engine fills two depths ahead (one stage, filled from registers one
+// depth ahead, on the other path): every x and g byte of an item is read
+// from memory once. The copy engine took the stem's device time from 0.148
+// to 0.126 ms (2 x 128^3) and from 0.372 to 0.285 ms (3 x 12 x 512^2):
+// PERF.md. Each warp holds all 128 taps x 16 channels, 64 f32 accumulators
+// a thread. At the end the eight warps' sums are added in warp order
+// through shared memory, each block writes one partial dW, and
+// stem_wgrad_reduce_kernel sums the partials in block order: no atomics,
+// two launches give identical bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +86,8 @@ constexpr int GCP = TH * TW / 2 + 4;     // words between staged g channels
 constexpr int GVECS = COP * TH * TW / 8; // 16-byte words of a g slice
 constexpr int GLOADS = GVECS / THREADS;
 constexpr int RED = NTILES / 4 * 128;    // floats a warp adds per round
+constexpr int GSTAGE = COP * GCP;        // words of a staged g slice
+constexpr int GSTAGES = 3;               // g ring with the copy engine
 static_assert(GVECS % THREADS == 0, "g slice split");
 static_assert(XLOADS <= THREADS, "x slice: one word per thread");
 static_assert(TH * RED <= SLOTS * SLOTW, "reduction fits the ring");
@@ -90,6 +99,19 @@ struct SWGeom {
   long long xs_n, xs_d, xs_h;              // element strides of x
   long long gs_n, gs_c, gs_d, gs_h;        // element strides of g
 };
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
@@ -119,12 +141,13 @@ __device__ __forceinline__ int tap_offset(int c) {
   return (row / KS) * SLOTW + (row % KS) * ROWW + (kw & 1) * COPY1 + kw / 2 + 1;
 }
 
+template <bool ASYNC>
 __global__ void __launch_bounds__(THREADS, 2)
 stem_wgrad_tc_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ g,
                      float* __restrict__ dst, SWGeom q) {
   __shared__ __align__(16) uint32_t ring[SLOTS * SLOTW];
-  __shared__ __align__(16) uint32_t gst[COP * GCP];
+  __shared__ __align__(16) uint32_t gst[(ASYNC ? GSTAGES : 1) * GSTAGE];
 
   const int t = threadIdx.x;
   const int warp = t >> 5;
@@ -146,7 +169,7 @@ stem_wgrad_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int xr = t / XWORDS;
   const int xk = t % XWORDS;
   uint32_t px0 = 0, px1 = 0;  // prefetched copy-0 and copy-1 words
-  uint4 pg[GLOADS];           // prefetched g words
+  uint4 pg[GLOADS];           // prefetched g words (register path)
 
   const long long first = (long long)blockIdx.x * q.per;
   const long long last = min(q.items, first + q.per);
@@ -226,27 +249,57 @@ stem_wgrad_tc_kernel(const __nv_bfloat16* __restrict__ x,
         *reinterpret_cast<uint4*>(gst + co * GCP + word) = pg[i];
       }
     };
+    // g slice od into ring stage od % 3 by the copy engine: every 16-byte
+    // word lies wholly inside or outside the volume (W % 8 == 0)
+    auto issue_g = [&](int od) {
+      uint32_t* stage = gst + (od % GSTAGES) * GSTAGE;
+#pragma unroll
+      for (int i = 0; i < GLOADS; ++i) {
+        const int v = t + i * THREADS;
+        const int co = v / (TH * TW / 8);
+        const int oh = h0 + (v / (TW / 8)) % TH;
+        const int ow = w0 + 8 * (v % (TW / 8));
+        const bool in = co < q.co && oh < q.h && ow < q.w;
+        cp_async16(stage + co * GCP + 4 * (v % (TH * TW / 8)),
+                   in ? gn + co * q.gs_c + od * q.gs_d + oh * q.gs_h + ow : g,
+                   in ? 16 : 0);
+      }
+    };
 
+    if (ASYNC) {
+      issue_g(d0);
+      cp_async_commit();
+      if (d0 + 1 < d1) issue_g(d0 + 1);
+      cp_async_commit();
+    }
     for (int k = -HALO; k < HALO; ++k) {
       load_x(d0 + k);
       store_x(d0 + k);
     }
     load_x(d0 + HALO);
-    load_g(d0);
+    if (!ASYNC) load_g(d0);
 
     for (int od = d0; od < d1; ++od) {
       store_x(od + HALO);
-      store_g();
+      if (ASYNC)
+        cp_async_wait1();
+      else
+        store_g();
       __syncthreads();
+      if (ASYNC) {
+        if (od + 2 < d1) issue_g(od + 2);
+        cp_async_commit();
+      }
       if (od + 1 < d1) {
         load_x(od + HALO + 1);
-        load_g(od + 1);
+        if (!ASYNC) load_g(od + 1);
       }
 
       // the five slices of this depth: slots base .. base + 4
       const int base = (od - HALO + 5 * KS) % KS;
       const uint32_t* xs = ring + base * SLOTW + warp * ROWW + p;
-      const uint32_t* ga = gst + r * GCP + warp * (TW / 2) + p;
+      const uint32_t* ga = gst + (ASYNC ? (od % GSTAGES) * GSTAGE : 0) +
+                           r * GCP + warp * (TW / 2) + p;
 #pragma unroll
       for (int s = 0; s < TW / 16; ++s) {
         const uint32_t a0 = ga[8 * s];
@@ -332,9 +385,16 @@ extern "C" int conv5_stem_wgrad_tc_launch(
                  xs_n, xs_d, xs_h, gs_n, gs_c, gs_d, gs_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(blocks > 1 ? part : out);
-  stem_wgrad_tc_kernel<<<blocks, THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(g), dst, q);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  // the copy engine where every 8-element run of g is 16 bytes, aligned
+  const bool async = w % 8 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0 &&
+                     gs_n % 8 == 0 && gs_c % 8 == 0 && gs_d % 8 == 0 &&
+                     gs_h % 8 == 0;
+  if (async)
+    stem_wgrad_tc_kernel<true><<<blocks, THREADS, 0, s>>>(xb, gb, dst, q);
+  else
+    stem_wgrad_tc_kernel<false><<<blocks, THREADS, 0, s>>>(xb, gb, dst, q);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || blocks == 1) return e;
   const int size = TAPS * co;

@@ -783,7 +783,9 @@ def conv5_wgrad_stem_tc_geometry(n, d, h, w):
     ``part_floats`` (125 x Co) and a second pass adds them in block order;
     ``threads``; ``smem``: the ring of ten input slots (12 rows of 44
     words, 540 words a slot: two copies of each row, the second one element
-    to the right) and one g slice (16 channels x 132 words), static;
+    to the right) and three g slices (16 channels x 132 words; the
+    copy-engine ring of the main path, one slice on the register path),
+    static;
     ``blocks_per_sm``: 2 (its ``__launch_bounds__``: at most 128 registers
     a thread, 64 of them accumulators)."""
     tiles = -(-h // 8) * -(-w // 32)
@@ -795,7 +797,7 @@ def conv5_wgrad_stem_tc_geometry(n, d, h, w):
     blocks = -(-items // per)
     return dict(th=8, tw=32, dc=dc, chunks=chunks, tiles=tiles, items=items,
                 per=per, blocks=blocks, grid=(blocks,), threads=256,
-                smem=4 * (10 * 540 + 16 * 132), blocks_per_sm=2)
+                smem=4 * (10 * 540 + 3 * 16 * 132), blocks_per_sm=2)
 
 
 def conv5_wgrad_tma_geometry(n, d, h, w, ci, co):

@@ -64,9 +64,9 @@ def _check_geometry(n, d, h, w):
     assert q["blocks"] * q["per"] >= q["items"]
     assert (q["blocks"] - 1) * q["per"] < q["items"]
     assert q["grid"] == (q["blocks"],) and q["blocks"] <= 2 * SMS
-    # ten slots of 12 rows x 44 words padded to 540 words, one g slice of
-    # 16 channels x 132 words: static, twice an SM
-    assert q["smem"] == 4 * (10 * SLOTW + 16 * GCP) <= SMEM_STATIC
+    # ten slots of 12 rows x 44 words padded to 540 words, a ring of three
+    # g slices of 16 channels x 132 words: static, twice an SM
+    assert q["smem"] == 4 * (10 * SLOTW + 3 * 16 * GCP) <= SMEM_STATIC
     assert SLOTW >= 12 * ROWW and ROWW >= 2 * COPY1
     assert q["blocks_per_sm"] * q["smem"] <= SMEM_SM
     # 64 accumulators and 16 offsets a thread, under the 128 registers of

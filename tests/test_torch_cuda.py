@@ -402,7 +402,7 @@ STEM_WGRAD_CASES = [("cube", (2, 128, 1, 128, 128), 16),
                     ("w7-d3", (1, 3, 1, 5, 7), 16),
                     ("h9-w40-co5", (2, 4, 1, 9, 40), 5),
                     ("chunks", (1, 16, 1, 8, 8), 16),
-                    ("items", (4, 8, 1, 64, 200), 16)]
+                    ("items", (4, 8, 1, 128, 200), 16)]
 
 
 @pytest.mark.parametrize("what,shape,co", STEM_WGRAD_CASES,
