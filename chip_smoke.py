@@ -624,11 +624,11 @@ KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                "stem_wgrad_reduce_kernel", "pin_vec_kernel", "pin_kernel")
 
 
-def profile_call(fn, by_op=False):
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of the host wall time of that call; with
-    ``by_op`` also the device time of the kernels each PyTorch operator
-    launched itself (its self device time), the ten largest."""
+def profile_call(fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), the
+    device time of the kernels each PyTorch operator launched itself (its
+    self device time; the ten largest of each), and the device's idle share
+    of the host wall time of that call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -648,17 +648,15 @@ def profile_call(fn, by_op=False):
         groups[name] = groups.get(name, 0.0) + ev.self_device_time_total / 1e3
     busy_ms = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
-           "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-           "device_ms_by_kernel": [[k[:80], v] for k, v in top]}
-    if by_op:
-        ops = [(ev.key, ev.self_device_time_total / 1e3)
-               for ev in prof.key_averages()
-               if getattr(ev, "device_type", None) ==
-               torch.autograd.DeviceType.CPU and ev.self_device_time_total]
-        out["device_ms_by_op"] = [[k[:80], v] for k, v in sorted(
-            ops, key=lambda kv: -kv[1])[:10]]
-    return out
+    ops = [(ev.key, ev.self_device_time_total / 1e3)
+           for ev in prof.key_averages()
+           if getattr(ev, "device_type", None) ==
+           torch.autograd.DeviceType.CPU and ev.self_device_time_total]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "device_ms_by_kernel": [[k[:80], v] for k, v in top],
+            "device_ms_by_op": [[k[:80], v] for k, v in sorted(
+                ops, key=lambda kv: -kv[1])[:10]]}
 
 
 @contextlib.contextmanager
@@ -1171,7 +1169,7 @@ def phase_train():
     check(launches["pin"] == 3 * fwd * 8, "pin launches {} != expected "
           "{}".format(launches["pin"], 3 * fwd * 8))
 
-    profile = profile_call(lambda: run(state), by_op=True)
+    profile = profile_call(lambda: run(state))
 
     # the same step without remat: time and peak memory
     model.remat = False
@@ -1313,7 +1311,7 @@ def phase_train_flagship():
     check(launches["pin"] >= 3 * fwd * 8, "pin launches {} < {}".format(
         launches["pin"], 3 * fwd * 8))
 
-    profile = profile_call(lambda: run(state), by_op=True)
+    profile = profile_call(lambda: run(state))
     mean_ms = float(np.median(step_ms))
     emit({"phase": "train_flagship", "config": os.path.relpath(SPINE, ROOT),
           "batch": batch, "shape": list(FLAGSHIP_STEM[1:]),

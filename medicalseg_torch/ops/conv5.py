@@ -65,14 +65,16 @@ P = K // 2  # halo
 # under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
 # same kernel launched for a backward counts under "conv5_dgrad" only. A
 # weight gradient counts under its form (:func:`conv5_wgrad_form`):
-# "stem_tc" (bf16 stems, Co <= 16), "stem" (other stems), "head_tma" (bf16 narrow heads, Co <= 16, on views a tensor copy
-# can describe), "head" (every other narrow head), "tma" (bf16 wider convs
-# on such views) or "mid" (every other wider conv).
+# "stem_tc" (bf16 stems, Co <= 16), "stem" (other stems), "head_tma" (bf16
+# narrow heads, Co <= 16, on views a tensor copy can describe), "head"
+# (every other narrow head), "tma" (bf16 wider convs on such views) or
+# "mid" (every other wider conv).
 LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_stem_tc": 0,
             "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
-            "conv5_wgrad_stem_tc": 0, "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
-            "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0}
+            "conv5_wgrad_stem_tc": 0, "conv5_wgrad_head": 0,
+            "conv5_wgrad_head_tma": 0, "conv5_wgrad_mid": 0,
+            "conv5_wgrad_tma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_BLOCKS = 1056  # 8 blocks per SM of an H100 before tiles shrink
@@ -779,15 +781,14 @@ def conv5_wgrad_stem_tc_geometry(n, d, h, w):
     at least 8 depths each: an item stages 4 input slices more than it
     has depths); ``tiles`` per depth chunk and volume; ``items`` = n *
     chunks * tiles, ``per`` of them a block, so that ``blocks`` (the grid)
-    is one wave of two blocks an SM; each block writes one partial of
-    ``part_floats`` (125 x Co) and a second pass adds them in block order;
-    ``threads``; ``smem``: the ring of ten input slots (12 rows of 44
-    words, 540 words a slot: two copies of each row, the second one element
-    to the right) and three g slices (16 channels x 132 words; the
-    copy-engine ring of the main path, one slice on the register path),
-    static;
-    ``blocks_per_sm``: 2 (its ``__launch_bounds__``: at most 128 registers
-    a thread, 64 of them accumulators)."""
+    is one wave of two blocks an SM; each block writes one partial dW (125
+    x Co f32) and a second pass adds them in block order; ``threads``;
+    ``smem``: the ring of ten input slots (12 rows of 44 words, 540 words a
+    slot: two copies of each row, the second one element to the right) and
+    three g slices (16 channels x 132 words; the copy-engine ring of the
+    main path, one slice on the register path), static; ``blocks_per_sm``:
+    2 (its ``__launch_bounds__``: at most 128 registers a thread, 64 of
+    them accumulators)."""
     tiles = -(-h // 8) * -(-w // 32)
     chunks = max(1, min(d // 8, _STEM_WG_RESIDENT // (n * tiles)))
     dc = -(-d // chunks)
@@ -940,9 +941,6 @@ def _stem_wgrad_tc_launch(xk, gk):
     n, d, _, h, ww = xk.shape
     co = gk.shape[2]
     q = conv5_wgrad_stem_tc_geometry(n, d, h, ww)
-    if q["tiles"] >= 2 ** 31:
-        raise ValueError("stem wgrad launch too large for {}".format(
-            tuple(xk.shape)))
     out = torch.empty((K, K, K, 1, co), dtype=torch.float32,
                       device=xk.device)
     part = (torch.empty((q["blocks"], K * K * K * co), dtype=torch.float32,

@@ -8,7 +8,8 @@ Each argument is the standard output of one run (on one card: compare runs
 of one machine only). Prints, per file in the order given, the per-shape
 forward and input-gradient times of the bf16 head convs (ms, packing
 apart where the run reports it, bound, library), the pin views, the
-``kernels`` line, and the serving and training numbers. To compare two
+``kernels`` line, and the serving and training numbers (the cube step and
+the flagship's). To compare two
 commits, unpack the other one with ``git archive <commit> | tar -x -C
 build/parent`` and run its ``chip_smoke.py`` on the same card, one after
 the other.
@@ -38,7 +39,7 @@ def load(path):
             elif phase == "kernels_bwd":
                 run["bwd"][d["conv"]] = d
             elif phase in ("build", "serve", "serve_raw", "serve_swl",
-                           "train"):
+                           "train", "train_flagship"):
                 run[phase] = d
             elif "kernels" in d:
                 run["kernels"] = {k["name"]: k for k in d["kernels"]}
@@ -104,6 +105,13 @@ def main(paths):
                   [round(v, 2) for v in t.get("ms_per_step_each", [])],
                   fmt(t.get("ms_per_step_no_remat"), 2),
                   json.dumps(t.get("profile"))))
+        f = run.get("train_flagship", {})
+        print("flagship ms/step {} {} patches/s {} peak GB {} profile "
+              "{}".format(fmt(f.get("ms_per_step"), 2),
+                          [round(v, 2) for v in f.get("ms_per_step_each", [])],
+                          fmt(f.get("patches_per_s"), 2),
+                          fmt(f.get("peak_mem_gb"), 2),
+                          json.dumps(f.get("profile"))))
         print()
 
 
