@@ -128,7 +128,9 @@ JSON line; any failure raises and the script exits non-zero:
    out_tr's 32 -> 20 on ``wgrad_tma_kernel``), at least 8 pins a forward.
    Prints ms per step (median of three), patches/s, peak memory, the
    launches of one step and one profiled step's device time by kernel and
-   idle share.
+   by operator and idle share; then the four heads' losses alone, forward
+   and backward on seeded f32 logits of the step's shape (``losses_ms``,
+   their device time and its operators).
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -164,6 +166,7 @@ from medicalseg_torch.ops import _build  # noqa: E402
 from medicalseg_torch.ops import conv5 as c5  # noqa: E402
 from medicalseg_torch.ops import hu_resize as hr  # noqa: E402
 from medicalseg_torch.ops import intensity, resize  # noqa: E402
+from medicalseg_torch.utils.loss_utils import loss_computation  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -1312,6 +1315,25 @@ def phase_train_flagship():
         launches["pin"], 3 * fwd * 8))
 
     profile = profile_call(lambda: run(state))
+
+    # the four heads' losses alone, forward and backward, on f32 logits of
+    # the step's shape (seeded): their share of the step
+    del state, model
+    torch.cuda.empty_cache()
+    logits = [torch.randn((batch,) + FLAGSHIP_STEM[1:] + (classes,),
+                          generator=gen, device=dev).requires_grad_(True)
+              for _ in range(4)]
+    labels_long = labels.long()
+
+    def losses_step():
+        for t in logits:
+            t.grad = None
+        loss_list, _ = loss_computation(logits, labels_long, cfg.loss)
+        sum(loss_list).backward()
+
+    losses_ms = time_ms(losses_step, reps=3)
+    losses_profile = profile_call(losses_step)
+    del logits, labels_long
     mean_ms = float(np.median(step_ms))
     emit({"phase": "train_flagship", "config": os.path.relpath(SPINE, ROOT),
           "batch": batch, "shape": list(FLAGSHIP_STEM[1:]),
@@ -1326,7 +1348,9 @@ def phase_train_flagship():
           "patches_per_s": batch / mean_ms * 1e3, "warmup_step_ms": warm_ms,
           "peak_mem_gb": peak,
           "launches_per_step": {k: v / 3 for k, v in launches.items()},
-          "profile": profile})
+          "profile": profile, "losses_ms": losses_ms,
+          "losses_device_ms": losses_profile["device_busy_ms"],
+          "losses_device_ms_by_op": losses_profile["device_ms_by_op"]})
     return launches
 
 
