@@ -128,9 +128,33 @@ JSON line; any failure raises and the script exits non-zero:
    out_tr's 32 -> 20 on ``wgrad_tma_kernel``), at least 8 pins a forward.
    Prints ms per step (median of three), patches/s, peak memory, the
    launches of one step and one profiled step's device time by kernel and
-   by operator and idle share; then the four heads' losses alone, forward
+   by operator and idle share; then the same step with the recipe's device
+   augmentation at its head (``DeviceAugmentor``: RandomRotation3D(30) +
+   RandomFlip3D of the raw volumes): one warm-up and three timed steps
+   with the counts set to 0 just before them and held to the same counts
+   (``aug_ms_per_step``, its peak memory, one profiled step's device time
+   and idle share); then the four heads' losses alone, forward
    and backward on seeded f32 logits of the step's shape (``losses_ms``,
    their device time and its operators).
+   Run before it, augment: ``DeviceAugmentor`` on a batch of each recipe
+   (the flagship's on seeded 3 x 12 x 512 x 512 volumes and labels in
+   [0, 20), the lung's RandomResizedCrop3D(128) + RandomRotation3D(90) +
+   RandomFlip3D on 2 x 128^3, and a label-bounded crop, ``pre_crop`` with
+   ``nonzero_mask``, on 2 x 96^3): one sample on the card against the
+   port's CPU path at the same parameters (image within 1e-5; labels equal
+   except at .5 ties of the CPU value before rounding), the batch under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), ms per
+   batch (CUDA events, median of 5, the host's draws included).
+11. train_cli: the port's train CLI (``medicalseg_torch.train.main``) on a
+   copy of the flagship YAML pointed at four seeded 12 x 512 x 512 volumes
+   written under ``build/``: six iterations (``--save_interval 3
+   --log_iters 3``), then a run resumed from ``iter_3`` to 6. The counts
+   are set to 0 before the first run and read after the second: every
+   flagship kernel, exactly as nine steps imply. Both checkpoints load
+   (steps 3 and 6, finite), every logged loss is finite. Prints each log
+   window's loss, batch cost (ms per iteration) and reader cost, and one
+   profiled iteration of the loop (batch from the prefetcher, draws,
+   step): device time and idle share.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -142,6 +166,7 @@ train phase) and, last, the
 import contextlib
 import copy
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -167,6 +192,11 @@ from medicalseg_torch.ops import conv5 as c5  # noqa: E402
 from medicalseg_torch.ops import hu_resize as hr  # noqa: E402
 from medicalseg_torch.ops import intensity, resize  # noqa: E402
 from medicalseg_torch.utils.loss_utils import loss_computation  # noqa: E402
+from medicalseg_torch import train as train_cli  # noqa: E402
+from medicalseg_torch.cvlibs import manager  # noqa: E402
+from medicalseg_torch.transforms import (DeviceAugmentor,  # noqa: E402
+                                         RandomResizedCrop3D, RandomFlip3D)
+from medicalseg_torch.utils import checkpoint as ckpt  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -232,6 +262,10 @@ TRAIN_SEED = 0
 GRAD_REL_L2 = 0.35
 GRAD_REL_L2_F32 = 2e-2
 LOSS_REL = 1e-2
+AUG_TOL = 1e-5  # augmented image, card against CPU, same parameters
+# the flagship's kernels, each launched by every step of its path
+FLAGSHIP_KERNELS = ("conv5_head", "conv5_stem_tc", "pin", "conv5_dgrad",
+                    "conv5_wgrad_stem_tc", "conv5_wgrad_tma")
 
 
 class SmokeFailure(RuntimeError):
@@ -640,6 +674,12 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_stats(prof, wall_ms)
+
+
+def profile_stats(prof, wall_ms):
+    """:func:`profile_call`'s figures from a finished profiler over a
+    window of ``wall_ms`` on the host clock."""
     groups = {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -1200,6 +1240,300 @@ def phase_train():
     return launches
 
 
+def check_flagship_launches(launches, steps):
+    """The flagship step's launch counts over ``steps`` steps: per step,
+    remat running each block's forward twice, 15 head convs and the stem
+    forward, 15 dgrads, the stem's weight gradient and 15 square / wide
+    ones (out_tr's 32 -> 20 among them); 8 pins a forward at least (the
+    backward pins a cotangent that arrives in another layout)."""
+    fwd = 2
+    expect = {"conv5_head": steps * fwd * 15, "conv5_stem": 0,
+              "conv5_stem_tc": steps * fwd, "conv5_fused_epilogue": 0,
+              "conv5_dgrad": steps * 15, "conv5_wgrad_stem": 0,
+              "conv5_wgrad_stem_tc": steps, "conv5_wgrad_head": 0,
+              "conv5_wgrad_head_tma": 0, "conv5_wgrad_mid": 0,
+              "conv5_wgrad_tma": steps * 15}
+    got = {k: launches[k] for k in expect}
+    check(got == expect, "flagship launch counts {} != expected {}".format(
+        got, expect))
+    check(launches["pin"] >= steps * fwd * 8, "pin launches {} < {}".format(
+        launches["pin"], steps * fwd * 8))
+
+
+def recipe_transforms(path):
+    """The train transforms a YAML names, built without its dataset."""
+    out = []
+    for item in Config(path).dic["train_dataset"]["transforms"]:
+        item = dict(item)
+        out.append(manager.TRANSFORMS[item.pop("type")](**item))
+    return out
+
+
+def phase_augment():
+    """Device augmentation (``transforms.DeviceAugmentor``) of the
+    flagship recipe (RandomRotation3D(30) + RandomFlip3D, seeded 3 x 12 x
+    512 x 512 volumes and labels in [0, 20)), the lung recipe
+    (RandomResizedCrop3D(128) + RandomRotation3D(90) + RandomFlip3D on 2 x
+    128^3, labels in {0, 1, 2}) and a label-bounded crop (pre_crop with
+    nonzero_mask, 2 x 96^3): one sample on the card against the port's CPU
+    path at the same parameters (image within ``AUG_TOL``, labels equal
+    except at .5 ties of the CPU value before rounding), a batch already on
+    the card under ``torch.cuda.set_sync_debug_mode('error')`` (any host
+    sync raises), and the time of a batch (CUDA events, median of 5, the
+    host's draws included) beside one profiled batch's device time."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    bounded = [RandomResizedCrop3D(size=64, pre_crop=True,
+                                   nonzero_mask=True), RandomFlip3D()]
+    cases = [("flagship", recipe_transforms(SPINE), (3,) + FLAGSHIP_STEM[1:],
+              20),
+             ("lung", recipe_transforms(LUNG_TPU), (2, EDGE, EDGE, EDGE), 3),
+             ("nonzero_crop", bounded, (2, 96, 96, 96), 3)]
+    line = {"phase": "augment"}
+    for name, transforms, shape, classes in cases:
+        aug = DeviceAugmentor(transforms, seed=TRAIN_SEED)
+        images = torch.rand(shape, generator=gen, device=dev) * 255
+        labels = torch.randint(0, classes, shape, generator=gen, device=dev)
+        if name == "nonzero_crop":  # labels inside a box only
+            mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+            mask[:, 20:70, 10:50, 30:90] = True
+            labels = labels * mask
+        # one sample: the card against the CPU at the same parameters
+        t0 = time.perf_counter()
+        draws = aug.draw(shape[0], 0)
+        params = aug.params(draws[0], shape[1:], labels[0])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        img, lab = aug.apply_one(images[0], labels[0], params)
+        cpu_params = aug.params(draws[0], shape[1:], labels[0].cpu())
+        if name == "nonzero_crop":  # the window was drawn on the card
+            card, host = ([[int(v) for v in g] for g in p[0]]
+                          for p in (params, cpu_params))
+            check(card == host, "the window on the card {} differs from the "
+                  "CPU's {}".format(card, host))
+        img_c, lab_c = aug.apply_one(images[0].cpu(), labels[0].cpu(),
+                                     cpu_params)
+        _, pre = aug.apply_one(images[0].cpu(), labels[0].cpu().float(),
+                               cpu_params)
+        err = (img.cpu() - img_c).abs().max().item()
+        check(err <= AUG_TOL, "{}: augmented image on the card differs from "
+              "the CPU's by {}".format(name, err))
+        tie = ((pre - pre.floor()) - 0.5).abs() < 1e-4
+        wrong = ((lab.cpu() != lab_c) & ~tie).sum().item()
+        check(wrong == 0, "{}: {} augmented label voxels differ from the "
+              "CPU's away from .5 ties".format(name, wrong))
+        # the batch, with any host sync an error; the generator a step
+        # hands the augmentor
+        step_gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out_img, out_lab = aug(images, labels, step_gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        size = tuple(out_img.shape[1:4])
+        check(out_img.shape == (shape[0],) + size + (1,) and
+              out_lab.shape == (shape[0],) + size and
+              out_lab.dtype == torch.int64, "{}: augmented shapes {} {}".format(
+                  name, tuple(out_img.shape), tuple(out_lab.shape)))
+        check(bool(torch.isfinite(out_img).all()) and
+              0 <= out_img.min().item() and out_img.max().item() <= 1 and
+              0 <= out_lab.min().item() and out_lab.max().item() < classes,
+              name + ": augmented values out of range")
+        ms = time_ms(lambda: aug(images, labels, step_gen))
+        prof = profile_call(lambda: aug(images, labels, step_gen))
+        line[name] = {"shape": list(shape), "out_shape": list(size),
+                      "ms_per_batch": ms, "host_draw_ms_per_sample": host_ms,
+                      "device_ms": prof["device_busy_ms"],
+                      "idle_share": prof["idle_share"],
+                      "device_ms_by_op": prof["device_ms_by_op"][:5],
+                      "max_abs_err_vs_cpu": err,
+                      "label_ties": int(tie.sum().item()),
+                      "sync_free": True, "params_sample0": repr(cpu_params)}
+        del images, labels, out_img, out_lab
+        torch.cuda.empty_cache()
+    emit(line)
+
+
+class IterationProfile:
+    """Wraps ``core.train``'s step builder so that the iteration ending in
+    step call ``at`` is profiled: the profiler starts when call ``at - 1``
+    has returned and its work is done, and stops when call ``at``'s is.
+    The window holds one whole loop iteration: the batch from the
+    prefetcher, the draws, the step."""
+
+    def __init__(self, at):
+        self.at, self.calls, self.stats = at, 0, None
+        self._prof = self._t0 = None
+        self._real = _core_train_module().make_train_step
+
+    def __enter__(self):
+        real = self._real
+
+        def make(*args, **kwargs):
+            inner = real(*args, **kwargs)
+
+            def step(state, images, labels):
+                out = inner(state, images, labels)
+                self.calls += 1
+                if self.calls == self.at - 1:
+                    from torch.profiler import ProfilerActivity, profile
+                    torch.cuda.synchronize()
+                    self._prof = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                    self._prof.__enter__()
+                    self._t0 = time.perf_counter()
+                elif self.calls == self.at:
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - self._t0) * 1e3
+                    self._prof.__exit__(None, None, None)
+                    self.stats = profile_stats(self._prof, wall_ms)
+                return out
+            return step
+
+        _core_train_module().make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        _core_train_module().make_train_step = self._real
+
+
+def _core_train_module():
+    return sys.modules["medicalseg_torch.core.train"]
+
+
+class TrainLog(logging.Handler):
+    """Collects the ``[TRAIN]`` lines of the port's logger, and sends the
+    logger's own output to stderr meanwhile (stdout carries this script's
+    JSON lines)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        self._logger = logging.getLogger("medicalseg_torch")
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "[TRAIN]" in msg:
+            self.lines.append(msg)
+
+    def __enter__(self):
+        self._streams = [(h, h.stream) for h in self._logger.handlers
+                         if isinstance(h, logging.StreamHandler)]
+        for h, _ in self._streams:
+            h.setStream(sys.stderr)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        for h, stream in self._streams:
+            h.setStream(stream)
+
+    @staticmethod
+    def field(line, name):
+        return float(line.split(name + ": ")[1].split(",")[0].split()[0])
+
+
+def phase_train_cli():
+    """The port's train CLI (``python -m medicalseg_torch.train``, called
+    in this process through ``medicalseg_torch.train.main``) on the
+    flagship YAML pointed at four seeded 12 x 512 x 512 volumes written
+    under ``build/``: six iterations with checkpoints at 3 and 6, then a
+    run resumed from ``iter_3`` to 6. The counts are set to 0 before the
+    first run and read after the second: every flagship kernel launched,
+    exactly as nine steps imply. Both checkpoints load into a new model
+    (steps 3 and 6, finite values), every logged loss is finite, and the
+    resumed run logs iteration 6 only. Prints the logged losses, batch cost
+    (ms per iteration over each window of three) and reader cost, and one
+    profiled iteration (the second) of the first run: device time and idle
+    share."""
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        phase0 = os.path.join(wd, "phase0")
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(phase0, sub))
+        rng = np.random.RandomState(TRAIN_SEED)
+        lines = []
+        for i in range(4):
+            name = "spine{}.npy".format(i)
+            np.save(os.path.join(phase0, "images", name),
+                    (rng.rand(*FLAGSHIP_STEM[1:]) * 255).astype(np.float32))
+            np.save(os.path.join(phase0, "labels", name),
+                    rng.randint(0, 20, FLAGSHIP_STEM[1:]).astype(np.uint8))
+            lines.append("images/{0} labels/{0}\n".format(name))
+        for split in ("train", "val"):
+            with open(os.path.join(phase0, split + "_list.txt"), "w") as f:
+                f.writelines(lines)
+        cfg = Config(SPINE).dic
+        cfg["data_root"] = wd
+        for key in ("train_dataset", "val_dataset"):
+            cfg[key]["dataset_root"] = "phase0"
+            cfg[key]["result_dir"] = "phase1"
+        yml = os.path.join(wd, "spine.yml")
+        import yaml
+        with open(yml, "w") as f:
+            yaml.safe_dump(cfg, f)
+        out = os.path.join(wd, "out")
+        argv = ["--config", yml, "--iters", "6", "--save_interval", "3",
+                "--log_iters", "3", "--save_dir", out, "--seed",
+                str(TRAIN_SEED)]
+
+        reset_counts()
+        with TrainLog() as log, IterationProfile(at=2) as prof:
+            t0 = time.perf_counter()
+            first = train_cli.main(train_cli.parse_args(argv))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        first_lines = log.lines
+        check(first.step == 6 and sorted(os.listdir(out)) ==
+              ["iter_3", "iter_6"], "the CLI left {} at step {}".format(
+                  sorted(os.listdir(out)), first.step))
+        del first
+        with TrainLog() as log:
+            t0 = time.perf_counter()
+            resumed = train_cli.main(train_cli.parse_args(
+                argv + ["--resume_model", os.path.join(out, "iter_3")]))
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+        resumed_lines = log.lines
+        launches = dict(c5.LAUNCHES)
+        check(resumed.step == 6, "the resumed run ended at step {}".format(
+            resumed.step))
+        del resumed
+        torch.cuda.empty_cache()
+        check_flagship_launches(launches, 6 + 3)
+        check(len(first_lines) == 2 and len(resumed_lines) == 1 and
+              "iter: 6/6" in resumed_lines[0], "logged iterations: {} / "
+              "{}".format(first_lines, resumed_lines))
+        losses = [TrainLog.field(ln, "loss")
+                  for ln in first_lines + resumed_lines]
+        check(all(np.isfinite(losses)), "non-finite CLI loss: {}".format(
+            losses))
+        for it in (3, 6):
+            model = build_model(cfg["model"])
+            optimizer = torch.optim.SGD(model.parameters(), lr=0.0,
+                                        momentum=0.9)
+            step = ckpt.load_checkpoint(os.path.join(out, "iter_{}".format(
+                it)), model, optimizer)
+            check(step == it and all(bool(torch.isfinite(v).all()) for v in
+                                     model.state_dict().values()),
+                  "iter_{} did not load (step {})".format(it, step))
+    windows = [{k: TrainLog.field(ln, k) for k in ("loss", "batch_cost",
+                                                    "reader_cost", "ips")}
+               for ln in first_lines + resumed_lines]
+    emit({"phase": "train_cli", "config": os.path.relpath(SPINE, ROOT),
+          "volumes": 4, "shape": list(FLAGSHIP_STEM[1:]),
+          "iters": [6, "resumed 3 -> 6"],
+          "windows_iters": ["1-3", "4-6", "4-6 resumed"],
+          "windows": windows,
+          "ms_per_iter_steady": windows[1]["batch_cost"] * 1e3,
+          "reader_cost_ms_steady": windows[1]["reader_cost"] * 1e3,
+          "run_s": first_s, "resumed_run_s": resumed_s,
+          "profiled_iteration": 2,
+          "iteration_profile": prof.stats,
+          "launches_per_step": {k: v / 9 for k, v in launches.items()}})
+    return launches
+
+
 def phase_train_flagship():
     """The flagship step: the spine config's VNetDeepSup (bf16, per-block
     remat, 20 classes), its four MixedLoss heads, SGD with momentum and
@@ -1296,25 +1630,35 @@ def phase_train_flagship():
     step_ms = [ms for _, ms in timed]
     check(all(np.isfinite(losses)), "non-finite loss: {}".format(losses))
     check(losses[-1] < losses[0], "the loss did not fall: {}".format(losses))
-    # per step, remat running each block's forward twice: 15 head convs
-    # and the stem forward, 15 dgrads, the stem's weight gradient and 15
-    # square / wide ones (out_tr's 32 -> 20 among them); 8 pins a forward
-    # at least (the backward pins a cotangent that arrives in another
-    # layout)
-    fwd = 2
-    expect = {"conv5_head": 3 * fwd * 15, "conv5_stem": 0,
-              "conv5_stem_tc": 3 * fwd, "conv5_fused_epilogue": 0,
-              "conv5_dgrad": 3 * 15, "conv5_wgrad_stem": 0,
-              "conv5_wgrad_stem_tc": 3, "conv5_wgrad_head": 0,
-              "conv5_wgrad_head_tma": 0, "conv5_wgrad_mid": 0,
-              "conv5_wgrad_tma": 3 * 15}
-    got = {k: launches[k] for k in expect}
-    check(got == expect, "flagship launch counts {} != expected {}".format(
-        got, expect))
-    check(launches["pin"] >= 3 * fwd * 8, "pin launches {} < {}".format(
-        launches["pin"], 3 * fwd * 8))
+    check_flagship_launches(launches, 3)
 
     profile = profile_call(lambda: run(state))
+
+    # the same step with the recipe's device augmentation at its head
+    # (RandomRotation3D(30) + RandomFlip3D on the raw volumes); the
+    # dropout masks as above, the draws of one step
+    step_aug = make_train_step(cfg.loss, augment_fn=DeviceAugmentor(
+        recipe_transforms(SPINE), seed=TRAIN_SEED))
+    raw = images[..., 0]
+
+    def run_aug(state):
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step_aug(state, raw, labels)
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    run_aug(state)
+    torch.cuda.reset_peak_memory_stats()
+    c5.reset_launches()
+    timed_aug = [run_aug(state) for _ in range(3)]
+    aug_launches = dict(c5.LAUNCHES)
+    aug_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite([l for l, _ in timed_aug])), "non-finite loss "
+          "with augmentation: {}".format(timed_aug))
+    check_flagship_launches(aug_launches, 3)
+    aug_profile = profile_call(lambda: run_aug(state))
 
     # the four heads' losses alone, forward and backward, on f32 logits of
     # the step's shape (seeded): their share of the step
@@ -1348,7 +1692,14 @@ def phase_train_flagship():
           "patches_per_s": batch / mean_ms * 1e3, "warmup_step_ms": warm_ms,
           "peak_mem_gb": peak,
           "launches_per_step": {k: v / 3 for k, v in launches.items()},
-          "profile": profile, "losses_ms": losses_ms,
+          "profile": profile,
+          "aug_losses": [l for l, _ in timed_aug],
+          "aug_ms_per_step": float(np.median([ms for _, ms in timed_aug])),
+          "aug_ms_per_step_each": [ms for _, ms in timed_aug],
+          "aug_peak_mem_gb": aug_peak,
+          "aug_profile_device_busy_ms": aug_profile["device_busy_ms"],
+          "aug_profile_idle_share": aug_profile["idle_share"],
+          "losses_ms": losses_ms,
           "losses_device_ms": losses_profile["device_busy_ms"],
           "losses_device_ms_by_op": losses_profile["device_ms_by_op"]})
     return launches
@@ -1369,11 +1720,12 @@ def main():
     stats.update(phase_kernels_bwd())
     train_launches = phase_train()
     launches.update({k: train_launches[k] for k in BWD_KERNELS})
+    phase_augment()
     flagship = phase_train_flagship()
-    for key in ("conv5_head", "conv5_stem_tc", "pin") + BWD_KERNELS:
-        if key != "conv5_wgrad_head_tma":  # out_tr has 20 classes there
-            check(flagship[key] > 0, key + " never launched on the "
-                  "flagship's path")
+    cli = phase_train_cli()
+    for key in FLAGSHIP_KERNELS:
+        check(flagship[key] > 0 and cli[key] > 0, key + " never launched "
+              "on the flagship's path")
     kernels = []
     for key, s in stats.items():
         check(launches[key] > 0, key + " never launched on the main path")

@@ -7,6 +7,7 @@ kernel under ``csrc/``.
 
 __version__ = "0.1.0"
 
-from . import core, cvlibs, io, models, ops, utils
+from . import core, cvlibs, datasets, io, models, ops, transforms, utils
 
-__all__ = ["core", "cvlibs", "io", "models", "ops", "utils", "__version__"]
+__all__ = ["core", "cvlibs", "datasets", "io", "models", "ops", "transforms",
+           "utils", "__version__"]

@@ -1,10 +1,14 @@
 # Copyright 2026. Apache License 2.0.
-from . import infer, sliding_window, state
+from . import infer, loader, prefetch, sliding_window, state
 from .infer import inference
+from .loader import EvalLoader, TrainLoader
+from .prefetch import DevicePrefetcher
 from .sliding_window import (sliding_window_inference,
                              sliding_window_inference_batched)
 from .state import TrainState, make_eval_step, make_train_step
+from .train import train
 
-__all__ = ["infer", "sliding_window", "state", "TrainState",
-           "make_train_step", "make_eval_step", "inference",
-           "sliding_window_inference", "sliding_window_inference_batched"]
+__all__ = ["infer", "loader", "prefetch", "sliding_window", "state",
+           "TrainState", "make_train_step", "make_eval_step", "inference",
+           "sliding_window_inference", "sliding_window_inference_batched",
+           "TrainLoader", "EvalLoader", "DevicePrefetcher", "train"]

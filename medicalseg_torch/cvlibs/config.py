@@ -14,20 +14,26 @@ properties produce PyTorch objects:
   parameters, with coupled L2 ``weight_decay`` on every parameter (adamw:
   decoupled); ``core.state`` sets its learning rate from the schedule
   before every update;
-* ``.loss``         -> {'types': [loss callables], 'coef': [...]}.
+* ``.loss``         -> {'types': [loss callables], 'coef': [...]};
+* ``.train_dataset`` / ``.val_dataset`` -> the port's datasets, their
+  ``dataset_root`` / ``result_dir`` joined to ``data_root``.
 
-The dataset properties come with the data slice of the port.
+``model.num_classes`` may be left out and is then taken from the datasets;
+``model.pretrained`` names a ``model.msgpack`` (either package's) loaded
+key by key, shape-checked.
 """
 
 import codecs
 import math
 import os
+import warnings
 from typing import Any, Callable, Dict
 
 import torch
 import yaml
 
 from ..utils import logger
+from ..utils.checkpoint import load_pretrained_model
 from . import manager
 
 DTYPES = {"float32": torch.float32, "fp32": torch.float32,
@@ -68,20 +74,22 @@ def build_model(model_cfg: Dict[str, Any], dtype=None,
                 generator: torch.Generator = None) -> torch.nn.Module:
     """The registered model named by ``model_cfg['type']``. ``dtype``
     (a torch dtype) overrides the section's ``dtype``; a ``dtype`` string
-    maps to its torch dtype. ``generator`` seeds the initial weights."""
+    maps to its torch dtype. ``generator`` seeds the initial weights, and
+    ``pretrained`` (a ``model.msgpack`` or its directory) overwrites those
+    it holds at the same shapes."""
     cfg = dict(model_cfg)
     kind = cfg.pop("type")
-    if cfg.pop("pretrained", None) is not None:
-        raise NotImplementedError(
-            "loading pretrained weights comes with the checkpoint port "
-            "(ROADMAP, modules to port, item 7)")
+    pretrained = cfg.pop("pretrained", None)
     for key in TPU_ONLY_KEYS:
         cfg.pop(key, None)
     if dtype is not None:
         cfg["dtype"] = dtype
     elif isinstance(cfg.get("dtype"), str):
         cfg["dtype"] = DTYPES[cfg["dtype"]]
-    return manager.MODELS[kind](generator=generator, **cfg)
+    model = manager.MODELS[kind](generator=generator, **cfg)
+    if pretrained is not None:
+        load_pretrained_model(model, pretrained)
+    return model
 
 
 def polynomial_decay(learning_rate, decay_steps, end_lr=0.0, power=0.9):
@@ -169,6 +177,8 @@ class Config:
         self.dic = parse_from_yaml(path)
         self._model = None
         self._losses = None
+        self._train_dataset = None
+        self._val_dataset = None
         self.update(learning_rate=learning_rate, batch_size=batch_size,
                     iters=iters)
 
@@ -331,9 +341,10 @@ class Config:
                     "to 1 in loss config, but they are {} and {}."
                     .format(len_types, len_coef))
             args["types"] = args["types"] * len_coef
-        # the datasets' ignore_index, 255 in every shipped dataset, until
-        # the datasets are ported
-        ds_ignore = 255
+        # the train dataset's ignore_index (255, every dataset's default,
+        # when its section leaves it out), read without loading the data
+        ds_ignore = self.dic.get("train_dataset", {}).get("ignore_index",
+                                                          255)
         losses = dict(args)
         losses["types"] = []
         for item in args["types"]:
@@ -352,24 +363,72 @@ class Config:
     # ------------------------------------------------------------------
     @property
     def model(self) -> torch.nn.Module:
-        model_cfg = self.dic.get("model", {})
+        """The model of the ``model`` section; without ``num_classes`` it
+        takes the train dataset's (else the val dataset's)."""
+        model_cfg = dict(self.dic.get("model", {}))
         if not model_cfg:
             raise RuntimeError(
                 "No model specified in the configuration file.")
         if "num_classes" not in model_cfg:
-            raise NotImplementedError(
-                "num_classes inferred from the datasets comes with the "
-                "dataset port (ROADMAP, modules to port, item 7); set "
-                "model.num_classes")
+            ds = (self.train_dataset if self.train_dataset_config
+                  else self.val_dataset)
+            if getattr(ds, "num_classes", None) is not None:
+                model_cfg["num_classes"] = ds.num_classes
         if self._model is None:
             self._model = build_model(model_cfg)
         return self._model
 
     # ------------------------------------------------------------------
+    # Datasets
+    # ------------------------------------------------------------------
+    def _dataset_config(self, name):
+        cfg = dict(self.dic.get(name, {}))
+        if cfg:
+            for key in ("dataset_root", "result_dir"):
+                if cfg.get(key) is not None:
+                    cfg[key] = os.path.join(self.dic.get("data_root", ""),
+                                            cfg[key])
+        return cfg
+
+    @property
+    def train_dataset_config(self) -> Dict:
+        return self._dataset_config("train_dataset")
+
+    @property
+    def val_dataset_config(self) -> Dict:
+        return self._dataset_config("val_dataset")
+
+    @property
+    def train_dataset(self):
+        if self._train_dataset is None and self.train_dataset_config:
+            self._train_dataset = self._load_object(self.train_dataset_config)
+        return self._train_dataset
+
+    @property
+    def val_dataset(self):
+        if self._val_dataset is None and self.val_dataset_config:
+            self._val_dataset = self._load_object(self.val_dataset_config)
+        return self._val_dataset
+
+    def data_root_path_warning(self):
+        """Raise without ``data_root``; warn where it is the default
+        ``data/``."""
+        if "data_root" not in self.dic:
+            raise RuntimeError(
+                "The dataroot need to be set in the config file")
+        data_root = self.dic["data_root"]
+        if data_root == "data/":
+            warnings.warn(
+                "Warning: The data dir now is {}, you should change the "
+                "data_root in the global.yml if this directory didn't "
+                "have enough space".format(os.path.join(os.getcwd(),
+                                                        data_root)))
+
+    # ------------------------------------------------------------------
     # Reflective loading
     # ------------------------------------------------------------------
     def _load_component(self, com_name: str) -> Any:
-        from .. import models  # noqa: F401  (fills the registries)
+        from .. import datasets, models, transforms  # noqa: F401 (registries)
         for com in (manager.MODELS, manager.BACKBONES, manager.DATASETS,
                     manager.TRANSFORMS, manager.LOSSES):
             if com_name in com.components_dict:

@@ -167,8 +167,9 @@ class Predictor:
         self.device = resolve_device(args.device)
         if self.cfg.transforms:
             raise NotImplementedError(
-                "deploy transforms are not ported yet (ROADMAP, modules "
-                "to port, item 7)")
+                "deploy transforms are not read by the runner yet (ROADMAP, "
+                "modules to port, item 7: export and the runner's "
+                "manifest)")
         if self.cfg.output_op not in ("argmax", "softmax", "none"):
             raise ValueError("output_op must be argmax, softmax or none, "
                              "got {!r}".format(self.cfg.output_op))

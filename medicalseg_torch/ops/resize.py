@@ -1,16 +1,18 @@
 # Copyright 2026. Apache License 2.0.
-"""3-D resize (zoom) with static shapes: separable per-axis interpolation.
+"""3-D resize (zoom): separable per-axis interpolation.
 
-Counterpart of the static family of ``medicalseg_tpu/ops/resize.py``. The
-coordinate convention of :func:`resize3d` is scipy's ``zoom`` with
+Counterpart of ``medicalseg_tpu/ops/resize.py``. The coordinate convention
+of :func:`resize3d` and :func:`crop_resize3d` is scipy's ``zoom`` with
 ``grid_mode=False``: ``src = i * (in - 1) / (out - 1)`` (endpoints
 aligned). Order 1 is three small matrix products, one per axis, in float32
 (on the card with TF32 off: values reach 255 and a 10-bit mantissa would
 cost 0.1); order 0 is three gathers. :func:`upsample_trilinear_batch`, the
 deep-supervision heads' upsample, takes the half-pixel convention instead
 (``src = (i + 0.5) * in / out - 0.5``, edges clamped) and runs in the
-tensor's own dtype. The interpolation matrices and index vectors are built
-on the host in float64 and moved to the volume's device.
+tensor's own dtype. The static interpolation matrices and index vectors
+are built on the host in float64 and moved to the volume's device; those of
+:func:`crop_resize3d`, whose window may be drawn on the card, are built on
+the volume's device in float32, in the JAX package's order of operations.
 """
 
 import contextlib
@@ -161,6 +163,100 @@ def resize3d_batch(vol, size, order=1):
     """Batched resize for [N, D, H, W, C] tensors, one volume at a time."""
     vol = torch.as_tensor(vol)
     return torch.stack([resize3d(v, size, order) for v in vol])
+
+
+def _crop_axis(in_size, start, crop, out_size, device):
+    """The float32 source coordinates ``start + i * (crop - 1) / (out - 1)``
+    of the ``out_size`` outputs of one axis of a crop window, and the
+    window's last index clamped to the volume, ``min(start + crop - 1,
+    in_size - 1)``. ``start`` and ``crop`` are host integers or 0-d
+    integer tensors on ``device`` (the geometry then stays there)."""
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    denom = float(max(out_size - 1, 1))
+    if torch.is_tensor(start):
+        scale = (crop.to(torch.float32) - 1.0) / denom
+        coords = start.to(torch.float32) + i * scale
+        hi = torch.clamp(start + crop - 1, max=in_size - 1).to(torch.float32)
+    else:
+        scale = float(np.float32(crop - 1.0) / np.float32(denom))
+        coords = float(start) + i * scale
+        hi = float(min(start + crop - 1, in_size - 1))
+    return coords, hi
+
+
+def _dynamic_linear_matrix(in_size, start, crop, out_size, device=None):
+    """(out, in) float32 order-1 interpolation matrix of a crop window: row
+    i interpolates the source coordinate ``start + i * (crop - 1) / (out -
+    1)``, clamped to [0, min(start + crop - 1, in - 1)], from its two
+    neighbours."""
+    coords, hi = _crop_axis(in_size, start, crop, out_size, device)
+    coords = torch.clamp(coords, min=0.0)
+    coords = (torch.minimum(coords, hi) if torch.is_tensor(hi)
+              else coords.clamp(max=hi))
+    lo = torch.floor(coords)
+    frac = coords - lo
+    lo_i = lo.long().clamp(0, in_size - 1)
+    hi_i = (lo_i + 1).clamp(0, in_size - 1)
+    cols = torch.arange(in_size, device=device)
+    return ((cols[None, :] == lo_i[:, None]) * (1.0 - frac)[:, None] +
+            (cols[None, :] == hi_i[:, None]) * frac[:, None])
+
+
+def _dynamic_nearest_indices(in_size, start, crop, out_size, device=None):
+    """Order-0 source indices of a crop window: ``floor(coord + 0.5)``,
+    clamped to the volume."""
+    coords, _ = _crop_axis(in_size, start, crop, out_size, device)
+    return torch.floor(coords + 0.5).long().clamp(0, in_size - 1)
+
+
+def crop_resize3d(vol, start, crop, size, order=1):
+    """Fused crop + resize: ``resize3d(vol[start:start + crop], size,
+    order)`` with the window's geometry as data.
+
+    ``start`` and ``crop`` (three each) are host integers, or int tensors
+    [3] on ``vol``'s device: a crop drawn inside a label's bounding box on
+    the card needs no host sync. Order 1 contracts each axis of the whole
+    volume with a (size, in) interpolation matrix built from the geometry
+    (float32, TF32 off); order 0 gathers along each axis. Integer volumes
+    are rounded to nearest after the order-1 interpolation.
+
+    Args:
+        vol: [D, H, W] or [D, H, W, C] tensor.
+        start: crop offsets (d, h, w).
+        crop: crop lengths (d, h, w).
+        size: output (d, h, w).
+        order: 1 trilinear or 0 nearest.
+    """
+    if vol.ndim not in (3, 4):
+        raise ValueError("crop_resize3d expects 3-D or 4-D input, got {}".
+                         format(tuple(vol.shape)))
+    size = tuple(int(s) for s in size)
+
+    def geometry(g):
+        if torch.is_tensor(g) and g.device.type != "cpu":
+            return g.long()
+        return [int(v) for v in g]  # host values (a CPU tensor: no sync)
+
+    start, crop = geometry(start), geometry(crop)
+    in_dhw = tuple(vol.shape[:3])
+    if order == 0:
+        out = vol
+        for axis in range(3):
+            idx = _dynamic_nearest_indices(in_dhw[axis], start[axis],
+                                           crop[axis], size[axis],
+                                           vol.device)
+            out = out.index_select(axis, idx)
+        return out
+    out = vol.to(torch.float32)
+    with _full_f32_matmul():
+        for axis in range(3):
+            mat = _dynamic_linear_matrix(in_dhw[axis], start[axis],
+                                         crop[axis], size[axis], vol.device)
+            out = torch.tensordot(mat, out, dims=([1], [axis])).movedim(
+                0, axis)
+    if _is_integer(vol.dtype):
+        out = torch.round(out)
+    return out.to(vol.dtype).contiguous()
 
 
 def resize_to_spacing(vol, spacing, new_spacing=None, new_shape=None,

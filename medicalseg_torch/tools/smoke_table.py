@@ -8,8 +8,9 @@ Each argument is the standard output of one run (on one card: compare runs
 of one machine only). Prints, per file in the order given, the per-shape
 forward and input-gradient times of the bf16 head convs (ms, packing
 apart where the run reports it, bound, library), the pin views, the
-``kernels`` line, and the serving and training numbers (the cube step and
-the flagship's). To compare two
+``kernels`` line, and the serving and training numbers (the cube step, the
+flagship's with and without its augmentation, the augmentation of each
+recipe alone and the train CLI's iterations). To compare two
 commits, unpack the other one with ``git archive <commit> | tar -x -C
 build/parent`` and run its ``chip_smoke.py`` on the same card, one after
 the other.
@@ -39,7 +40,8 @@ def load(path):
             elif phase == "kernels_bwd":
                 run["bwd"][d["conv"]] = d
             elif phase in ("build", "serve", "serve_raw", "serve_swl",
-                           "train", "train_flagship"):
+                           "train", "train_flagship", "augment",
+                           "train_cli"):
                 run[phase] = d
             elif "kernels" in d:
                 run["kernels"] = {k["name"]: k for k in d["kernels"]}
@@ -112,6 +114,19 @@ def main(paths):
                           fmt(f.get("patches_per_s"), 2),
                           fmt(f.get("peak_mem_gb"), 2),
                           json.dumps(f.get("profile"))))
+        a, c = run.get("augment", {}), run.get("train_cli", {})
+        prof = c.get("iteration_profile") or {}
+        print("flagship with augmentation ms/step {} {} idle {} | augment "
+              "ms/batch {} | CLI ms/iter {} reader ms {} windows {} "
+              "iteration idle {}".format(
+                  fmt(f.get("aug_ms_per_step"), 2),
+                  [round(v, 2) for v in f.get("aug_ms_per_step_each", [])],
+                  fmt(f.get("aug_profile_idle_share")),
+                  {k: round(v["ms_per_batch"], 2) for k, v in a.items()
+                   if isinstance(v, dict)},
+                  fmt(c.get("ms_per_iter_steady"), 1),
+                  fmt(c.get("reader_cost_ms_steady"), 2),
+                  c.get("windows"), fmt(prof.get("idle_share"))))
         print()
 
 

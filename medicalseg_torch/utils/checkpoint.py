@@ -1,0 +1,175 @@
+# Copyright 2026. Apache License 2.0.
+"""Checkpoint save / load / resume in the JAX package's format.
+
+Counterpart of ``medicalseg_tpu/utils/checkpoint.py``: ``iter_N/``
+directories that hold ``model.msgpack`` and ``opt.msgpack``, written
+through a temporary file and a rename each, the optimizer's file last (its
+presence marks a resumable checkpoint); per-key, shape-checked pretrained
+loading; resume that returns the iteration.
+
+* ``model.msgpack`` holds the model's variables in the JAX package's
+  layout (``{'params': ..., 'batch_stats': ...}``, moved by
+  :mod:`.transplant`), so a checkpoint of either package loads into the
+  other.
+* ``opt.msgpack`` holds ``{'opt_state': ..., 'step': n}``. For SGD (both
+  production recipes) ``opt_state`` is optax's state of the JAX package's
+  optimizer, ``chain(add_decayed_weights, sgd)`` (without weight decay
+  only the ``sgd`` part): the momentum as the ``trace`` tree, the update
+  count as ``count``. For the other optimizers it is
+  ``{'torch': <torch.save of the optimizer's state_dict>}``, which only the
+  port reads.
+
+Files are encoded by the port's own :mod:`.msgpack_codec`. Writing reads
+the model back from the card once (a host sync at each save point only).
+"""
+
+import io
+import os
+
+import numpy as np
+import torch
+
+from . import logger, transplant
+from .msgpack_codec import packb, unpackb
+
+MODEL_FILE = "model.msgpack"
+OPT_FILE = "opt.msgpack"
+
+
+def _atomic_write(path, data):
+    """Write to a temporary file and rename, so that an interrupted save
+    never leaves a truncated file: a file is absent or complete."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return unpackb(f.read())
+
+
+def _is_sgd(optimizer):
+    return type(optimizer) is torch.optim.SGD
+
+
+def _opt_state(model, optimizer, step):
+    if not _is_sgd(optimizer):
+        buf = io.BytesIO()
+        torch.save(optimizer.state_dict(), buf)
+        return {"torch": buf.getvalue()}
+    sgd = {"0": {"trace": transplant.momentum_to_flax(model, optimizer)},
+           "1": {"count": np.asarray(step, np.int32)}}
+    if optimizer.param_groups[0]["weight_decay"]:
+        return {"0": {}, "1": sgd}
+    return sgd
+
+
+def _find_trace(tree):
+    """The ``trace`` subtree of an optax state written as nested dicts."""
+    if isinstance(tree, dict):
+        if "trace" in tree:
+            return tree["trace"]
+        for value in tree.values():
+            found = _find_trace(value)
+            if found is not None:
+                return found
+    return None
+
+
+def save_checkpoint(save_dir, model, optimizer=None, step=None):
+    """Write ``model.msgpack`` (and, with ``optimizer``, ``opt.msgpack``
+    with ``step``) under ``save_dir``."""
+    os.makedirs(save_dir, exist_ok=True)
+    variables = transplant.flax_from_state_dict(model.state_dict())
+    _atomic_write(os.path.join(save_dir, MODEL_FILE), packb(variables))
+    if optimizer is not None:
+        step = 0 if step is None else int(step)
+        payload = {"opt_state": _opt_state(model, optimizer, step),
+                   "step": np.asarray(step)}
+        _atomic_write(os.path.join(save_dir, OPT_FILE), packb(payload))
+
+
+def load_checkpoint(path, model, optimizer=None):
+    """Load a checkpoint dir (or its model file) into ``model``, and with
+    ``optimizer`` its optimizer state. Returns the saved step (None when
+    not requested or not present)."""
+    model_path = os.path.join(path, MODEL_FILE) if os.path.isdir(path) \
+        else path
+    if not os.path.exists(model_path):
+        raise ValueError("The model file is not found: {}".format(model_path))
+    state = transplant.state_dict_from_flax(_read(model_path))
+    model.load_state_dict(state)
+    if optimizer is None:
+        return None
+    opt_path = os.path.join(os.path.dirname(model_path), OPT_FILE)
+    if not os.path.exists(opt_path):
+        return None
+    payload = _read(opt_path)
+    opt_state = payload["opt_state"]
+    if "torch" in opt_state:
+        optimizer.load_state_dict(torch.load(
+            io.BytesIO(opt_state["torch"]), weights_only=True))
+    elif _is_sgd(optimizer):
+        trace = _find_trace(opt_state)
+        if trace is None:
+            raise ValueError("{} holds no SGD momentum trace".format(opt_path))
+        transplant.momentum_from_flax(model, optimizer, trace)
+    else:
+        raise ValueError("{} holds an optax state, which loads only into "
+                         "SGD, not {}".format(opt_path,
+                                              type(optimizer).__name__))
+    return int(payload["step"])
+
+
+def load_pretrained_model(model, pretrained_model):
+    """Per-key, shape-checked weight loading from a ``model.msgpack`` (or
+    the directory holding it): entries that are missing or shaped
+    otherwise are skipped with a warning. Returns the number of entries
+    loaded."""
+    if pretrained_model is None:
+        return 0
+    if os.path.isdir(pretrained_model):
+        pretrained_model = os.path.join(pretrained_model, MODEL_FILE)
+    if not os.path.exists(pretrained_model):
+        raise ValueError("The pretrained model directory is not found: {}".
+                         format(pretrained_model))
+    loaded = transplant.state_dict_from_flax(_read(pretrained_model))
+    own = model.state_dict()
+    take = {}
+    for key, value in own.items():
+        if key not in loaded:
+            logger.warning("{} is not in pretrained model".format(key))
+        elif tuple(loaded[key].shape) != tuple(value.shape):
+            logger.warning(
+                "[SKIP] Shape of params {} doesn't match.(Pretrained: {}, "
+                "Actual: {})".format(key, tuple(loaded[key].shape),
+                                     tuple(value.shape)))
+        else:
+            take[key] = loaded[key]
+    model.load_state_dict(take, strict=False)
+    logger.info("There are {}/{} variables loaded into the model.".format(
+        len(take), len(own)))
+    return len(take)
+
+
+def resume(model, optimizer, resume_model):
+    """Restore the model and optimizer from ``.../iter_N`` and return N
+    (the saved step, else the number in the directory's name)."""
+    if resume_model is None:
+        return 0
+    logger.info("Resume model from {}".format(resume_model))
+    if not os.path.exists(resume_model):
+        raise ValueError(
+            "Directory of the model needed to resume is not Found: {}".
+            format(resume_model))
+    step = load_checkpoint(resume_model, model, optimizer)
+    return _parse_iter(resume_model) if step is None else step
+
+
+def _parse_iter(path):
+    tail = os.path.basename(os.path.normpath(path)).split("_")[-1]
+    return int(tail) if tail.isdigit() else 0

@@ -173,8 +173,8 @@ def flax_from_state_dict(state_dict) -> Dict[str, dict]:
     arrays (quantized weights as the JAX package's int8 leaves)."""
     params, stats = {}, {}
 
-    def a(key):
-        return state_dict[key].detach().cpu().float().numpy()
+    def a(key):  # a copy: a CPU float32 tensor's numpy() would alias it
+        return state_dict[key].detach().cpu().float().numpy().copy()
 
     for prefix, path, kind in _layout(_HEADS[0] + ".weight" in state_dict):
         if kind == "prelu" and prefix + ".alpha" not in state_dict:

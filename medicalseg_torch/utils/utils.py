@@ -1,9 +1,14 @@
 # Copyright 2026. Apache License 2.0.
-"""File discovery and CLI helpers after ``medicalseg_tpu/utils/utils.py``
-(the port imports nothing of the JAX package)."""
+"""File discovery, CLI, seeding and environment helpers after
+``medicalseg_tpu/utils/utils.py`` and ``env.py`` (the port imports nothing
+of the JAX package)."""
 
 import os
+import platform
+import random
+import sys
 
+import numpy as np
 import torch
 
 MEDICAL_SUFFIXES = ("nii.gz", "nii", "dcm", "mhd", "mha", "raw", "npy",
@@ -57,9 +62,35 @@ def get_image_list(image_path):
 def resolve_device(name: str = "cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asked
     for ``cpu``; raises when CUDA was asked for and no GPU is present."""
-    if name == "cpu":
-        return torch.device("cpu")
+    device = torch.device(name)
+    if device.type == "cpu":
+        return device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found; pass --device cpu (or "
                            "device='cpu') to run on the CPU")
-    return torch.device(name)
+    return device
+
+
+def seed_all(seed=None):
+    """Seed python's, numpy's and torch's global generators (the
+    reference's train.py:120-123); a no-op for None."""
+    if seed is None:
+        return
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def get_sys_env():
+    """Platform, Python, numpy, torch, CUDA and the cards torch sees, for
+    the train CLI's log (reference sys_env.py:26-121)."""
+    env = {"platform": platform.platform(),
+           "Python": sys.version.replace("\n", ""),
+           "numpy": np.__version__, "torch": torch.__version__,
+           "CUDA": torch.version.cuda or "none",
+           "GPUs": torch.cuda.device_count() if torch.cuda.is_available()
+           else 0}
+    if env["GPUs"]:
+        env["GPU"] = torch.cuda.get_device_name(0)
+        env["cuDNN"] = torch.backends.cudnn.version()
+    return env
