@@ -1280,7 +1280,8 @@ def phase_augment():
     except at .5 ties of the CPU value before rounding), a batch already on
     the card under ``torch.cuda.set_sync_debug_mode('error')`` (any host
     sync raises), and the time of a batch (CUDA events, median of 5, the
-    host's draws included) beside one profiled batch's device time."""
+    host's draws included) beside one profiled batch's device time and
+    the bound by bytes (inputs and outputs moved once)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     bounded = [RandomResizedCrop3D(size=64, pre_crop=True,
@@ -1341,8 +1342,12 @@ def phase_augment():
               name + ": augmented values out of range")
         ms = time_ms(lambda: aug(images, labels, step_gen))
         prof = profile_call(lambda: aug(images, labels, step_gen))
+        # the least time: each input and output read or written once
+        moved = sum(t.numel() * t.element_size()
+                    for t in (images, labels, out_img, out_lab))
         line[name] = {"shape": list(shape), "out_shape": list(size),
                       "ms_per_batch": ms, "host_draw_ms_per_sample": host_ms,
+                      "bound_ms": moved / PEAK_BYTES * 1e3,
                       "device_ms": prof["device_busy_ms"],
                       "idle_share": prof["idle_share"],
                       "device_ms_by_op": prof["device_ms_by_op"][:5],
