@@ -134,8 +134,8 @@ JSON line; any failure raises and the script exits non-zero:
    with the counts set to 0 just before them and held to the same counts
    (``aug_ms_per_step``, its peak memory, one profiled step's device time
    and idle share); then the four heads' losses alone, forward
-   and backward on seeded f32 logits of the step's shape (``losses_ms``,
-   their device time and its operators).
+   and backward on seeded f32 logits of the step's shape, in their default
+   (fused) form (``losses_ms``, their device time and its operators).
    Run before it, augment: ``DeviceAugmentor`` on a batch of each recipe
    (the flagship's on seeded 3 x 12 x 512 x 512 volumes and labels in
    [0, 20), the lung's RandomResizedCrop3D(128) + RandomRotation3D(90) +
@@ -155,6 +155,24 @@ JSON line; any failure raises and the script exits non-zero:
    window's loss, batch cost (ms per iteration) and reader cost, and one
    profiled iteration of the loop (batch from the prefetcher, draws,
    step): device time and idle share.
+12. eval: the cube config (VNet, bf16) pointed at three seeded 128^3
+   volumes (labels in [0, 3)) with a dataset.json under ``build/``, seeded
+   weights saved as ``model.msgpack``, through the val CLI
+   (``medicalseg_torch.val.main``) in this process: whole volumes, with
+   ``--sw_num 2`` (27 windows of 64^3 a volume, four to a forward) and
+   with ``--auc_roc true --weights_precision int8``. The counts are set
+   to 0 just before each run and read just after: exactly the eval
+   forwards the mode implies (the fused-epilogue convs and the pins).
+   Each run's predictions against the same evaluation with the kernels
+   forced to their plain versions (argmax agreement >= 99.5% of voxels,
+   mDice within 1e-2), and its dump of the volumes (``.npy`` and
+   readable ``.nii.gz`` with the dataset.json spacing). Then the train
+   CLI on the same data with ``--do_eval`` (four iterations, an eval at 2
+   and 4): ``best_model/best.json`` exists, the best model loads, and a
+   run resumed from ``iter_2`` restores the tracker. Prints ms per
+   evaluated volume (host clock), the device time of one evaluated volume
+   (a profiled whole-volume evaluation), the mDice of each mode and the
+   AUC.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -193,6 +211,8 @@ from medicalseg_torch.ops import hu_resize as hr  # noqa: E402
 from medicalseg_torch.ops import intensity, resize  # noqa: E402
 from medicalseg_torch.utils.loss_utils import loss_computation  # noqa: E402
 from medicalseg_torch import train as train_cli  # noqa: E402
+from medicalseg_torch import val as val_cli  # noqa: E402
+from medicalseg_torch.core import val as core_val  # noqa: E402
 from medicalseg_torch.cvlibs import manager  # noqa: E402
 from medicalseg_torch.transforms import (DeviceAugmentor,  # noqa: E402
                                          RandomResizedCrop3D, RandomFlip3D)
@@ -266,6 +286,17 @@ AUG_TOL = 1e-5  # augmented image, card against CPU, same parameters
 # the flagship's kernels, each launched by every step of its path
 FLAGSHIP_KERNELS = ("conv5_head", "conv5_stem_tc", "pin", "conv5_dgrad",
                     "conv5_wgrad_stem_tc", "conv5_wgrad_tma")
+# the eval phase: seeded 128^3 volumes of the cube config, the val CLI's
+# three modes (its flags), and the plain-version path's mDice within
+EVAL_VOLUMES = 3
+EVAL_RUNS = (("whole", []), ("sw2", ["--sw_num", "2"]),
+             ("auc_int8", ["--auc_roc", "true", "--weights_precision",
+                           "int8"]))
+EVAL_MDICE_TOL = 1e-2
+# dataset.json geometry of the eval volumes (x, y, z)
+EVAL_GEOMETRY = {"spacing_resample": [0.75, 0.75, 1.5],
+                 "origin": [-12.5, 3.0, 40.0],
+                 "direction": [1, 0, 0, 0, 1, 0, 0, 0, 1]}
 
 
 class SmokeFailure(RuntimeError):
@@ -730,20 +761,26 @@ def plain_ops():
         hr._hu_resize_d_cuda = saved_hu
 
 
-def write_deploy(workdir):
-    """model.pt (the lung config's V-Net, a seeded init with non-trivial
-    BN statistics) and two manifests in ``workdir``: deploy.yaml, and
-    deploy_buckets.yaml with one 128^3 shape bucket."""
-    model_cfg = Config(LUNG_TPU).dic["model"]
+def seeded_lung_model(model_cfg):
+    """The lung config's V-Net, a seeded init with non-trivial BN
+    statistics."""
     gen = torch.Generator().manual_seed(0)
     model = build_model(model_cfg, generator=gen)
-    state = model.state_dict()
-    for key, val in state.items():  # non-trivial BN statistics
+    for key, val in model.state_dict().items():
         if key.endswith("running_mean"):
             val.copy_(0.1 * torch.randn(val.shape, generator=gen))
         elif key.endswith("running_var"):
             val.copy_(0.5 + torch.rand(val.shape, generator=gen))
-    torch.save(state, os.path.join(workdir, "model.pt"))
+    return model
+
+
+def write_deploy(workdir):
+    """model.pt (:func:`seeded_lung_model`) and two manifests in
+    ``workdir``: deploy.yaml, and deploy_buckets.yaml with one 128^3 shape
+    bucket."""
+    model_cfg = Config(LUNG_TPU).dic["model"]
+    torch.save(seeded_lung_model(model_cfg).state_dict(),
+               os.path.join(workdir, "model.pt"))
     import yaml
     deploy = {"model": "model.stablehlo", "params": "model.pt",
               "transforms": [], "output_op": "argmax",
@@ -1407,18 +1444,21 @@ def _core_train_module():
 
 
 class TrainLog(logging.Handler):
-    """Collects the ``[TRAIN]`` lines of the port's logger, and sends the
-    logger's own output to stderr meanwhile (stdout carries this script's
+    """Collects the lines of the port's logger that hold one of ``tags``
+    (``[TRAIN]`` by default), and sends the logger's own output and the
+    eval progress bar to stderr meanwhile (stdout carries this script's
     JSON lines)."""
 
-    def __init__(self):
+    def __init__(self, *tags):
         super().__init__()
+        self.tags = tags or ("[TRAIN]",)
         self.lines = []
         self._logger = logging.getLogger("medicalseg_torch")
+        self._stdout = contextlib.redirect_stdout(sys.stderr)
 
     def emit(self, record):
         msg = record.getMessage()
-        if "[TRAIN]" in msg:
+        if any(tag in msg for tag in self.tags):
             self.lines.append(msg)
 
     def __enter__(self):
@@ -1427,9 +1467,11 @@ class TrainLog(logging.Handler):
         for h, _ in self._streams:
             h.setStream(sys.stderr)
         self._logger.addHandler(self)
+        self._stdout.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._stdout.__exit__(*exc)
         self._logger.removeHandler(self)
         for h, stream in self._streams:
             h.setStream(stream)
@@ -1537,6 +1579,210 @@ def phase_train_cli():
           "iteration_profile": prof.stats,
           "launches_per_step": {k: v / 9 for k, v in launches.items()}})
     return launches
+
+
+class EvalCalls:
+    """Wraps ``core.val.evaluate`` as the val CLI calls it: keeps each
+    call's arguments and result, and its host wall time (synchronized)."""
+
+    def __init__(self):
+        self.calls = []
+        self._real = core_val.evaluate
+
+    def __enter__(self):
+        def evaluate(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append({"args": args, "kwargs": kwargs, "result": out,
+                               "s": time.perf_counter() - t0})
+            return out
+        core_val.evaluate = evaluate
+        return self
+
+    def __exit__(self, *exc):
+        core_val.evaluate = self._real
+
+
+def write_eval_data(wd):
+    """Three seeded 128^3 volumes with labels in [0, 3) (a lesion-like
+    ball of class 2 inside a box of class 1, as the lung task has), their
+    list files and a dataset.json with :data:`EVAL_GEOMETRY`; returns the
+    dataset.json path."""
+    phase0 = os.path.join(wd, "phase0")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(phase0, sub))
+    rng = np.random.RandomState(TRAIN_SEED)
+    grid = np.indices((EDGE,) * 3).astype(np.float32)
+    lines, training = [], {}
+    for i in range(EVAL_VOLUMES):
+        name = "lung{}".format(i)
+        lo = rng.randint(16, 40, 3)
+        hi = lo + rng.randint(48, 72, 3)
+        label = np.zeros((EDGE,) * 3, np.uint8)
+        label[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+        centre = (lo + hi) / 2.0
+        ball = sum((g - c) ** 2 for g, c in zip(grid, centre)) < 12.0 ** 2
+        label[ball] = 2
+        image = (0.3 * label + 0.2 * rng.rand(*label.shape)).astype(
+            np.float32)
+        np.save(os.path.join(phase0, "images", name + ".npy"), image)
+        np.save(os.path.join(phase0, "labels", name + ".npy"), label)
+        lines.append("images/{0}.npy labels/{0}.npy\n".format(name))
+        training[name] = dict(EVAL_GEOMETRY)
+    for split in ("train", "val"):
+        with open(os.path.join(phase0, split + "_list.txt"), "w") as f:
+            f.writelines(lines)
+    path = os.path.join(wd, "dataset.json")
+    with open(path, "w") as f:
+        json.dump({"training": training}, f)
+    return path
+
+
+def check_dump(out, volumes):
+    """The first volumes' dump: pred, label and img as .npy and readable
+    .nii.gz of 128^3 with the dataset.json spacing."""
+    for i in range(min(volumes, core_val.DUMPED)):
+        for name in ("pred", "label", "img"):
+            path = os.path.join(out, str(i), name + ".nii.gz")
+            check(os.path.exists(os.path.join(out, str(i), name + ".npy")),
+                  "no {}.npy in the dump of volume {}".format(name, i))
+            data, meta = medio.read_image(path)
+            check(data.shape == (EDGE,) * 3 and np.allclose(
+                meta["spacing"], EVAL_GEOMETRY["spacing_resample"]),
+                "{}: shape {} spacing {}".format(path, data.shape,
+                                                 meta["spacing"]))
+
+
+def phase_eval():
+    """Evaluation on the card: the cube config (VNet, bf16) pointed at
+    three seeded 128^3 volumes with a dataset.json, seeded weights saved
+    as ``model.msgpack``; the val CLI (``medicalseg_torch.val.main``) run
+    in this process whole-volume, with ``--sw_num 2`` and with
+    ``--auc_roc true --weights_precision int8``, the counts set to 0 just
+    before each run and read just after (exactly the eval forwards the
+    mode implies: fused-epilogue convs and pins, no train kernels). Each
+    run's predictions held to the same evaluation with the kernels forced
+    to their plain versions (argmax agreement >= 99.5% of voxels, mDice
+    within :data:`EVAL_MDICE_TOL`), its dump readable. Then the train CLI
+    on the same data with ``--do_eval`` (four iterations, an eval at 2 and
+    4): ``best_model/best.json`` is written, and a run resumed from
+    ``iter_2`` restores the tracker and keeps a best mDice no lower.
+    Prints ms per evaluated volume (host clock, synchronized), the device
+    time of one evaluated volume (profiled whole-volume evaluation over
+    three), the three mDice values and the AUC."""
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        json_path = write_eval_data(wd)
+        cfg = Config(LUNG_TPU).dic
+        cfg["data_root"] = wd
+        for key in ("train_dataset", "val_dataset"):
+            cfg[key]["dataset_root"] = "phase0"
+            cfg[key]["result_dir"] = "phase1"
+        cfg["val_dataset"]["dataset_json_path"] = json_path
+        yml = os.path.join(wd, "lung.yml")
+        import yaml
+        with open(yml, "w") as f:
+            yaml.safe_dump(cfg, f)
+        weights = os.path.join(wd, "weights")
+        ckpt.save_checkpoint(weights, seeded_lung_model(cfg["model"]))
+        model_path = os.path.join(weights, ckpt.MODEL_FILE)
+
+        for mode, extra in EVAL_RUNS:
+            out = os.path.join(wd, "eval_" + mode)
+            argv = ["--config", yml, "--model_path", model_path,
+                    "--save_dir", out, *extra]
+            reset_counts()
+            with TrainLog("[EVAL]") as log, EvalCalls() as calls:
+                result = val_cli.main(val_cli.parse_args(argv))
+            launches = dict(c5.LAUNCHES)
+            call = calls.calls[0]
+            state, dataset, losses = call["args"]
+            forwards = (EVAL_VOLUMES if mode != "sw2" else
+                        EVAL_VOLUMES * -(-27 // 4))  # 3^3 windows, 4 a batch
+            expect = forward_counts(forwards)
+            check(launches == expect, "eval {}: launch counts {} != "
+                  "expected {}".format(mode, launches, expect))
+            check(all(np.isfinite(list(result.values()))),
+                  "eval {}: {}".format(mode, result))
+            check_dump(out, EVAL_VOLUMES)
+            kw = {k: call["kwargs"][k] for k in ("auc_roc", "sw_num")}
+            with plain_ops(), TrainLog("[EVAL]"):
+                plain = core_val.evaluate(state, dataset, losses,
+                                          save_dir=out + "_plain", **kw)
+            agree = float(np.mean([np.mean(
+                np.load(os.path.join(out, str(i), "pred.npy")) ==
+                np.load(os.path.join(out + "_plain", str(i), "pred.npy")))
+                for i in range(EVAL_VOLUMES)]))
+            check(agree >= 0.995, "eval {}: argmax agreement {} < 0.995 "
+                  "with the plain path".format(mode, agree))
+            check(abs(result["mdice"] - plain["mdice"]) <= EVAL_MDICE_TOL,
+                  "eval {}: mDice {} vs plain path {}".format(
+                      mode, result["mdice"], plain["mdice"]))
+            runs[mode] = {"result": result, "plain_result": plain,
+                          "argmax_agreement_vs_plain": agree,
+                          "ms_per_volume": call["s"] * 1e3 / EVAL_VOLUMES,
+                          "launches": {k: v for k, v in launches.items()
+                                       if v},
+                          "eval_line": log.lines[0] if log.lines else None}
+            if mode == "whole":
+                with TrainLog("[EVAL]"):
+                    profile = profile_call(lambda: core_val.evaluate(
+                        state, dataset, losses, print_detail=False))
+                runs[mode]["device_ms_per_volume"] = (
+                    profile["device_busy_ms"] / EVAL_VOLUMES)
+                runs[mode]["profile_idle_share"] = profile["idle_share"]
+                runs[mode]["profile_device_ms_by_op"] = profile[
+                    "device_ms_by_op"][:5]
+            del state, call, calls
+            torch.cuda.empty_cache()
+
+        # the train CLI with --do_eval, then resumed
+        out = os.path.join(wd, "train")
+        best_json = os.path.join(out, "best_model", "best.json")
+        argv = ["--config", yml, "--iters", "4", "--save_interval", "2",
+                "--log_iters", "2", "--batch_size", "2", "--save_dir", out,
+                "--seed", str(TRAIN_SEED), "--do_eval"]
+        with TrainLog("[EVAL]", "[TRAIN]") as log:
+            first = train_cli.main(train_cli.parse_args(argv))
+        check(first.step == 4 and os.path.exists(best_json),
+              "the train CLI with --do_eval left no best.json")
+        del first
+        with open(best_json) as f:
+            best = json.load(f)
+        evals = [ln for ln in log.lines if "#Images" in ln]
+        check(best["iter"] in (2, 4) and len(evals) == 2,
+              "best {} after evals {}".format(best, evals))
+        model = build_model(cfg["model"])
+        ckpt.load_checkpoint(os.path.join(out, "best_model"), model)
+        check(all(bool(torch.isfinite(v).all())
+                  for v in model.state_dict().values()),
+              "best_model holds non-finite values")
+        with TrainLog("Restored best-model tracker", "#Images") as log:
+            resumed = train_cli.main(train_cli.parse_args(
+                argv + ["--resume_model", os.path.join(out, "iter_2")]))
+        check(resumed.step == 4, "the resumed run ended at step {}".format(
+            resumed.step))
+        del resumed
+        with open(best_json) as f:
+            best_resumed = json.load(f)
+        check(any("Restored" in ln for ln in log.lines) and
+              best_resumed["mdice"] >= best["mdice"],
+              "the resumed run lost the tracker: {} -> {} ({})".format(
+                  best, best_resumed, log.lines))
+        torch.cuda.empty_cache()
+    emit({"phase": "eval", "config": os.path.relpath(LUNG_TPU, ROOT),
+          "volumes": EVAL_VOLUMES, "shape": [EDGE] * 3,
+          "runs": runs,
+          "mdice": {m: r["result"]["mdice"] for m, r in runs.items()},
+          "mdice_hard": {m: r["result"]["mdice_hard"]
+                         for m, r in runs.items()},
+          "auc_roc": runs["auc_int8"]["result"]["auc_roc"],
+          "ms_per_volume": {m: r["ms_per_volume"] for m, r in runs.items()},
+          "device_ms_per_volume": runs["whole"]["device_ms_per_volume"],
+          "train_do_eval": {"best": best, "best_after_resume": best_resumed,
+                            "evals": evals}})
 
 
 def phase_train_flagship():
@@ -1728,6 +1974,7 @@ def main():
     phase_augment()
     flagship = phase_train_flagship()
     cli = phase_train_cli()
+    phase_eval()
     for key in FLAGSHIP_KERNELS:
         check(flagship[key] > 0 and cli[key] > 0, key + " never launched "
               "on the flagship's path")

@@ -1,0 +1,198 @@
+# Copyright 2026. Apache License 2.0.
+"""Evaluation loop.
+
+Counterpart of ``medicalseg_tpu/core/val.py`` (the reference's
+medicalseg/core/val.py:29-187) on one device: a batch-size-1 pass over the
+val set; per volume an eval-mode forward on the model's device (whole
+volume, or the sliding window with ``sw_num``) with the logits resized
+back to the label's shape, the loss and per-channel dice of the config's
+first loss, and the argmax's per-class areas; optional AUC-ROC over the
+softmax probabilities; the first five volumes dumped as ``.npy`` and
+``.nii.gz`` with their dataset.json geometry; a progress bar; and the
+result ``{"mdice", "mdice_hard"[, "auc_roc"]}`` with the per-class dice
+logged.
+
+The forward, the loss and the areas run under ``torch.inference_mode()``
+on the card; each volume's numbers come back to the host once and are
+summed there in float64. The JAX function's ``mesh`` (volumes spread over
+the devices and hosts) is not ported: one process evaluates the whole set
+(multi-GPU is ROADMAP, modules to port, item 9).
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..utils import Progbar, TimeAverager, logger, metric, save_array
+from ..utils.loss_utils import loss_computation
+from . import infer
+from .loader import EvalLoader
+from .sliding_window import sliding_window_inference_batched
+
+DUMPED = 5  # volumes dumped to save_dir
+
+
+def _logits(model, ims, ori_shape, dataset, sw_num):
+    """(pred [1, D, H, W] int32, logit [1, D, H, W, C]) of one volume at
+    the label's shape ``ori_shape``."""
+    if not sw_num:
+        return infer.inference(model, ims, ori_shape=ori_shape,
+                               transforms=dataset.transforms.transforms)
+    roi = tuple(max(1, s // int(sw_num)) for s in ims.shape[1:4])
+    logit = sliding_window_inference_batched(
+        model, ims, roi, num_classes=dataset.num_classes)
+    if tuple(ori_shape) != tuple(logit.shape[1:4]):
+        logit = infer.reverse_transform(logit, ori_shape,
+                                        dataset.transforms.transforms)
+    return torch.argmax(logit, dim=-1).to(torch.int32), logit
+
+
+def _image_infor(dataset, dataset_json, idx):
+    """The geometry of volume ``idx`` from dataset.json's ``training``
+    entry of its file name, unit spacing, zero origin and the identity
+    where dataset.json or the entry is missing."""
+    infor = {"spacing": (1, 1, 1), "origin": (0, 0, 0),
+             "direction": tuple(np.eye(3).reshape(-1))}
+    if dataset_json is None:
+        return infor
+    name = dataset.file_list[idx][0].split("/")[-1].split(".")[0]
+    image_json = dataset_json.get("training", {}).get(name, {})
+    return {"spacing": image_json.get("spacing_resample", (1, 1, 1)),
+            "direction": image_json.get("direction",
+                                        tuple(np.eye(3).reshape(-1))),
+            "origin": image_json.get("origin", (0, 0, 0))}
+
+
+def evaluate(state,
+             eval_dataset,
+             losses,
+             num_workers=0,
+             print_detail=True,
+             auc_roc=False,
+             writer=None,
+             save_dir=None,
+             sw_num=None):
+    """Evaluate ``state.model`` (a :class:`~.state.TrainState`, or
+    anything with ``model`` and ``step``) on ``eval_dataset`` with the
+    first loss of ``losses``. ``num_workers`` is accepted as the JAX
+    function's and unused (the loader reads in turn). The model's train
+    mode is restored on return.
+
+    Returns {"mdice": float, "mdice_hard": float[, "auc_roc": float]}.
+    """
+    new_loss = {"types": [losses["types"][0]], "coef": [losses["coef"][0]]}
+    model = state.model
+    device = next(model.parameters()).device
+    num_classes = eval_dataset.num_classes
+    loader = EvalLoader(eval_dataset)
+    total_iters = len(loader)
+
+    dataset_json = None
+    if getattr(eval_dataset, "dataset_json_path", "") and os.path.exists(
+            eval_dataset.dataset_json_path):
+        with open(eval_dataset.dataset_json_path, "r",
+                  encoding="utf-8") as f:
+            dataset_json = json.load(f)
+
+    if print_detail:
+        logger.info("Start evaluating (total_samples: {}, total_iters: "
+                    "{})...".format(len(eval_dataset), total_iters))
+    progbar_val = Progbar(target=total_iters, verbose=1)
+    reader_cost_averager = TimeAverager()
+    batch_cost_averager = TimeAverager()
+
+    mdice_sum = 0.0
+    loss_sum = 0.0
+    channel_sum = None
+    area_sum = np.zeros((3, num_classes), np.float64)
+    probs_all, label_all = [], []
+
+    was_training = model.training
+    model.eval()
+    batch_start = time.time()
+    try:
+        for i, (im, label, idx) in enumerate(loader):
+            reader_cost_averager.record(time.time() - batch_start)
+            with torch.inference_mode():
+                ims = torch.from_numpy(im).to(device)
+                labels = torch.from_numpy(label).to(device).long()
+                pred, logit = _logits(model, ims, labels.shape[1:],
+                                      eval_dataset, sw_num)
+                loss_list, pcd = loss_computation([logit], labels, new_loss)
+                areas = torch.stack(metric.calculate_area(
+                    pred[0], labels[0], num_classes,
+                    eval_dataset.ignore_index))
+                numbers = torch.cat([
+                    sum(loss_list).reshape(1).double(), pcd.double(),
+                    areas.reshape(-1).double()]).cpu().numpy()
+                if auc_roc:
+                    probs = torch.softmax(logit.float(), dim=-1)
+                    probs_all.append(np.moveaxis(probs.cpu().numpy(), -1,
+                                                 1))  # N, C, D, H, W
+                    label_all.append(label)
+            per_channel_dice = numbers[1:1 + num_classes]
+            loss_sum += float(numbers[0])
+            mdice_sum += float(np.mean(per_channel_dice))
+            area_sum += numbers[1 + num_classes:].reshape(3, num_classes)
+            channel_sum = (per_channel_dice.copy() if channel_sum is None
+                           else channel_sum + per_channel_dice)
+
+            if i < DUMPED and save_dir is not None:
+                save_array(
+                    save_path=os.path.join(save_dir, str(i)),
+                    save_content={"pred": pred[0].cpu().numpy(),
+                                  "label": label[0],
+                                  "img": im[0, ..., 0]},
+                    form=("npy", "nii.gz"),
+                    image_infor=_image_infor(eval_dataset, dataset_json,
+                                             idx))
+
+            batch_cost_averager.record(time.time() - batch_start,
+                                       num_samples=1)
+            if print_detail:
+                progbar_val.update(i + 1, [
+                    ("batch_cost", batch_cost_averager.get_average()),
+                    ("reader cost", reader_cost_averager.get_average())])
+            reader_cost_averager.reset()
+            batch_cost_averager.reset()
+            batch_start = time.time()
+    finally:
+        model.train(was_training)
+
+    count = max(float(total_iters), 1.0)
+    if channel_sum is None:
+        channel_sum = np.zeros((1,), np.float64)
+    mdice = mdice_sum / count
+    channel_dice_array = channel_sum / count
+    loss_all = loss_sum / count
+    # dataset-level hard dice: 2 * sum(I) / (sum(P) + sum(L)) per class
+    # over every evaluated voxel (zero-union classes score 0)
+    hard_class_dice, mdice_hard = metric.dice(
+        area_sum[0], area_sum[1], area_sum[2])
+
+    result_dict = {"mdice": mdice, "mdice_hard": mdice_hard}
+    auc_infor = ""
+    if auc_roc:
+        auc_value = metric.auc_roc(np.concatenate(probs_all),
+                                   np.concatenate(label_all)[:, None],
+                                   num_classes=num_classes)
+        auc_infor = " Auc_roc: {:.4f}".format(auc_value)
+        result_dict["auc_roc"] = auc_value
+
+    if print_detail:
+        logger.info(("[EVAL] #Images: {}, Dice: {:.4f}, Dice(argmax): "
+                     "{:.4f}, Loss: {:6f}").format(
+                         len(eval_dataset), mdice, mdice_hard, loss_all) +
+                    auc_infor)
+        logger.info("[EVAL] Class dice: \n" + str(
+            np.round(channel_dice_array, 4)))
+        logger.info("[EVAL] Class dice (argmax): \n" + str(
+            np.round(hard_class_dice, 4)))
+
+    if writer is not None:
+        writer.add_scalar("Evaluate/Dice", mdice, int(state.step))
+        writer.add_scalar("Evaluate/Dice_hard", mdice_hard, int(state.step))
+    return result_dict

@@ -6,12 +6,16 @@ when ``weight`` is None, inverse-frequency weights are derived from the
 softmax statistics at every call (``loss_utils.class_weights``); the loss
 is the weight-normalized mean of the per-voxel NLL, with ``ignore_index``
 voxels masked out.
+
+The default (fused) form gathers each voxel's log-probability at its
+label; ``MEDSEG_LOSS_FUSED=0`` sums per-class masks in a loop over the
+classes (``loss_utils.fused_masks``). Both give the JAX package's numbers.
 """
 
 import torch
 
 from ...cvlibs import manager
-from .loss_utils import class_weights
+from .loss_utils import class_weights, fused_masks
 
 
 @manager.LOSSES.add_component
@@ -32,8 +36,9 @@ class CrossEntropyLoss:
 
     def __call__(self, logits, labels):
         labels = labels.long()
-        if logits.dim() == 4:
+        if logits.dim() == 4:  # unbatched
             logits = logits[None]
+            labels = labels.reshape(logits.shape[:-1])
         num_classes = logits.shape[-1]
         weight = self.weight
         if weight is None:
@@ -44,16 +49,25 @@ class CrossEntropyLoss:
                 "of classes = {}.".format(weight.shape[0], num_classes))
         weight = weight.to(logits.device, torch.float32)
         log_probs = torch.log_softmax(logits.float(), dim=-1)
-        # per-class masked sums: no one-hot tensor, no gather. A label
-        # equal to ignore_index matches no class, so nll and w stay zero.
-        valid = (labels != self.ignore_index).float()
-        nll = torch.zeros(labels.shape, dtype=torch.float32,
-                          device=logits.device)
-        w = torch.zeros_like(nll)
-        for c in range(num_classes):
-            m = (labels == c).float()
-            nll = nll - log_probs[..., c] * m
-            w = w + weight[c] * m
-        w = w * valid
+        valid = labels != self.ignore_index
+        if fused_masks():
+            # the label's log-probability by one gather; a label equal to
+            # ignore_index or outside [0, C) matches no class, so its
+            # weight is zero
+            hit = valid & (labels >= 0) & (labels < num_classes)
+            idx = labels.clamp(0, num_classes - 1)
+            nll = -log_probs.gather(-1, idx[..., None])[..., 0]
+            w = weight[idx] * hit
+        else:
+            # per-class masked sums. A label equal to ignore_index matches
+            # no class, so nll and w stay zero.
+            nll = torch.zeros(labels.shape, dtype=torch.float32,
+                              device=logits.device)
+            w = torch.zeros_like(nll)
+            for c in range(num_classes):
+                m = (labels == c).float()
+                nll = nll - log_probs[..., c] * m
+                w = w + weight[c] * m
+            w = w * valid
         # weighted-mean semantics: sum(w * nll) / sum(w)
         return (nll * w).sum() / torch.clamp(w.sum(), min=self.EPS)

@@ -3,7 +3,17 @@
 ``medicalseg_tpu/models/losses/loss_utils.py``; logits are channels-last
 (N, ..., C), as the model returns them."""
 
+import os
+
 import torch
+
+
+def fused_masks():
+    """True (the default) -> CrossEntropyLoss and DiceLoss build their
+    per-class masks for all classes at once (the JAX package's default
+    form, read from the same variable); ``MEDSEG_LOSS_FUSED=0`` selects
+    the per-class loop. Both compute the same sums. Read at every call."""
+    return os.environ.get("MEDSEG_LOSS_FUSED", "1") == "1"
 
 
 def flatten(tensor):

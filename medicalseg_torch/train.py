@@ -5,9 +5,11 @@
 The argparse surface of the root ``train.py`` (the reference's
 train.py:26-189) plus ``--device`` (``cuda`` unless asked for ``cpu``),
 driving Config -> datasets, model, optimizer, losses -> ``core.train``.
-``--space`` sizes the TPU mesh and is rejected unless it keeps its
-default; what ``core.train`` has not ported yet (``--do_eval``,
-``--use_vdl``, ``--profiler_options``, ``--steps_per_dispatch`` above 1,
+``--do_eval`` evaluates the config's val set at every save point and keeps
+the best model under ``<save_dir>/best_model``; ``--use_vdl`` writes
+tensorboardX events to ``--save_dir``. ``--space`` sizes the TPU mesh and
+is rejected unless it keeps its default; what ``core.train`` has not
+ported yet (``--profiler_options``, ``--steps_per_dispatch`` above 1,
 ``--loader_mode device_cache``) raises there, naming its ROADMAP item.
 
 Example, the flagship recipe (its dataset made by
@@ -16,6 +18,13 @@ Example, the flagship recipe (its dataset made by
     python -m medicalseg_torch.train \\
         --config configs/synthetic/vnetdeepsup_synspine_15k.yml \\
         --iters 100 --save_interval 50 --log_iters 10 --seed 0
+
+and the convergence recipe with evaluation (its dataset made by
+``tools/generate_synthetic_dataset.py --style lesions``, see the YAML)::
+
+    python -m medicalseg_torch.train \\
+        --config configs/synthetic/vnet_synthetic_conv_1p5k.yml \\
+        --do_eval --save_interval 300 --seed 0
 """
 
 import argparse

@@ -1,15 +1,17 @@
 # Copyright 2026. Apache License 2.0.
-from . import logger, loss_utils, quant, transplant
-from .checkpoint import (load_checkpoint, load_pretrained_model, resume,
-                         save_checkpoint)
+from . import logger, loss_utils, metric, quant, transplant
+from .checkpoint import (load_checkpoint, load_entire_model,
+                         load_pretrained_model, resume, save_checkpoint)
 from .config_check import config_check
+from .progbar import Progbar
 from .timer import TimeAverager, calculate_eta
 from .transplant import flax_from_state_dict, state_dict_from_flax
-from .utils import (get_image_list, get_sys_env, resolve_device, seed_all,
-                    strtobool)
+from .utils import (get_image_list, get_sys_env, resolve_device, save_array,
+                    seed_all, strtobool)
 
-__all__ = ["logger", "loss_utils", "quant", "transplant", "state_dict_from_flax",
-           "flax_from_state_dict", "get_image_list", "resolve_device",
-           "strtobool", "seed_all", "get_sys_env", "TimeAverager",
-           "calculate_eta", "config_check", "save_checkpoint",
-           "load_checkpoint", "load_pretrained_model", "resume"]
+__all__ = ["logger", "loss_utils", "metric", "quant", "transplant",
+           "state_dict_from_flax", "flax_from_state_dict", "get_image_list",
+           "resolve_device", "strtobool", "seed_all", "get_sys_env",
+           "save_array", "Progbar", "TimeAverager", "calculate_eta",
+           "config_check", "save_checkpoint", "load_checkpoint",
+           "load_pretrained_model", "load_entire_model", "resume"]

@@ -126,8 +126,9 @@ def load_checkpoint(path, model, optimizer=None):
 
 
 def load_pretrained_model(model, pretrained_model):
-    """Per-key, shape-checked weight loading from a ``model.msgpack`` (or
-    the directory holding it): entries that are missing or shaped
+    """Per-key, shape-checked weight loading from a ``model.msgpack`` of
+    either package (or the directory holding it), or from a ``.pt``
+    ``state_dict`` of the port: entries that are missing or shaped
     otherwise are skipped with a warning. Returns the number of entries
     loaded."""
     if pretrained_model is None:
@@ -137,7 +138,11 @@ def load_pretrained_model(model, pretrained_model):
     if not os.path.exists(pretrained_model):
         raise ValueError("The pretrained model directory is not found: {}".
                          format(pretrained_model))
-    loaded = transplant.state_dict_from_flax(_read(pretrained_model))
+    if pretrained_model.endswith(".pt"):
+        loaded = torch.load(pretrained_model, map_location="cpu",
+                            weights_only=True)
+    else:
+        loaded = transplant.state_dict_from_flax(_read(pretrained_model))
     own = model.state_dict()
     take = {}
     for key, value in own.items():
@@ -154,6 +159,19 @@ def load_pretrained_model(model, pretrained_model):
     logger.info("There are {}/{} variables loaded into the model.".format(
         len(take), len(own)))
     return len(take)
+
+
+def load_entire_model(model, pretrained):
+    """The weights of a trained model for evaluation (the reference's
+    utils.py:40-47): loads what matches, as :func:`load_pretrained_model`,
+    warning of what does not. Returns ``model``."""
+    if pretrained is not None:
+        load_pretrained_model(model, pretrained)
+    else:
+        logger.warning("Not all pretrained params of {} are loaded, training "
+                       "from scratch or a pretrained backbone.".format(
+                           type(model).__name__))
+    return model
 
 
 def resume(model, optimizer, resume_model):

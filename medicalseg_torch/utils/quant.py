@@ -90,3 +90,30 @@ def dequantize_state_dict(qstate, transposed=(), dtype=None):
                   name[:-len(SCALE_SUFFIX)] + QUANT_SUFFIX in qstate):
             out[name] = t
     return out
+
+
+def round_trip_parameters(model, precision):
+    """Round ``model``'s parameters (not its BatchNorm statistics) through
+    a serving precision, in place, to measure what it costs on a val set:
+    ``int8`` quantizes the heavy tensors and dequantizes them again
+    (:func:`quantize_state_dict`, :func:`dequantize_state_dict`), ``bf16``
+    rounds every floating-point parameter through bfloat16, ``fp32``
+    leaves them. The JAX package's val CLI does the same to its params
+    tree. Returns ``model``."""
+    if precision not in ("fp32", "bf16", "int8"):
+        raise ValueError("precision must be fp32, bf16 or int8, got "
+                         "{!r}".format(precision))
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        if precision == "int8":
+            transposed = transposed_conv_weights(model)
+            back = dequantize_state_dict(quantize_state_dict(
+                {n: p.detach() for n, p in params.items()}, transposed),
+                transposed)
+            for name, p in params.items():
+                p.copy_(back[name])
+        elif precision == "bf16":
+            for p in params.values():
+                if p.is_floating_point():
+                    p.copy_(p.to(torch.bfloat16))
+    return model

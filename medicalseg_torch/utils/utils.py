@@ -1,5 +1,5 @@
 # Copyright 2026. Apache License 2.0.
-"""File discovery, CLI, seeding and environment helpers after
+"""File discovery, CLI, seeding, environment and array-dump helpers after
 ``medicalseg_tpu/utils/utils.py`` and ``env.py`` (the port imports nothing
 of the JAX package)."""
 
@@ -10,6 +10,9 @@ import sys
 
 import numpy as np
 import torch
+
+from .. import io as medio
+from . import logger
 
 MEDICAL_SUFFIXES = ("nii.gz", "nii", "dcm", "mhd", "mha", "raw", "npy",
                     "nrrd")
@@ -94,3 +97,45 @@ def get_sys_env():
         env["GPU"] = torch.cuda.get_device_name(0)
         env["cuDNN"] = torch.backends.cudnn.version()
     return env
+
+
+def save_array(save_path, save_content, form, image_infor):
+    """Save a dict of arrays as .npy and/or .nii.gz with their geometry:
+    the eval dump of the first volumes (reference utils.py:205-256).
+
+    ``save_content`` maps name -> array (z, y, x), ``form`` is an iterable
+    subset of {"npy", "nii.gz", "nii"}, ``image_infor`` holds the
+    ``spacing_resample`` (or ``spacing``), ``origin`` and
+    ``direction_resample`` (or ``direction``) of dataset.json, x, y, z
+    order; what is missing falls back to unit spacing, zero origin and the
+    identity. Returns ``save_path``.
+    """
+    if not isinstance(save_content, dict):
+        raise TypeError("save_content should be dict, got {}".format(
+            type(save_content)))
+    os.makedirs(save_path, exist_ok=True)
+    for name, content in save_content.items():
+        content = np.squeeze(np.asarray(content))
+        if "npy" in form:
+            np.save(os.path.join(save_path, name + ".npy"), content)
+        if "nii.gz" in form or "nii" in form:
+            suffix = "nii.gz" if "nii.gz" in form else "nii"
+            spacing = image_infor.get(
+                "spacing_resample", image_infor.get("spacing", (1, 1, 1)))
+            direction = image_infor.get(
+                "direction_resample",
+                image_infor.get("direction", (1, 0, 0, 0, 1, 0, 0, 0, 1)))
+            origin = image_infor.get("origin", (0, 0, 0))
+            direction = np.asarray(direction, dtype=np.float64).reshape(-1)
+            if direction.size != 9:
+                direction = np.eye(3).reshape(-1)
+            medio.write_image(
+                os.path.join(save_path, "{}.{}".format(name, suffix)),
+                content.astype(np.float32)
+                if content.dtype == np.float64 else content,
+                spacing=tuple(np.asarray(spacing, dtype=np.float64)[:3]),
+                origin=tuple(np.asarray(origin, dtype=np.float64)[:3]),
+                direction=tuple(direction))
+    logger.info("Saved arrays {} to {}".format(
+        list(save_content.keys()), save_path))
+    return save_path

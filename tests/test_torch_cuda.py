@@ -877,3 +877,98 @@ def test_predictor_serves_a_raw_scan_on_the_card(dev, tmp_path):
     assert q._qstate["in_tr.conv1.weight.__quant__"].dtype == torch.int8
     agree = (np.load(q.run([scan])[0]) == np.load(pred.run([scan])[0])).mean()
     assert agree >= 0.9
+
+
+def _val_set(root, classes, edge, n, seed):
+    """``n`` seeded volumes of ``edge``^3 and labels in [0, classes) as a
+    val MedicalDataset."""
+    from medicalseg_torch.datasets import MedicalDataset
+    rng = np.random.RandomState(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    lines = []
+    for i in range(n):
+        np.save(root / "images" / "v{}.npy".format(i),
+                rng.rand(edge, edge, edge).astype(np.float32))
+        np.save(root / "labels" / "v{}.npy".format(i),
+                rng.randint(0, classes, (edge,) * 3).astype(np.uint8))
+        lines.append("images/v{0}.npy labels/v{0}.npy\n".format(i))
+    (root / "val_list.txt").write_text("".join(lines))
+    return MedicalDataset(str(root), str(root), [], classes, mode="val")
+
+
+def test_evaluate_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``core.val.evaluate`` of an f32 V-Net (non-trivial BN statistics) on
+    two 32^3 volumes: on the card, through the fused-epilogue forward and
+    the pins, against the port's CPU evaluate (the plain versions). The
+    logits agree to 2e-4, so the soft numbers to 1e-4 and the argmax ones
+    to 1e-3 (a few of 65536 voxels may flip at near ties); the dumped
+    predictions agree on >= 99.5% of voxels."""
+    import copy
+
+    from medicalseg_torch.core.val import evaluate
+    ds = _val_set(tmp_path / "data", 3, 32, 2, seed=8)
+    gen = torch.Generator().manual_seed(5)
+    model = VNet(num_classes=3, generator=gen)
+    for name, buf in model.named_buffers():
+        if name.endswith("running_mean"):
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+        else:
+            buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+    losses = {"types": [MixedLoss([CrossEntropyLoss(), DiceLoss()], [1, 1])],
+              "coef": [1]}
+    cpu = TrainState(copy.deepcopy(model), None, None, None)
+    card = TrainState(model.to(dev), None, None, None)
+    c5.reset_launches()
+    got = evaluate(card, ds, losses, auc_roc=True,
+                   save_dir=str(tmp_path / "card"))
+    launches = dict(c5.LAUNCHES)
+    want = evaluate(cpu, ds, losses, auc_roc=True,
+                    save_dir=str(tmp_path / "cpu"))
+    assert launches["conv5_fused_epilogue"] == 2 * 16
+    assert launches["pin"] == 2 * 8
+    for key, tol in (("mdice", 1e-4), ("auc_roc", 1e-4),
+                     ("mdice_hard", 1e-3)):
+        assert abs(got[key] - want[key]) <= tol, key
+    for i in range(2):
+        a = np.load(tmp_path / "card" / str(i) / "pred.npy")
+        b = np.load(tmp_path / "cpu" / str(i) / "pred.npy")
+        assert a.shape == (32, 32, 32) and (a == b).mean() >= 0.995
+
+
+@pytest.mark.parametrize("name", ["ce", "dice-sigmoid", "dice-softmax",
+                                  "mixed"])
+def test_fused_losses_on_the_card_match_the_loop_form(dev, monkeypatch,
+                                                      name):
+    """At the flagship's 20 classes, with ignored voxels and labels outside
+    [0, 20): the default (fused) form's value and logits gradient against
+    the loop form's, on the card (rtol 1e-5; the fused sums add by
+    atomics, in no fixed order)."""
+    from medicalseg_torch.utils.loss_utils import loss_computation
+    rng = np.random.RandomState(11)
+    shape = (2, 8, 64, 64)
+    logits = torch.from_numpy(
+        (2 * rng.randn(*shape, 20)).astype(np.float32)).to(dev)
+    labels = rng.randint(0, 20, shape)
+    labels[rng.rand(*shape) < 0.1] = 255
+    labels[rng.rand(*shape) < 0.02] = 23
+    labels = torch.from_numpy(labels).to(dev)
+    fn = {"ce": CrossEntropyLoss(),
+          "dice-sigmoid": lambda l, y: DiceLoss()(l, y)[0],
+          "dice-softmax": lambda l, y: DiceLoss(sigmoid_norm=False)(l, y)[0],
+          "mixed": lambda l, y: sum(loss_computation([l], y, {
+              "types": [MixedLoss([CrossEntropyLoss(), DiceLoss()], [1, 1])],
+              "coef": [1]})[0])}[name]
+
+    def run(fused):
+        monkeypatch.setenv("MEDSEG_LOSS_FUSED", fused)
+        t = logits.clone().requires_grad_(True)
+        value = fn(t, labels)
+        value.backward()
+        return value.item(), t.grad
+
+    (fused, fused_grad), (loop, loop_grad) = run("1"), run("0")
+    assert fused == pytest.approx(loop, rel=1e-5)
+    scale = loop_grad.abs().max().item()
+    torch.testing.assert_close(fused_grad, loop_grad, rtol=1e-5,
+                               atol=1e-6 * scale)

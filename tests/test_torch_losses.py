@@ -4,8 +4,9 @@ seed go through both, values and gradients with respect to the logits are
 compared in float32 at rtol 1e-5 (sums over a few thousand voxels; atol
 1e-6 for entries near zero, 1e-7 relative to the largest gradient entry).
 
-The JAX classes run in their loop form (``MEDSEG_LOSS_FUSED=0``), the one
-the port implements; inputs are batched.
+Both packages run in their loop form (``MEDSEG_LOSS_FUSED=0``, which both
+read); inputs are batched. tests/test_torch_eval.py holds the default
+(fused) form to the JAX fused form.
 """
 import numpy as np
 import pytest

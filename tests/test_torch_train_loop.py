@@ -280,7 +280,7 @@ def test_train_saves_evicts_and_resumes_exactly(tmp_path, spine_data,
 
 def test_train_rejects_what_is_not_ported(tmp_path, spine_data):
     cfg = tconfig.Config(_spine_yaml(tmp_path, spine_data))
-    for kw, item in (({"val_dataset": cfg.val_dataset}, "item 6"),
+    for kw, item in (({"data_loader_mode": "device_cache"}, "item 4"),
                      ({"profiler_options": "batch_range=[1,2]"}, "item 4"),
                      ({"steps_per_dispatch": 2}, "item 4")):
         with pytest.raises(NotImplementedError, match=item):

@@ -14,7 +14,8 @@ summed in another order); the loss of one train step at rtol 2e-4 and its
 gradients at atol 5e-4 / rtol 5e-3 at every leaf, as
 tests/test_torch_train.py holds the VNet step; the upsample at 1e-6 (one
 2-tap matrix per axis). The JAX losses run in their loop form
-(``MEDSEG_LOSS_FUSED=0``), the one the port implements. The two packages
+(``MEDSEG_LOSS_FUSED=0``), and in their fused form against the flagship
+YAML's losses built by the port's ``Config``. The two packages
 draw dropout masks from different generators, so the train step feeds
 both the same masks, drawn with numpy.
 """
@@ -146,10 +147,10 @@ def _losses(module):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step():
+def _jax_step(fused="0"):
     """One JAX train step's loss, gradients and BN statistics on a seeded
     batch, with the dropout masks it was fed: (labels, masks, loss,
-    batch_stats, grads)."""
+    batch_stats, grads). ``fused`` is the losses' ``MEDSEG_LOSS_FUSED``."""
     model, x, variables = _jax_model()
     rng = np.random.RandomState(5)
     labels = rng.randint(0, N_CLASSES, SHAPE[:4]).astype(np.int32)
@@ -165,7 +166,7 @@ def _jax_step():
         return sum(loss_list), upd["batch_stats"]
 
     with pytest.MonkeyPatch.context() as m:
-        m.setenv("MEDSEG_LOSS_FUSED", "0")
+        m.setenv("MEDSEG_LOSS_FUSED", fused)
         m.setattr(flax_stochastic, "random", _FixedMasks(masks))
         (loss, stats), grads = jax.jit(jax.value_and_grad(
             loss_fn, has_aux=True))(variables["params"])
@@ -173,19 +174,18 @@ def _jax_step():
         jax.device_get(grads)
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
-def test_train_step_loss_and_gradients_match_jax(monkeypatch, remat):
-    """One train step (batch statistics, dropout, the 4-way MixedLoss of
-    the flagship config): the summed loss, every parameter's gradient, and
-    the BN statistics it leaves."""
+def _assert_step_matches_jax(monkeypatch, losses, remat=False, fused="0"):
+    """One port train step with ``losses`` against :func:`_jax_step`: the
+    summed loss, every parameter's gradient, and the BN statistics it
+    leaves."""
     _, x, variables = _jax_model()
-    labels, masks, jloss, jstats, jgrads = _jax_step()
+    labels, masks, jloss, jstats, jgrads = _jax_step(fused)
     port = _port_model(variables, remat=remat).train()
     monkeypatch.setattr(tl.ChannelDropout, "forward",
                         _port_dropout_from(masks))
     outs = port(torch.from_numpy(x))
     loss_list, _ = tlu.loss_computation(
-        outs, torch.from_numpy(labels).long(), _losses(tlosses))
+        outs, torch.from_numpy(labels).long(), losses)
     loss = sum(loss_list)
     loss.backward()
     np.testing.assert_allclose(loss.item(), jloss, rtol=2e-4)
@@ -204,6 +204,23 @@ def test_train_step_loss_and_gradients_match_jax(monkeypatch, remat):
     for a, b in zip(jax.tree_util.tree_leaves(moved),
                     jax.tree_util.tree_leaves(jstats)):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_train_step_loss_and_gradients_match_jax(monkeypatch, remat):
+    """One train step (batch statistics, dropout, the 4-way MixedLoss of
+    the flagship config): the summed loss, every parameter's gradient, and
+    the BN statistics it leaves."""
+    _assert_step_matches_jax(monkeypatch, _losses(tlosses), remat=remat)
+
+
+def test_train_step_with_the_flagship_config_losses_in_the_fused_form(
+        monkeypatch):
+    """The same step with the flagship YAML's four MixedLoss heads built
+    by the port's ``Config``, in the losses' default (fused) form, against
+    the JAX step in its fused form."""
+    monkeypatch.setenv("MEDSEG_LOSS_FUSED", "1")
+    _assert_step_matches_jax(monkeypatch, Config(FLAGSHIP).loss, fused="1")
 
 
 def test_transplant_round_trips_with_the_heads():
