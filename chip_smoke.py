@@ -145,17 +145,53 @@ JSON line; any failure raises and the script exits non-zero:
    except at .5 ties of the CPU value before rounding), the batch under
    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), ms per
    batch (CUDA events, median of 5, the host's draws included).
-11. train_cli: the port's train CLI (``medicalseg_torch.train.main``) on a
+11. train_graph: the cube (lung ``_tpu`` config, batch 2 at 128^3) and
+   the flagship (spine config, batch 3 at 12 x 512 x 512), each with its
+   recipe's device augmentation, over four seeded raw volumes held on the
+   card in the bf16 / uint8 wire dtypes (as ``TrainLoader.
+   build_device_cache`` holds them) and one seeded stream of index
+   vectors: six (cube) or four (flagship) steps through the eager
+   ``make_train_step`` (the loop's rule: the generator re-seeded from
+   (seed, step), the batch gathered from the cache; its first step under
+   ``set_sync_debug_mode("error")``), then the same steps through
+   ``make_cached_train_step`` from the same start (its first call the
+   eager warm-up and the capture of one CUDA graph, then replays). The
+   counts are set to 0 before each run; a replay does not tick them, so
+   the kernels the graphed run launched are the counts, less the
+   capture's, plus the replays times the graph's launches a replay, which
+   must equal the eager step's launches. Fatal checks: each step's loss,
+   every parameter and BatchNorm statistic after the run, and the eval
+   logits of a probe volume after every step (an evaluation between
+   steps, as ``--do_eval`` makes one, which reads the conv kernels'
+   packed-weight cache) equal the eager run's (``GRAPH_LOSS_REL``,
+   ``GRAPH_PARAM_REL``: every kernel of the step is deterministic); the
+   probe's logits change across replays; the dropout masks change at
+   every replay, equal the eager step's at each (seed, step), and a replay
+   re-seeded as the last step was draws its mask again. Then the same
+   steps two a dispatch (``make_cached_train_step(losses, 2)``, [2, B]
+   index rows) from the same start: the eager run's losses and parameters
+   again. Prints, eager
+   against graphed: ms per step on the host clock (median after the
+   first), device ms and idle share of one profiled step, the replay's
+   device time alone (CUDA events), peak memory, the launches a replay,
+   beside the card's name and power limit.
+12. train_cli: the port's train CLI (``medicalseg_torch.train.main``) on a
    copy of the flagship YAML pointed at four seeded 12 x 512 x 512 volumes
    written under ``build/``: six iterations (``--save_interval 3
-   --log_iters 3``), then a run resumed from ``iter_3`` to 6. The counts
-   are set to 0 before the first run and read after the second: every
-   flagship kernel, exactly as nine steps imply. Both checkpoints load
-   (steps 3 and 6, finite), every logged loss is finite. Prints each log
-   window's loss, batch cost (ms per iteration) and reader cost, and one
-   profiled iteration of the loop (batch from the prefetcher, draws,
-   step): device time and idle share.
-12. eval: the cube config (VNet, bf16) pointed at three seeded 128^3
+   --log_iters 3 --loader_mode device``), then a run resumed from
+   ``iter_3`` to 6. The counts are set to 0 before the first run and read
+   after the second: every flagship kernel, exactly as nine steps imply.
+   Both checkpoints load (steps 3 and 6, finite), every logged loss is
+   finite. Prints each log window's loss, batch cost (ms per iteration)
+   and reader cost, and one profiled iteration of the loop (batch from
+   the prefetcher, draws, step): device time and idle share. Then the
+   same with the dataset held on the card, three steps a dispatch and a
+   trace (``--loader_mode device_cache --steps_per_dispatch 3
+   --profiler_options "batch_range=[2,4];..."``) and its resume from
+   ``iter_3``: the launches as nine steps imply (counted as in
+   train_graph), five and two replays, finite losses, loadable
+   checkpoints, the trace file written.
+13. eval: the cube config (VNet, bf16) pointed at three seeded 128^3
    volumes (labels in [0, 3)) with a dataset.json under ``build/``, seeded
    weights saved as ``model.msgpack``, through the val CLI
    (``medicalseg_torch.val.main``) in this process: whole volumes, with
@@ -199,6 +235,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from medicalseg_torch.core.state import (TrainState,  # noqa: E402
+                                         make_cached_train_step,
                                          make_train_step)
 from medicalseg_torch.cvlibs.config import Config, build_model  # noqa: E402
 from medicalseg_torch import io as medio  # noqa: E402
@@ -217,6 +254,9 @@ from medicalseg_torch.cvlibs import manager  # noqa: E402
 from medicalseg_torch.transforms import (DeviceAugmentor,  # noqa: E402
                                          RandomResizedCrop3D, RandomFlip3D)
 from medicalseg_torch.utils import checkpoint as ckpt  # noqa: E402
+from medicalseg_torch.utils import train_profiler  # noqa: E402
+from medicalseg_torch.models.layers import ChannelDropout  # noqa: E402
+from medicalseg_torch.transforms.device import step_seed  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -282,6 +322,14 @@ TRAIN_SEED = 0
 GRAD_REL_L2 = 0.35
 GRAD_REL_L2_F32 = 2e-2
 LOSS_REL = 1e-2
+# graphed step against the eager step from one state: each step's loss,
+# and each parameter and BatchNorm statistic after the run (and the logits
+# of a probe), relative. Every kernel of the step is deterministic (the
+# hand kernels sum their splits in a fixed order; the cuDNN up/down convs
+# and the PyTorch ops picked deterministic algorithms), and both forms ran
+# bit for bit alike on an H100: 0.
+GRAPH_LOSS_REL = 0.0
+GRAPH_PARAM_REL = 0.0
 AUG_TOL = 1e-5  # augmented image, card against CPU, same parameters
 # the flagship's kernels, each launched by every step of its path
 FLAGSHIP_KERNELS = ("conv5_head", "conv5_stem_tc", "pin", "conv5_dgrad",
@@ -447,14 +495,19 @@ def stem_columns(x, w, b, ep):
 
 
 # ----------------------------------------------------------------------
+def smi_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    smi = smi_line()
     print(smi, flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1522,7 +1575,7 @@ def phase_train_cli():
         out = os.path.join(wd, "out")
         argv = ["--config", yml, "--iters", "6", "--save_interval", "3",
                 "--log_iters", "3", "--save_dir", out, "--seed",
-                str(TRAIN_SEED)]
+                str(TRAIN_SEED), "--loader_mode", "device"]
 
         reset_counts()
         with TrainLog() as log, IterationProfile(at=2) as prof:
@@ -1564,6 +1617,7 @@ def phase_train_cli():
             check(step == it and all(bool(torch.isfinite(v).all()) for v in
                                      model.state_dict().values()),
                   "iter_{} did not load (step {})".format(it, step))
+        cached = cli_cached(wd, yml)
     windows = [{k: TrainLog.field(ln, k) for k in ("loss", "batch_cost",
                                                     "reader_cost", "ips")}
                for ln in first_lines + resumed_lines]
@@ -1577,8 +1631,104 @@ def phase_train_cli():
           "run_s": first_s, "resumed_run_s": resumed_s,
           "profiled_iteration": 2,
           "iteration_profile": prof.stats,
-          "launches_per_step": {k: v / 9 for k, v in launches.items()}})
+          "launches_per_step": {k: v / 9 for k, v in launches.items()},
+          "cached": cached})
     return launches
+
+
+class CachedSteps:
+    """Keeps each cached train step that ``core.train`` builds, so that its
+    graph's replays and launches a replay can be read after the run."""
+
+    def __init__(self):
+        self.steps = []
+        self._real = _core_train_module().make_cached_train_step
+
+    def __enter__(self):
+        def make(*args, **kwargs):
+            step = self._real(*args, **kwargs)
+            self.steps.append(step)
+            return step
+
+        _core_train_module().make_cached_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        _core_train_module().make_cached_train_step = self._real
+
+
+def cli_cached(wd, yml):
+    """The train CLI on the same data with the dataset held on the card,
+    three steps a dispatch and a trace of iterations 2-4: six iterations,
+    then a run resumed from ``iter_3``. The counts are set to 0 before the
+    first run; a replay does not tick them, so the kernels launched are
+    the counts, less each capture's, plus each graph's replays times its
+    launches a replay: every flagship kernel, exactly as nine steps imply.
+    Losses finite, both checkpoints load, the resumed run logs iteration 6
+    only, and the trace exists."""
+    out = os.path.join(wd, "out_cached")
+    trace_dir = os.path.join(wd, "profile")
+    args = ["--config", yml, "--iters", "6", "--save_interval", "3",
+            "--log_iters", "3", "--save_dir", out, "--seed", str(TRAIN_SEED),
+            "--loader_mode", "device_cache", "--steps_per_dispatch", "3"]
+    profiled = args + ["--profiler_options", "batch_range=[2,4];"
+                       "profile_path={};exit_on_finished=false".format(
+                           trace_dir)]
+    reset_counts()
+    train_profiler.reset()
+    with TrainLog("[TRAIN]", "TrainLoader mode") as log, \
+            CachedSteps() as built:
+        t0 = time.perf_counter()
+        first = train_cli.main(train_cli.parse_args(profiled))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check(first.step == 6, "the cached CLI run ended at step {}".format(
+            first.step))
+        del first
+        resumed = train_cli.main(train_cli.parse_args(
+            args + ["--resume_model", os.path.join(out, "iter_3")]))
+        torch.cuda.synchronize()
+        check(resumed.step == 6, "the resumed cached run ended at step "
+              "{}".format(resumed.step))
+        del resumed
+    train_profiler.reset()
+    torch.cuda.empty_cache()
+    lines = log.lines
+    check(sum("mode: device_cache" in ln for ln in lines) == 2,
+          "the cached CLI runs did not hold the data on the card: "
+          "{}".format(lines))
+    lines = [ln for ln in lines if "[TRAIN]" in ln]
+    launches = dict(c5.LAUNCHES)
+    replays = [step.graphed.replays for step in built.steps]
+    for step in built.steps:
+        for k, v in step.graphed.launches.items():
+            launches[k] += (step.graphed.replays - 1) * v
+    check(replays == [5, 2], "graph replays {} (a capture and 5 replays, "
+          "then 1 and 2)".format(replays))
+    check_flagship_launches(launches, 6 + 3)
+    check(len(lines) == 3 and "iter: 6/6" in lines[-1],
+          "logged iterations: {}".format(lines))
+    losses = [TrainLog.field(ln, "loss") for ln in lines]
+    check(all(np.isfinite(losses)), "non-finite cached CLI loss: "
+          "{}".format(losses))
+    cfg = Config(yml)
+    for it in (3, 6):
+        model = build_model(cfg.dic["model"])
+        optimizer = torch.optim.SGD(model.parameters(), lr=0.0,
+                                    momentum=0.9)
+        step = ckpt.load_checkpoint(os.path.join(out, "iter_{}".format(it)),
+                                    model, optimizer)
+        check(step == it and all(bool(torch.isfinite(v).all()) for v in
+                                 model.state_dict().values()),
+              "cached iter_{} did not load (step {})".format(it, step))
+    trace = train_profiler.trace_path({"profile_path": trace_dir})
+    check(os.path.isfile(trace) and os.path.getsize(trace) > 0,
+          "no trace at " + trace)
+    return {"losses": losses, "windows_ms_per_iter": [
+        TrainLog.field(ln, "batch_cost") * 1e3 for ln in lines],
+        "run_s": first_s, "replays": replays,
+        "launches_per_replay": built.steps[0].graphed.launches,
+        "trace_mb": os.path.getsize(trace) / 1e6}
 
 
 class EvalCalls:
@@ -1956,6 +2106,268 @@ def phase_train_flagship():
     return launches
 
 
+# train_graph: steps of each config run eagerly and as CUDA-graph replays
+GRAPH_STEPS = {"cube": 6, "flagship": 4}
+GRAPH_VOLUMES = 4  # volumes in the device cache of each config
+
+
+def _dropout_mask(model):
+    """The mask the first ChannelDropout of ``model`` drew last, or None."""
+    for m in model.modules():
+        if isinstance(m, ChannelDropout):
+            return None if m._keep is None else m._keep.clone()
+    return None
+
+
+def _graph_case(name, path, shape, classes, batch):
+    """One config through the eager step and the graphed cached step from
+    one state and one stream of cached batches (module docstring,
+    ``train_graph``). Returns its JSON entry."""
+    cfg = Config(path)
+    mc = cfg.dic["model"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    # the device cache as TrainLoader.build_device_cache holds it: raw
+    # volumes in the bf16 / uint8 wire dtypes
+    cache_images = (torch.rand((GRAPH_VOLUMES,) + shape, generator=gen,
+                               device=dev) * 255).to(torch.bfloat16)
+    cache_labels = torch.randint(0, classes, (GRAPH_VOLUMES,) + shape,
+                                 generator=gen, device=dev,
+                                 dtype=torch.uint8)
+    rng = np.random.RandomState(TRAIN_SEED)
+    steps = GRAPH_STEPS[name]
+    order = np.concatenate([rng.permutation(GRAPH_VOLUMES)
+                            for _ in range(steps)])
+    stream = order[:steps * batch].reshape(steps, batch).astype(np.int32)
+    start = build_model(mc, generator=torch.Generator().manual_seed(
+        TRAIN_SEED)).state_dict()
+    augment = DeviceAugmentor(recipe_transforms(path), seed=TRAIN_SEED + 1)
+
+    def new_state():
+        model = build_model(mc, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        model.load_state_dict(start)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED,
+                                 capturable_optimizer=True)
+
+    def probe(state, counts):
+        """Eval-mode logits of the first cached volume, raw and unaugmented
+        (scaled to [0, 1]), as an evaluation between steps takes them:
+        they move with the parameters. Its launches are taken off the
+        counts again, into ``counts``."""
+        before = dict(c5.LAUNCHES)
+        x = cache_images[:1].float()[..., None] / 255.0
+        with torch.no_grad():
+            out = state.model.eval()(x)[0].float()
+        state.model.train()
+        for k in before:
+            counts[k] = counts.get(k, 0) + c5.LAUNCHES[k] - before[k]
+        return out
+
+    # eager: the loop's rule (generator re-seeded from (seed, step)), the
+    # batch gathered from the cache; the first step with host syncs as
+    # errors (a sync would break the capture)
+    eager_step = make_train_step(cfg.loss, augment_fn=augment)
+    state = new_state()
+    torch.cuda.reset_peak_memory_stats()
+    c5.reset_launches()
+    eager = {"loss": [], "ms": [], "mask": [], "probe": []}
+    eager_probed = {}
+    for i, idx in enumerate(stream):
+        state.generator.manual_seed(step_seed(TRAIN_SEED, state.step))
+        idx_dev = torch.from_numpy(idx).long().to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, metrics = eager_step(state, cache_images.index_select(
+                0, idx_dev), cache_labels.index_select(0, idx_dev))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eager["ms"].append((time.perf_counter() - t0) * 1e3)
+        eager["loss"].append(metrics["loss"].item())
+        eager["mask"].append(_dropout_mask(state.model))
+        eager["probe"].append(probe(state, eager_probed))
+    eager_launches = {k: (v - eager_probed[k]) / steps
+                      for k, v in c5.LAUNCHES.items()}
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_params = {k: v.float().clone()
+                    for k, v in state.model.state_dict().items()}
+
+    def eager_call():
+        state.generator.manual_seed(step_seed(TRAIN_SEED, state.step))
+        idx_dev = torch.from_numpy(stream[0]).long().to(dev)
+        eager_step(state, cache_images.index_select(0, idx_dev),
+                   cache_labels.index_select(0, idx_dev))
+
+    eager_profile = profile_call(eager_call)
+    del state, eager_step
+    torch.cuda.empty_cache()
+
+    # graphed: the cached step (step 1 the eager warm-up and the capture,
+    # then replays); the counts set to 0 just before
+    cached = make_cached_train_step(cfg.loss, 1, augment_fn=augment)
+    state = new_state()
+    torch.cuda.reset_peak_memory_stats()
+    c5.reset_launches()
+    graphed = {"loss": [], "ms": [], "mask": [], "probe": []}
+    probed = {}
+    for idx in stream:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = cached(state, cache_images, cache_labels, idx,
+                            seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        graphed["ms"].append((time.perf_counter() - t0) * 1e3)
+        graphed["loss"].append(metrics["loss"].item())
+        # the capture leaves the graph's (unrun) buffers in the modules:
+        # the masks a replay drew are read from the replays on
+        graphed["mask"].append(_dropout_mask(state.model)
+                               if cached.graphed.replays else None)
+        graphed["probe"].append(probe(state, probed))
+    graph = cached.graphed
+    # the probe's eval forwards are not the step's
+    launches = {k: v - probed[k] for k, v in c5.LAUNCHES.items()}
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(graph.replays == steps - 1, "{}: {} replays of {} steps".format(
+        name, graph.replays, steps))
+    # a replay does not tick the counters: the warm-up's launches plus the
+    # capture's recorded ones are on them; the device ran the warm-up and
+    # each replay
+    per_replay = graph.launches
+    ran = {k: launches[k] - per_replay[k] + graph.replays * per_replay[k]
+           for k in launches}
+    for k in launches:
+        check(per_replay[k] == eager_launches[k], "{}: {} launches a replay "
+              "{} != eager {}".format(name, k, per_replay[k],
+                                      eager_launches[k]))
+    check(sum(per_replay.values()) > 0, name + ": the graph holds no hand "
+          "kernel")
+    check(all(ran[k] == steps * eager_launches[k] for k in ran),
+          "{}: launches of {} graphed steps {} != the eager step's {} "
+          "each".format(name, steps, ran, eager_launches))
+    if name == "flagship":
+        check_flagship_launches(ran, steps)
+
+    # the graph against the eager step
+    loss_rel = [abs(g - e) / abs(e) for g, e in zip(graphed["loss"],
+                                                    eager["loss"])]
+    params = {k: v.float() for k, v in state.model.state_dict().items()}
+    param_rel = {k: float((params[k] - eager_params[k]).norm() /
+                          eager_params[k].norm().clamp_min(1e-12))
+                 for k in params if eager_params[k].is_floating_point()}
+    bitwise = {"losses": graphed["loss"] == eager["loss"],
+               "leaves": sum(torch.equal(params[k], eager_params[k])
+                             for k in params),
+               "of_leaves": len(params)}
+    check(all(np.isfinite(graphed["loss"])), name + ": non-finite graphed "
+          "loss {}".format(graphed["loss"]))
+    check(max(loss_rel) <= GRAPH_LOSS_REL, "{}: graphed losses {} vs eager "
+          "{}".format(name, graphed["loss"], eager["loss"]))
+    worst = max(param_rel.items(), key=lambda kv: kv[1])
+    check(worst[1] <= GRAPH_PARAM_REL, "{}: after {} steps {} differs from "
+          "the eager step's by {} relative L2".format(name, steps, *worst))
+    # the parameters moved across replays, and so did the logits
+    check(all(not torch.equal(a, b) for a, b in
+              zip(graphed["probe"][1:], graphed["probe"][:-1])),
+          name + ": the logits did not change across replays")
+    probe_rel = [float((g - e).norm() / e.norm()) for g, e in
+                 zip(graphed["probe"], eager["probe"])]
+    check(max(probe_rel) <= GRAPH_PARAM_REL, "{}: eval logits after each "
+          "graphed step {} relative L2 from the eager step's".format(
+              name, probe_rel))
+    # dropout masks: new at every replay, the eager step's at each (seed,
+    # step); then one more replay re-seeded as the last step was repeats
+    # its mask
+    masks_differ = [not torch.equal(a, b) for a, b in
+                    zip(graphed["mask"][2:], graphed["mask"][1:-1])]
+    masks_as_eager = [torch.equal(a, b) for a, b in
+                      zip(graphed["mask"][1:], eager["mask"][1:])]
+    check(all(masks_differ), "{}: a dropout mask repeated across replays "
+          "({})".format(name, masks_differ))
+    check(all(masks_as_eager), "{}: the graphed dropout masks are not the "
+          "eager step's at the same (seed, step) ({}; losses {} vs {})"
+          .format(name, masks_as_eager, graphed["loss"], eager["loss"]))
+    state.step -= 1
+    cached(state, cache_images, cache_labels, stream[-1], seed=TRAIN_SEED)
+    check(torch.equal(_dropout_mask(state.model), graphed["mask"][-1]),
+          name + ": the same (seed, step) drew another mask")
+
+    def replay_call():
+        cached(state, cache_images, cache_labels, stream[0],
+               seed=TRAIN_SEED)
+
+    graph_profile = profile_call(replay_call)
+    # device time of the replay alone (CUDA events around it)
+    graph_replay_ms = time_ms(graph.graph.replay, reps=3)
+    del state, cached, graph
+    torch.cuda.empty_cache()
+
+    # two steps a dispatch ([2, B] index rows): the same updates
+    cached2 = make_cached_train_step(cfg.loss, 2, augment_fn=augment)
+    state = new_state()
+    torch.cuda.reset_peak_memory_stats()
+    two = {"loss": [], "ms": []}
+    for rows in stream.reshape(steps // 2, 2, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = cached2(state, cache_images, cache_labels, rows,
+                             seed=TRAIN_SEED)
+        torch.cuda.synchronize()
+        two["ms"].append((time.perf_counter() - t0) * 1e3 / 2)
+        two["loss"].extend(metrics["loss"].tolist())
+    two_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(cached2.graphed.replays == steps - 1 and state.step == steps,
+          "{}: two steps a dispatch took {} replays".format(
+              name, cached2.graphed.replays))
+    check(two["loss"] == eager["loss"] and all(
+        torch.equal(v.float(), eager_params[k])
+        for k, v in state.model.state_dict().items()),
+          "{}: two steps a dispatch {} differ from the eager steps {}"
+          .format(name, two["loss"], eager["loss"]))
+    del state, cached2
+    torch.cuda.empty_cache()
+    eager_ms = float(np.median(eager["ms"][1:]))
+    graph_ms_ = float(np.median(graphed["ms"][1:]))
+    return {"config": os.path.relpath(path, ROOT), "batch": batch,
+            "shape": list(shape), "cached_volumes": GRAPH_VOLUMES,
+            "steps": steps, "replays": steps - 1,
+            "eager_losses": eager["loss"], "graphed_losses": graphed["loss"],
+            "max_loss_rel": max(loss_rel),
+            "worst_param_rel_l2": list(worst),
+            "bitwise": bitwise, "probe_rel_vs_eager": probe_rel,
+            "eager_ms_per_step": eager_ms, "eager_ms_each": eager["ms"],
+            "graphed_ms_per_step": graph_ms_,
+            "graphed_ms_each": graphed["ms"],
+            "replay_device_ms": graph_replay_ms,
+            "eager_device_ms": eager_profile["device_busy_ms"],
+            "eager_idle_share": eager_profile["idle_share"],
+            "graphed_device_ms": graph_profile["device_busy_ms"],
+            "graphed_idle_share": graph_profile["idle_share"],
+            "graphed_profile_wall_ms": graph_profile["wall_ms"],
+            "eager_peak_gb": eager_peak, "graphed_peak_gb": graph_peak,
+            "launches_per_replay": per_replay,
+            "launches_run": ran,
+            "two_per_dispatch_ms_per_step": float(np.median(two["ms"][1:])),
+            "two_per_dispatch_ms_each": two["ms"],
+            "two_per_dispatch_peak_gb": two_peak}
+
+
+def phase_train_graph():
+    """The cube and flagship configs through the graphed cached step
+    against the eager step (module docstring, ``train_graph``)."""
+    line = {"phase": "train_graph", "gpu": smi_line()}
+    line["cube"] = _graph_case("cube", LUNG_TPU, (EDGE, EDGE, EDGE), 3,
+                               BATCH)
+    line["flagship"] = _graph_case("flagship", SPINE, FLAGSHIP_STEM[1:], 20,
+                                   FLAGSHIP_STEM[0])
+    emit(line)
+    return line
+
+
 def main():
     phase_device()
     phase_build()
@@ -1973,6 +2385,7 @@ def main():
     launches.update({k: train_launches[k] for k in BWD_KERNELS})
     phase_augment()
     flagship = phase_train_flagship()
+    phase_train_graph()
     cli = phase_train_cli()
     phase_eval()
     for key in FLAGSHIP_KERNELS:

@@ -2,27 +2,32 @@
 """The host data pipeline that feeds the card.
 
 Counterpart of ``medicalseg_tpu/core/loader.py``: an iteration-oriented
-loader with a producer thread a batch or two ahead.
+loader with a producer thread a batch or two ahead, in one of three modes.
 
-  * ``device`` mode (``auto`` picks it when every transform has a device
-    implementation): the producer only reads and stacks raw phase0 ``.npy``
+  * ``device_cache`` (``auto`` picks it when every transform has a device
+    implementation, every volume has one shape and the deduplicated
+    dataset takes at most ``device_cache_bytes``, 1 GiB, in the wire
+    dtypes: the JAX loader's rule): the whole dataset is staged on the
+    card once (:meth:`TrainLoader.build_device_cache`), and the loader
+    yields only int32 index vectors [N] into :attr:`TrainLoader.
+    unique_pairs`; the train step gathers its batch on the card
+    (``core.state.make_cached_train_step``).
+  * ``device`` (``auto``'s choice for larger or mixed-shape datasets with
+    device transforms): the producer reads and stacks raw phase0 ``.npy``
     volumes; augmentation runs on the card at the head of the train step
     (:class:`~medicalseg_torch.transforms.DeviceAugmentor`). A byte-bounded
     LRU cache keeps hot volumes in host memory.
-  * ``host`` mode: Compose runs per sample across ``num_workers`` threads
+  * ``host``: Compose runs per sample across ``num_workers`` threads
     (the reference's DataLoader).
 
 The shuffle is the JAX loader's: ``np.random.RandomState(seed)`` permutes
 the train list (repeated ``repeat_train`` times) epoch by epoch, so the
-same seed gives the same index sequence. Batches are CPU tensors in a wire
-format: ``wire_dtype='bfloat16'`` ships images as bf16 and labels as uint8
-(int16 where the classes or the ignore index need it), 2-4x fewer bytes
-than float32 / int32; the train step widens them on the card.
-
-The JAX loader's ``device_cache`` mode (the dataset held on the device, an
-index vector a step) belongs with the cached train step (ROADMAP, modules
-to port, item 4): asking for it raises. The native C++ reader is ROADMAP
-item 8; the port reads with numpy.
+same seed gives the same index sequence in every mode. Batches are CPU
+tensors in a wire format: ``wire_dtype='bfloat16'`` ships images as bf16
+and labels as uint8 (int16 where the classes or the ignore index need it),
+2-4x fewer bytes than float32 / int32; the train step widens them on the
+card. The device cache holds the volumes in the same wire dtypes. The
+native C++ reader is ROADMAP item 8; the port reads with numpy.
 """
 
 import queue
@@ -36,7 +41,8 @@ import torch
 from ..transforms import device_supports
 from ..utils import logger
 
-MODES = ("auto", "device", "host")
+MODES = ("auto", "device", "device_cache", "host")
+DEVICE_CACHE_BYTES = 1 << 30  # auto: the largest dataset held on the card
 PREFETCH = 2  # batches the producer makes ahead of the consumer
 
 
@@ -83,18 +89,19 @@ class _LRUBytes:
 class TrainLoader:
     """Infinite shuffled batch iterator over a MedicalDataset.
 
-    Yields (images, labels) CPU tensors:
-      * device mode: images [N, D, H, W] raw, labels [N, D, H, W];
-      * host mode: images [N, D, H, W, 1] float transformed, labels int;
-    in the wire dtypes (module docstring). Call :meth:`stop` when done.
+    Yields, in the wire dtypes (module docstring):
+      * device mode: (images [N, D, H, W] raw, labels [N, D, H, W]) CPU
+        tensors;
+      * device_cache mode: int32 index vectors [N] (numpy) into
+        :attr:`unique_pairs`, the rows of :meth:`build_device_cache`;
+      * host mode: (images [N, D, H, W, 1] float transformed, labels int)
+        CPU tensors.
+    Call :meth:`stop` when done.
     """
 
     def __init__(self, dataset, batch_size, num_workers=2, seed=0,
-                 mode="auto", wire_dtype="float32", cache_bytes=8 << 30):
-        if mode == "device_cache":
-            raise NotImplementedError(
-                "the device_cache loader mode comes with the cached train "
-                "step (ROADMAP, modules to port, item 4); use 'device'")
+                 mode="auto", wire_dtype="float32", cache_bytes=8 << 30,
+                 device_cache_bytes=DEVICE_CACHE_BYTES):
         if mode not in MODES:
             raise ValueError("mode must be one of {}, got {!r}".format(
                 MODES, mode))
@@ -107,9 +114,21 @@ class TrainLoader:
         self._img_dtype = (torch.bfloat16 if wire_dtype in ("bfloat16", "bf16")
                            else torch.float32)
         self._lab_dtype = _wire_label_dtype(dataset, wire_dtype)
-        transforms = getattr(dataset, "raw_transforms", None) or []
+        # each volume once (the train list repeats it ``repeat_train``
+        # times): the rows of the device cache
+        self.unique_pairs = sorted({tuple(p) for p in dataset.file_list})
+        self._pair_index = {pair: i
+                            for i, pair in enumerate(self.unique_pairs)}
+        on_device = device_supports(getattr(dataset, "raw_transforms", None)
+                                    or [])
         if mode == "auto":
-            mode = "device" if device_supports(transforms) else "host"
+            mode = "host"
+            if on_device:
+                mode = ("device_cache" if self._cache_bytes() <=
+                        device_cache_bytes else "device")
+        if mode == "device_cache" and not on_device:
+            raise ValueError("device_cache requires device-supported "
+                             "transforms")
         self.mode = mode
         logger.info("TrainLoader mode: {} (batch_size={}, wire={})".format(
             self.mode, batch_size, wire_dtype))
@@ -122,6 +141,51 @@ class TrainLoader:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
+
+    def _cache_bytes(self):
+        """Bytes of the deduplicated dataset in the wire dtypes when every
+        image has one shape (read from the ``.npy`` headers); 2^62 when
+        the shapes differ or a file cannot be read."""
+        if not self.unique_pairs:
+            return 1 << 62
+        try:
+            shapes = {np.load(img, mmap_mode="r").shape
+                      for img, _ in self.unique_pairs}
+        except (OSError, ValueError):  # missing, or not an .npy array
+            return 1 << 62
+        if len(shapes) != 1:
+            return 1 << 62
+        per = int(np.prod(shapes.pop())) * (self._img_dtype.itemsize +
+                                             self._lab_dtype.itemsize)
+        return per * len(self.unique_pairs)
+
+    def build_device_cache(self, device="cuda"):
+        """Stage every unique volume on ``device`` (device_cache mode):
+        (images [V, D, H, W], labels [V, D, H, W]) in the wire dtypes, row
+        i holding ``unique_pairs[i]``. Raises ValueError when the shapes
+        differ."""
+        images = labels = None
+        shape = None
+        for i, (img_path, lab_path) in enumerate(self.unique_pairs):
+            img = np.load(img_path)
+            if shape is None:
+                shape = img.shape
+                n = len(self.unique_pairs)
+                images = torch.empty((n,) + shape, dtype=self._img_dtype)
+                labels = torch.empty((n,) + shape, dtype=self._lab_dtype)
+            elif img.shape != shape:
+                raise ValueError(
+                    "device_cache requires uniform volume shapes; got {} "
+                    "vs {}".format(img.shape, shape))
+            images[i] = torch.from_numpy(np.asarray(img, np.float32))
+            labels[i] = torch.from_numpy(np.asarray(np.load(lab_path)))
+        logger.info(
+            "device cache: {} volumes, images {} {} + labels {} {} = "
+            "{:.0f} MB on {}".format(
+                len(self.unique_pairs), tuple(images.shape), images.dtype,
+                tuple(labels.shape), labels.dtype,
+                (images.nbytes + labels.nbytes) / 1e6, device))
+        return images.to(device), labels.to(device)
 
     def _next_indices(self):
         n = len(self.dataset)
@@ -147,6 +211,9 @@ class TrainLoader:
 
     def _make_batch(self):
         idxs = self._next_indices()
+        if self.mode == "device_cache":
+            return np.asarray([self._pair_index[tuple(
+                self.dataset.file_list[i])] for i in idxs], np.int32)
         if self.mode == "device":
             pairs = [self._load_raw(i) for i in idxs]
             images = np.stack([np.asarray(p[0], np.float32) for p in pairs])

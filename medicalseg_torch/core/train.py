@@ -11,22 +11,31 @@ at each of those points that keeps the best model (``best_model/``, its
 overwrite it). ``use_vdl`` writes ``Train/*`` at log points and
 ``Evaluate/*`` after each eval through tensorboardX.
 
-Each iteration takes a batch that :class:`~.prefetch.DevicePrefetcher`
-has already copied to the card, and runs the train step of
-:mod:`.state`: device augmentation (in ``device`` loader mode), forward,
-losses, backward, optimizer. The metrics stay on the card between log
-points, so the loop reads the device back only there and at checkpoints;
-the batch cost of the iteration that logs includes that wait, so a window's
-mean is its wall time per iteration.
-Before each step the state's generator is seeded from (``seed``, step):
-it draws the dropout masks, and its seed keys the augmentation's draws, so
-a resumed run repeats the unbroken run's masks and draws.
+The step runs in one of two forms. With ``steps_per_dispatch`` 1 in the
+``device`` and ``host`` loader modes, each iteration takes a batch that
+:class:`~.prefetch.DevicePrefetcher` has already copied to the card and
+runs the eager train step of :mod:`.state` (device augmentation in
+``device`` mode, forward, losses, backward, optimizer). In the
+``device_cache`` mode, and with ``steps_per_dispatch`` n > 1, a dispatch
+takes up to n iterations (never across a log or save point, which also
+heals a resume that starts between them) through
+``make_cached_train_step`` (the dataset staged on the card once, an index
+vector uploaded a step, no prefetcher) or ``make_multi_step`` (n batches
+stacked into one super-batch and uploaded together); on the card each of
+their iterations replays one CUDA graph of the step. ``steps_per_dispatch``
+must divide ``log_iters`` and ``save_interval``.
 
-Not ported yet, and raising ``NotImplementedError``: ``profiler_options``,
-``steps_per_dispatch > 1`` and the ``device_cache`` loader mode (ROADMAP,
-modules to port, item 4). Checkpoints are written synchronously, and there
-is no end-of-training FLOPs report (the JAX package's comes from XLA's
-cost analysis).
+The metrics stay on the card between log points, so the loop reads the
+device back only there and at checkpoints; the batch cost of the
+iteration that logs includes that wait, so a window's mean is its wall
+time per iteration. Before each step the state's generator is seeded from
+(``seed``, step): it draws the dropout masks, and its seed keys the
+augmentation's draws, so a resumed run repeats the unbroken run's masks
+and draws. ``profiler_options`` traces a window of iterations
+(:mod:`..utils.train_profiler`, called once an iteration).
+
+Checkpoints are written synchronously, and there is no end-of-training
+FLOPs report (the JAX package's comes from XLA's cost analysis).
 """
 
 import json
@@ -35,32 +44,23 @@ import shutil
 import time
 from collections import deque
 
+import numpy as np
 import torch
 
 from ..transforms import DeviceAugmentor
 from ..transforms.device import step_seed
 from ..utils import (TimeAverager, calculate_eta, logger, resume,
-                     save_checkpoint)
+                     save_checkpoint, train_profiler)
 from ..utils.checkpoint import _atomic_write
 from ..utils.utils import resolve_device
 from .loader import TrainLoader
 from .prefetch import DevicePrefetcher
-from .state import TrainState, make_train_step
+from .state import (TrainState, make_cached_train_step, make_multi_step,
+                    make_train_step)
 from .val import evaluate
 
 BEST_DIR = "best_model"
 BEST_JSON = "best.json"
-
-
-def _unported(profiler_options, steps_per_dispatch):
-    if profiler_options:
-        raise NotImplementedError(
-            "profiler_options comes with the cached train step (ROADMAP, "
-            "modules to port, item 4)")
-    if steps_per_dispatch != 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 comes with the cached train step "
-            "(ROADMAP, modules to port, item 4)")
 
 
 def train(model,
@@ -95,15 +95,23 @@ def train(model,
     the loss config (``Config.loss``), and ``device`` is 'cuda' unless the
     caller asks for 'cpu'. ``to_static_training`` is accepted and unused,
     as in the JAX package."""
-    _unported(profiler_options, steps_per_dispatch)
     device = resolve_device(device)
+    n_dispatch = max(int(steps_per_dispatch), 1)
+    if n_dispatch > 1 and (log_iters % n_dispatch or
+                           save_interval % n_dispatch):
+        raise ValueError(
+            "steps_per_dispatch ({}) must divide log_iters ({}) and "
+            "save_interval ({})".format(n_dispatch, log_iters,
+                                        save_interval))
     loader = TrainLoader(train_dataset, batch_size=batch_size,
                          num_workers=num_workers, seed=seed,
                          mode=data_loader_mode, wire_dtype=wire_dtype)
     augment = (DeviceAugmentor(train_dataset.raw_transforms, seed=seed + 1)
-               if loader.mode == "device" else None)
+               if loader.mode in ("device", "device_cache") else None)
+    # the cached and multi-step forms replay a CUDA graph of the step
+    dispatched = loader.mode == "device_cache" or n_dispatch > 1
     state = TrainState.create(model, optimizer, lr_scheduler, seed=seed,
-                              device=device)
+                              device=device, capturable_optimizer=dispatched)
     state.step = resume(state.model, state.optimizer, resume_model)
     if not os.path.isdir(save_dir):
         if os.path.exists(save_dir):
@@ -123,8 +131,16 @@ def train(model,
         logger.info("Restored best-model tracker: mDice {:.4f} at iter "
                     "{}".format(best_mean_dice, best_model_iter))
 
-    step_fn = make_train_step(losses, augment_fn=augment)
-    prefetcher = DevicePrefetcher(loader, device)
+    prefetcher = cache = None
+    if loader.mode == "device_cache":
+        cache = loader.build_device_cache(device)
+        step_fn = make_cached_train_step(losses, n_dispatch,
+                                         augment_fn=augment)
+    elif n_dispatch > 1:
+        step_fn = make_multi_step(losses, n_dispatch, augment_fn=augment)
+    else:
+        step_fn = make_train_step(losses, augment_fn=augment)
+        prefetcher = DevicePrefetcher(loader, device)
     reader_cost = TimeAverager()
     batch_cost = TimeAverager()
     save_models = deque()
@@ -134,24 +150,48 @@ def train(model,
     batch_start = time.time()
     try:
         while it < iters:
-            images, labels = next(prefetcher)
-            reader_cost.record(time.time() - batch_start)
-            state.generator.manual_seed(step_seed(seed, it))
-            state, metrics = step_fn(state, images, labels)
+            # the iterations this dispatch may take without crossing a log
+            # or save point (a resume may start between them)
+            boundary = min((it // log_iters + 1) * log_iters,
+                           (it // save_interval + 1) * save_interval, iters)
+            take = min(n_dispatch, boundary - it)
+            if cache is not None:
+                idx = np.stack([next(loader) for _ in range(take)])
+                _record(reader_cost, time.time() - batch_start, take)
+                state, metrics = step_fn(state, *cache,
+                                         idx if n_dispatch > 1 else idx[0],
+                                         seed=seed)
+            elif prefetcher is None:
+                batches = [next(loader) for _ in range(take)]
+                _record(reader_cost, time.time() - batch_start, take)
+                images, labels = (_upload(torch.stack([b[i] for b in
+                                                       batches]), device)
+                                  for i in (0, 1))
+                state, metrics = step_fn(state, images, labels, seed=seed)
+            else:
+                images, labels = next(prefetcher)
+                reader_cost.record(time.time() - batch_start)
+                state.generator.manual_seed(step_seed(seed, it))
+                state, metrics = step_fn(state, images, labels)
+            for _ in range(take):
+                train_profiler.add_profiler_step(profiler_options)
             it = state.step
             pending.append(metrics)
             log = it % log_iters == 0
             if log:  # waits for the device: the window's costs include it
-                loss = torch.stack([m["loss"] for m in pending]).mean()
-                dice = torch.stack([m["per_channel_dice"]
-                                    for m in pending]).mean()
-                loss_list = torch.stack([m["loss_list"]
-                                         for m in pending]).mean(0)
+                # one-step metrics are a scalar, [L] and [C]; a dispatch
+                # of n steps stacks them along a leading [n]
+                loss = torch.cat([m["loss"].reshape(-1) for m in pending])
+                loss_list = torch.cat([m["loss_list"].reshape(
+                    -1, m["loss_list"].shape[-1]) for m in pending])
+                dice = torch.cat([m["per_channel_dice"].reshape(-1)
+                                  for m in pending])
                 avg_loss, mdice, *avg_loss_list = torch.cat(
-                    [torch.stack([loss, dice]), loss_list]).tolist()
+                    [torch.stack([loss.mean(), dice.mean()]),
+                     loss_list.mean(0)]).tolist()
                 pending = []
-            batch_cost.record(time.time() - batch_start,
-                              num_samples=batch_size)
+            _record(batch_cost, time.time() - batch_start, take,
+                    batch_size)
 
             if log:
                 lr = float(lr_scheduler(it)) if lr_scheduler else 0.0
@@ -201,10 +241,25 @@ def train(model,
             batch_start = time.time()
     finally:
         loader.stop()
-        prefetcher.close()
+        if prefetcher is not None:
+            prefetcher.close()
         if log_writer is not None:
             log_writer.close()
     return state
+
+
+def _record(averager, seconds, iterations, batch_size=0):
+    """A dispatch's ``seconds`` as ``iterations`` equal records: the
+    averages stay per iteration whatever the dispatch size."""
+    for _ in range(iterations):
+        averager.record(seconds / iterations, num_samples=batch_size)
+
+
+def _upload(batch, device):
+    """A stacked CPU batch onto ``device`` by a pinned, asynchronous copy."""
+    if torch.device(device).type == "cpu":
+        return batch
+    return batch.pin_memory().to(device, non_blocking=True)
 
 
 def _read_best(path):

@@ -13,7 +13,9 @@ properties produce PyTorch objects:
 * ``.optimizer``    -> a ``torch.optim.Optimizer`` over the model's
   parameters, with coupled L2 ``weight_decay`` on every parameter (adamw:
   decoupled); ``core.state`` sets its learning rate from the schedule
-  before every update;
+  before every update. :func:`capturable` turns it into the form a CUDA
+  graph of the train step can replay (the learning rate a 0-d tensor on
+  the parameters' device);
 * ``.loss``         -> {'types': [loss callables], 'coef': [...]};
 * ``.train_dataset`` / ``.val_dataset`` -> the port's datasets, their
   ``dataset_root`` / ``result_dir`` joined to ``data_root``.
@@ -125,18 +127,74 @@ def cosine_annealing_decay(learning_rate, decay_steps, eta_min=0.0):
     return schedule
 
 
+def _lr_tensor(lr, params):
+    """``lr`` as a 0-d float32 tensor on the device of ``params``."""
+    device = params[0].device if params else torch.device("cpu")
+    return torch.tensor(float(lr), dtype=torch.float32, device=device)
+
+
+class SGD(torch.optim.Optimizer):
+    """``torch.optim.SGD`` (momentum without dampening, coupled L2
+    ``weight_decay``, Nesterov) in a form a CUDA graph can replay: the
+    learning rate is a 0-d tensor on the parameters' device, read by the
+    update on the device (``torch.optim.SGD`` turns a tensor learning rate
+    into a host scalar, a sync a graph cannot capture), and the momentum
+    buffers exist from the start (zeros, which is what the first update of
+    ``torch.optim.SGD`` and ``optax.sgd`` starts from), so no update
+    allocates. Set the learning rate with :func:`set_lr`, outside the
+    graph."""
+
+    def __init__(self, params, lr, momentum=0.0, weight_decay=0.0,
+                 nesterov=False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      nesterov=nesterov))
+        for group in self.param_groups:
+            group["lr"] = _lr_tensor(group["lr"], group["params"])
+            if group["momentum"]:
+                for p in group["params"]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            if group["momentum"]:
+                bufs = [self.state[p]["momentum_buffer"] for p in params]
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, grads)
+                grads = (torch._foreach_add(grads, bufs,
+                                            alpha=group["momentum"])
+                         if group["nesterov"] else bufs)
+            torch._foreach_sub_(params, torch._foreach_mul(grads,
+                                                           group["lr"]))
+
+
 class RMSProp(torch.optim.Optimizer):
     """RMSProp as ``optax.rmsprop`` computes it: nu = rho * nu + (1 - rho)
     * g^2, update = lr * g / sqrt(nu + eps) with eps *inside* the root
     (``torch.optim.RMSprop`` adds it outside), then the momentum trace of
     the updates already scaled by the learning rate. ``weight_decay`` is
-    coupled L2, added to the gradient first."""
+    coupled L2, added to the gradient first. The learning rate may be a
+    float or a 0-d tensor on the parameters' device (:func:`capturable`);
+    the slots exist from the start, so no update allocates."""
 
     def __init__(self, params, lr, rho=0.95, eps=1e-6, momentum=0.0,
                  weight_decay=0.0):
         super().__init__(params, dict(lr=lr, rho=rho, eps=eps,
                                       momentum=momentum,
                                       weight_decay=weight_decay))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["nu"] = torch.zeros_like(p)
+                self.state[p]["momentum_buffer"] = torch.zeros_like(p)
 
     @torch.no_grad()
     def step(self):
@@ -148,9 +206,6 @@ class RMSProp(torch.optim.Optimizer):
                 if group["weight_decay"]:
                     g = g.add(p, alpha=group["weight_decay"])
                 state = self.state[p]
-                if not state:
-                    state["nu"] = torch.zeros_like(p)
-                    state["momentum_buffer"] = torch.zeros_like(p)
                 state["nu"].mul_(group["rho"]).addcmul_(
                     g, g, value=1 - group["rho"])
                 upd = g * torch.rsqrt(state["nu"] + group["eps"])
@@ -159,6 +214,68 @@ class RMSProp(torch.optim.Optimizer):
                     upd = state["momentum_buffer"].mul_(
                         group["momentum"]).add_(upd)
                 p.sub_(upd)
+
+
+def capturable(optimizer):
+    """``optimizer`` (as :meth:`Config.build_optimizer` makes it, before its
+    first update) in the form a CUDA graph of the train step can replay,
+    over the same parameter groups and hyperparameters: ``torch.optim.SGD``
+    becomes :class:`SGD`, :class:`RMSProp` and ``torch.optim.Adam`` /
+    ``AdamW`` keep their class with the learning rate a 0-d tensor on the
+    parameters' device, the latter two with ``capturable=True`` on the
+    card. Forms that are capturable already come back as they are."""
+    if is_capturable(optimizer):
+        return optimizer
+    kind = type(optimizer)
+    if kind is RMSProp:
+        for g in optimizer.param_groups:
+            g["lr"] = _lr_tensor(g["lr"], g["params"])
+        return optimizer
+    if kind not in (torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW):
+        raise ValueError("no capturable form of {}".format(kind.__name__))
+    if optimizer.state:
+        raise ValueError("make the optimizer capturable before its first "
+                         "update")
+    groups = [dict(g) for g in optimizer.param_groups]
+    if kind is torch.optim.SGD:
+        for g in groups:
+            if g["dampening"] or g["maximize"]:
+                raise ValueError("SGD with dampening or maximize has no "
+                                 "capturable form")
+        return SGD([{k: g[k] for k in ("params", "lr", "momentum",
+                                       "weight_decay", "nesterov")}
+                    for g in groups], lr=groups[0]["lr"])
+    on_card = groups[0]["params"][0].is_cuda
+    for g in groups:
+        g.update(lr=_lr_tensor(g["lr"], g["params"]), capturable=on_card,
+                 foreach=on_card, fused=None)
+    return kind(groups, lr=groups[0]["lr"])
+
+
+def is_capturable(optimizer):
+    """True when a CUDA graph can replay ``optimizer.step()`` and
+    :func:`set_lr` reaches it: every learning rate is a tensor and, for
+    Adam and AdamW, ``capturable`` is set where the parameters are on the
+    card."""
+    if not all(torch.is_tensor(g["lr"]) for g in optimizer.param_groups):
+        return False
+    if isinstance(optimizer, (SGD, RMSProp)):
+        return True
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return all(g["capturable"] or not g["params"][0].is_cuda
+                   for g in optimizer.param_groups)
+    return False
+
+
+def set_lr(optimizer, lr):
+    """Give every parameter group the learning rate ``lr``: written into
+    the group's tensor where it has one (on the card a fill, no sync), else
+    set as a float."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 class Config:

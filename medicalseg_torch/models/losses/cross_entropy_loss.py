@@ -40,6 +40,9 @@ class CrossEntropyLoss:
             logits = logits[None]
             labels = labels.reshape(logits.shape[:-1])
         num_classes = logits.shape[-1]
+        if self.weight is not None and self.weight.device != logits.device:
+            # moved once: a CUDA graph of the step cannot capture the copy
+            self.weight = self.weight.to(logits.device)
         weight = self.weight
         if weight is None:
             weight = class_weights(logits)
@@ -47,7 +50,6 @@ class CrossEntropyLoss:
             raise ValueError(
                 "The number of weights = {} must be the same as the number "
                 "of classes = {}.".format(weight.shape[0], num_classes))
-        weight = weight.to(logits.device, torch.float32)
         log_probs = torch.log_softmax(logits.float(), dim=-1)
         valid = labels != self.ignore_index
         if fused_masks():

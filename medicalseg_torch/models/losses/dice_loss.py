@@ -98,7 +98,11 @@ class DiceLoss:
             intersect = torch.stack(intersects)
             denominator = torch.stack(denoms)
         if self.weight is not None:
-            intersect = self.weight.to(intersect.device) * intersect
+            if self.weight.device != intersect.device:
+                # moved once: a CUDA graph of the step cannot capture the
+                # copy
+                self.weight = self.weight.to(intersect.device)
+            intersect = self.weight * intersect
         per_channel_dice = 2 * (intersect /
                                 torch.clamp(denominator, min=1e-6))
         return 1.0 - per_channel_dice.mean(), per_channel_dice

@@ -429,12 +429,16 @@ def _packed_weight(w, nt, dgrad=False):
     unchanged: an in-place update (an optimizer step, ``load_state_dict``)
     moves its ``_version`` and the weights are packed again. Entries belong
     to one tensor object and leave with it. Inference tensors carry no
-    version and are packed per call."""
+    version and are packed per call, and so are weights while a CUDA graph
+    is being captured: the packing is then part of the graph, and each
+    replay packs the weights the parameters hold at that time (a cached
+    packing would replay the weights of the capture)."""
     def pack(w):
         return (_pack_weights_stem(w) if nt == "stem" else
                 _pack_weights_wg(w, nt, dgrad))
 
-    if w.is_inference():
+    if w.is_inference() or (w.is_cuda and
+                            torch.cuda.is_current_stream_capturing()):
         return pack(w)
     base = w if w._base is None else w._base
     entry = _PACKED.get(id(base))

@@ -16,6 +16,7 @@ the volume's device in float32, in the JAX package's order of operations.
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -77,6 +78,18 @@ def _linear_matrix_halfpixel(in_size, out_size, dtype=torch.float32,
     return torch.from_numpy(w).to(device=device, dtype=dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _halfpixel_on(in_size, out_size, dtype, device):
+    """:func:`_linear_matrix_halfpixel` kept on ``device``: uploaded by
+    the first call of a shape through pinned memory (no host sync), so
+    that later calls copy nothing from the host (a CUDA graph of the train
+    step cannot capture that copy)."""
+    mat = _linear_matrix_halfpixel(in_size, out_size, dtype)
+    if torch.device(device).type == "cpu":
+        return mat
+    return mat.pin_memory().to(device, non_blocking=True)
+
+
 def upsample_trilinear_batch(x, size):
     """Half-pixel trilinear resize of an NDHWC batch [N, D, H, W, C] to
     ``size`` (d, h, w), as three per-axis matrix products in ``x``'s dtype
@@ -97,8 +110,8 @@ def upsample_trilinear_batch(x, size):
     for axis, spec in ((1, "ad,ndhwc->nahwc"), (2, "bh,ndhwc->ndbwc"),
                        (3, "xw,ndhwc->ndhxc")):
         if out.shape[axis] != size[axis - 1]:
-            mat = _linear_matrix_halfpixel(out.shape[axis], size[axis - 1],
-                                           dt, x.device)
+            mat = _halfpixel_on(out.shape[axis], size[axis - 1], dt,
+                                x.device)
             out = torch.einsum(spec, mat, out)
     return out.to(x.dtype)
 

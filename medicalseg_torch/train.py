@@ -7,10 +7,12 @@ train.py:26-189) plus ``--device`` (``cuda`` unless asked for ``cpu``),
 driving Config -> datasets, model, optimizer, losses -> ``core.train``.
 ``--do_eval`` evaluates the config's val set at every save point and keeps
 the best model under ``<save_dir>/best_model``; ``--use_vdl`` writes
-tensorboardX events to ``--save_dir``. ``--space`` sizes the TPU mesh and
-is rejected unless it keeps its default; what ``core.train`` has not
-ported yet (``--profiler_options``, ``--steps_per_dispatch`` above 1,
-``--loader_mode device_cache``) raises there, naming its ROADMAP item.
+tensorboardX events to ``--save_dir``. ``--loader_mode device_cache``
+(``auto``'s choice for a dataset of one volume shape that fits in 1 GiB)
+and ``--steps_per_dispatch`` above 1 train through a CUDA graph of the
+step on the card; ``--profiler_options`` writes a Chrome trace of a window
+of iterations. ``--space`` sizes the TPU mesh and is rejected unless it
+keeps its default.
 
 Example, the flagship recipe (its dataset made by
 ``tools/generate_synthetic_dataset.py``, see the YAML)::
@@ -18,6 +20,15 @@ Example, the flagship recipe (its dataset made by
     python -m medicalseg_torch.train \\
         --config configs/synthetic/vnetdeepsup_synspine_15k.yml \\
         --iters 100 --save_interval 50 --log_iters 10 --seed 0
+
+the same with three steps a dispatch and a trace of iterations 10-20
+(``<dir>/trace.json``)::
+
+    python -m medicalseg_torch.train \\
+        --config configs/synthetic/vnetdeepsup_synspine_15k.yml \\
+        --iters 60 --save_interval 30 --log_iters 15 --seed 0 \\
+        --steps_per_dispatch 3 --profiler_options \\
+        "batch_range=[10,20];profile_path=output/profile;exit_on_finished=false"
 
 and the convergence recipe with evaluation (its dataset made by
 ``tools/generate_synthetic_dataset.py --style lesions``, see the YAML)::
@@ -91,9 +102,10 @@ def parse_args(argv=None):
         type=int, default=1)
     parser.add_argument(
         "--loader_mode", dest="loader_mode",
-        help="Data pipeline mode: auto | device | host (device_cache "
-             "is not ported yet).", type=str, default="auto",
-        choices=["auto", "device", "host", "device_cache"])
+        help="Data pipeline mode: auto | device | device_cache | host. "
+             "device_cache stages the whole (deduped) dataset in device "
+             "memory and ships only index vectors per step.", type=str,
+        default="auto", choices=["auto", "device", "device_cache", "host"])
     parser.add_argument(
         "--wire_dtype", dest="wire_dtype",
         help="Host->device wire format for training batches: bfloat16 "
@@ -101,7 +113,9 @@ def parse_args(argv=None):
         default="bfloat16", choices=["bfloat16", "float32"])
     parser.add_argument(
         "--steps_per_dispatch", dest="steps_per_dispatch",
-        help="Train steps per dispatch; only 1 is ported.", type=int,
+        help="Train steps per dispatch (on the card, replays of one "
+             "CUDA graph of the step); amortizes host dispatch latency. "
+             "Must divide log_iters and save_interval.", type=int,
         default=1)
     parser.add_argument(
         "--device", dest="device", help="cuda (default) or cpu.",

@@ -53,7 +53,10 @@ def _read(path):
 
 
 def _is_sgd(optimizer):
-    return type(optimizer) is torch.optim.SGD
+    """``torch.optim.SGD``, or its form a CUDA graph can replay: both keep
+    the optax SGD layout."""
+    from ..cvlibs.config import SGD
+    return type(optimizer) in (torch.optim.SGD, SGD)
 
 
 def _opt_state(model, optimizer, step):

@@ -972,3 +972,179 @@ def test_fused_losses_on_the_card_match_the_loop_form(dev, monkeypatch,
     scale = loop_grad.abs().max().item()
     torch.testing.assert_close(fused_grad, loop_grad, rtol=1e-5,
                                atol=1e-6 * scale)
+
+
+# --------------------------------------------------------------------------
+# the graphed step (core.state.GraphedStep through make_cached_train_step
+# and make_multi_step) and the optimizers a graph can replay
+# --------------------------------------------------------------------------
+def _graph_trainer(dtype=torch.bfloat16, remat=True, dropout=True):
+    from medicalseg_torch.cvlibs.config import polynomial_decay
+    model = VNet(num_classes=3, dtype=dtype, remat=remat, dropout=dropout,
+                 generator=torch.Generator().manual_seed(8))
+    return TrainState.create(
+        model, lambda p: torch.optim.SGD(p, lr=0.01, momentum=0.9,
+                                         weight_decay=1e-4),
+        polynomial_decay(0.01, 20), seed=9, capturable_optimizer=True)
+
+
+def _graph_losses():
+    return {"types": [MixedLoss([CrossEntropyLoss(), DiceLoss()], [1, 1])],
+            "coef": [1]}
+
+
+def _first_mask(model):
+    from medicalseg_torch.models.layers import ChannelDropout
+    return next(m for m in model.modules()
+                if isinstance(m, ChannelDropout))._keep.clone()
+
+
+@pytest.mark.parametrize("dtype,remat", [(torch.float32, False),
+                                         (torch.bfloat16, True)],
+                         ids=["f32", "bf16-remat"])
+def test_graphed_cached_step_is_the_eager_step(dev, dtype, remat):
+    """Five steps over a dataset cached on the card: the eager step and the
+    cached step (its first call the warm-up and the capture, then four
+    replays of one CUDA graph) from one state, re-seeded from (seed, step)
+    alike. Every kernel of the step is deterministic, so the losses, the
+    parameters, the BatchNorm statistics and the dropout masks agree bit
+    for bit, and so do eval-mode logits taken between steps (they read
+    the conv kernels' packed weights, which a replay must not leave
+    stale); the parameters move at every replay; a replay launches the
+    hand kernels one eager step launches."""
+
+    def probe(state):
+        with torch.no_grad():
+            out = state.model.eval()(cache[0][:1])[0]
+        state.model.train()
+        return out
+
+    from medicalseg_torch.core.state import make_cached_train_step
+    from medicalseg_torch.transforms.device import step_seed
+    rng = np.random.RandomState(7)
+    cache = (torch.from_numpy(rng.rand(4, 32, 32, 32, 1).astype(
+        np.float32)).to(dev), torch.from_numpy(rng.randint(
+            0, 3, (4, 32, 32, 32)).astype(np.uint8)).to(dev))
+    stream = rng.randint(0, 4, (5, 2)).astype(np.int32)
+    eager, graphed = _graph_trainer(dtype, remat), _graph_trainer(dtype,
+                                                                   remat)
+    step = make_train_step(_graph_losses())
+    c5.reset_launches()
+    e_loss, e_mask, e_probe = [], [], []
+    for idx in stream:
+        eager.generator.manual_seed(step_seed(3, eager.step))
+        i = torch.from_numpy(idx).long().to(dev)
+        _, m = step(eager, cache[0][i], cache[1][i])
+        e_loss.append(m["loss"].item())
+        e_mask.append(_first_mask(eager.model))
+    per_step = {k: v // 5 for k, v in c5.LAUNCHES.items()}
+    eager = _graph_trainer(dtype, remat)
+    for idx in stream:  # again, with an evaluation after every step
+        eager.generator.manual_seed(step_seed(3, eager.step))
+        i = torch.from_numpy(idx).long().to(dev)
+        step(eager, cache[0][i], cache[1][i])
+        e_probe.append(probe(eager))
+    cached = make_cached_train_step(_graph_losses())
+    g_loss, g_mask, g_probe, snapshots = [], [], [], []
+    for idx in stream:
+        _, m = cached(graphed, *cache, idx, seed=3)
+        g_loss.append(m["loss"].item())
+        g_mask.append(_first_mask(graphed.model))
+        g_probe.append(probe(graphed))
+        snapshots.append(graphed.model.in_tr.conv1.weight.detach().clone())
+    assert cached.graphed.replays == 4 and graphed.step == 5
+    assert cached.graphed.launches == per_step
+    assert g_loss == e_loss
+    for a, b in zip(g_probe, e_probe):
+        assert torch.equal(a, b)
+    for a, b in zip(snapshots[1:], snapshots[:-1]):
+        assert not torch.equal(a, b)  # the parameters move at each replay
+    for a, b in zip(g_mask[1:], e_mask[1:]):  # step 1 was the capture's
+        assert torch.equal(a, b)
+    assert not torch.equal(g_mask[1], g_mask[2])
+    want = eager.model.state_dict()
+    for k, v in graphed.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    for p, q in zip(graphed.model.parameters(), eager.model.parameters()):
+        assert torch.equal(graphed.optimizer.state[p]["momentum_buffer"],
+                           eager.optimizer.state[q]["momentum_buffer"])
+
+
+def test_graphed_multi_step_reseeds_and_refuses_an_eager_optimizer(dev):
+    """A super-batch of three steps: three replays of one graph, metrics
+    stacked along [3]; a replay re-seeded as an earlier step was draws
+    that step's dropout mask again. An optimizer that keeps its learning
+    rate on the host cannot be captured: the step raises rather than run
+    eagerly."""
+    from medicalseg_torch.core.state import make_multi_step
+    rng = np.random.RandomState(3)
+    images = torch.from_numpy(rng.rand(3, 2, 32, 32, 32, 1).astype(
+        np.float32)).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 3, (3, 2, 32, 32, 32)).astype(
+        np.uint8)).to(dev)
+    state = _graph_trainer()
+    multi = make_multi_step(_graph_losses(), 3)
+    _, m = multi(state, images, labels, seed=5)
+    assert m["loss"].shape == (3,) and torch.isfinite(m["loss"]).all()
+    assert multi.graphed.replays == 2 and state.step == 3
+    mask = _first_mask(state.model)
+    state.step = 2
+    multi(state, images[2:], labels[2:], seed=5)
+    assert torch.equal(_first_mask(state.model), mask)
+    model = VNet(num_classes=3, generator=torch.Generator().manual_seed(8))
+    eager_opt = TrainState.create(
+        model, lambda p: torch.optim.SGD(p, lr=0.01, momentum=0.9),
+        lambda step: 0.01, seed=9)
+    with pytest.raises(ValueError, match="capturable_optimizer"):
+        make_multi_step(_graph_losses(), 3)(eager_opt, images, labels)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "nesterov", "adam", "adamw",
+                                  "rmsprop"])
+def test_capturable_optimizers_replay_as_torch_steps_eagerly(dev, kind):
+    """Each optimizer's capturable form, its step captured once and
+    replayed for 20 updates with the learning rate written into its tensor
+    between replays, against the eager torch (and, for RMSProp, the
+    port's) optimizer with a float learning rate (f32; 1e-5 for 20
+    updates of O(1) entries)."""
+    from medicalseg_torch.cvlibs.config import RMSProp, capturable, set_lr
+    make = {
+        "sgd": lambda p: torch.optim.SGD(p, lr=0.1, momentum=0.9,
+                                         weight_decay=1e-2),
+        "nesterov": lambda p: torch.optim.SGD(p, lr=0.1, momentum=0.8,
+                                              nesterov=True),
+        "adam": lambda p: torch.optim.Adam(p, lr=0.1, weight_decay=1e-2),
+        "adamw": lambda p: torch.optim.AdamW(p, lr=0.1, weight_decay=1e-2),
+        "rmsprop": lambda p: RMSProp(p, lr=0.1, momentum=0.5,
+                                     weight_decay=1e-2)}[kind]
+    rng = np.random.RandomState(0)
+    p0 = torch.from_numpy(rng.randn(7).astype(np.float32)).to(dev)
+    grads = torch.from_numpy(rng.randn(20, 7).astype(np.float32)).to(dev)
+    ref = torch.nn.Parameter(p0.clone())
+    ref_opt = make([ref])
+    ours = torch.nn.Parameter(p0.clone())
+    opt = capturable(make([ours]))
+    grad = torch.zeros_like(p0)
+    ours.grad = grad
+    lrs = [0.1 * (1 - i / 20) ** 0.9 for i in range(20)]
+    set_lr(opt, lrs[0])
+    grad.copy_(grads[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        opt.step()  # the warm-up: lazy slots
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step()
+    for i in range(20):
+        for group in ref_opt.param_groups:
+            group["lr"] = lrs[i]
+        ref.grad = grads[i].clone()
+        ref_opt.step()
+        if i:
+            set_lr(opt, lrs[i])
+            grad.copy_(grads[i])
+            graph.replay()
+        torch.testing.assert_close(ours.detach(), ref.detach(), atol=1e-5,
+                                   rtol=1e-5, msg=str(i))

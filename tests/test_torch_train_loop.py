@@ -86,7 +86,7 @@ def test_loader_yields_the_jax_loaders_sequence(spine_data, seed):
     ref = jloader.TrainLoader(jds, batch_size=2, num_workers=1, seed=seed,
                               mode="device", wire_dtype="float32")
     ours = tloader.TrainLoader(tds, batch_size=2, num_workers=1, seed=seed,
-                               mode="auto", wire_dtype="float32")
+                               mode="device", wire_dtype="float32")
     wire = tloader.TrainLoader(tds, batch_size=2, num_workers=1, seed=seed,
                                mode="device", wire_dtype="bfloat16")
     try:
@@ -125,10 +125,30 @@ def test_host_mode_runs_compose(spine_data):
         loader.stop()
 
 
-def test_loader_rejects_device_cache(spine_data):
-    tds = MedicalDataset(spine_data, spine_data, [], 20)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tloader.TrainLoader(tds, batch_size=1, mode="device_cache")
+def test_loader_device_cache_mode_on_the_spine_data(spine_data):
+    """``auto`` holds the three (8, 32, 32) volumes on the device: the
+    loader yields index vectors into ``unique_pairs`` (each volume once,
+    though the list repeats it ten times), and ``build_device_cache`` holds
+    the volumes the ``device`` mode would ship, in the same wire dtypes."""
+    tds = MedicalDataset(spine_data, spine_data, [RandomFlip3D()], 20)
+    cached = tloader.TrainLoader(tds, batch_size=2, num_workers=1, seed=0,
+                                 wire_dtype="bfloat16")
+    device = tloader.TrainLoader(tds, batch_size=2, num_workers=1, seed=0,
+                                 mode="device", wire_dtype="bfloat16")
+    try:
+        assert cached.mode == "device_cache" and len(tds) == 30
+        assert len(cached.unique_pairs) == 3
+        images, labels = cached.build_device_cache("cpu")
+        assert images.shape == labels.shape == (3, 8, 32, 32)
+        for _ in range(4):
+            idx = next(cached)
+            want_images, want_labels = next(device)
+            assert idx.dtype == np.int32 and idx.shape == (2,)
+            assert torch.equal(images[idx], want_images)
+            assert torch.equal(labels[idx], want_labels)
+    finally:
+        cached.stop()
+        device.stop()
 
 
 def test_eval_loader_yields_the_jax_loaders_items(spine_data):
@@ -278,13 +298,31 @@ def test_train_saves_evicts_and_resumes_exactly(tmp_path, spine_data,
                               m0["Conv_0"]["kernel"])
 
 
-def test_train_rejects_what_is_not_ported(tmp_path, spine_data):
-    cfg = tconfig.Config(_spine_yaml(tmp_path, spine_data))
-    for kw, item in (({"data_loader_mode": "device_cache"}, "item 4"),
-                     ({"profiler_options": "batch_range=[1,2]"}, "item 4"),
-                     ({"steps_per_dispatch": 2}, "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            train(None, cfg.train_dataset, device="cpu", **kw)
+def test_cli_dispatches_cached_steps_and_profiles(tmp_path, spine_data):
+    """The CLI with ``--loader_mode device_cache --steps_per_dispatch 2
+    --profiler_options``: four iterations in two dispatches, both logged,
+    a checkpoint that loads, and a trace of iterations 1-3."""
+    path = _spine_yaml(tmp_path, spine_data)
+    out, trace = tmp_path / "out", tmp_path / "trace"
+    cmd = [sys.executable, "-m", "medicalseg_torch.train", "--config", path,
+           "--iters", "4", "--save_interval", "4", "--log_iters", "2",
+           "--save_dir", str(out), "--seed", "0", "--device", "cpu",
+           "--loader_mode", "device_cache", "--steps_per_dispatch", "2",
+           "--profiler_options", "batch_range=[1,3];profile_path={};"
+           "exit_on_finished=false".format(trace)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TrainLoader mode: device_cache" in proc.stdout
+    lines = [ln for ln in proc.stdout.splitlines() if "[TRAIN]" in ln]
+    assert len(lines) == 2 and "iter: 4/4" in lines[-1]
+    losses = [float(ln.split("loss: ")[1].split(",")[0]) for ln in lines]
+    assert all(np.isfinite(losses))
+    assert os.path.getsize(trace / "trace.json") > 0
+    model = tconfig.Config(path).model
+    optimizer = tconfig.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    assert tckpt.load_checkpoint(str(out / "iter_4"), model, optimizer) == 4
 
 
 def test_cli_trains_the_flagship_recipe_on_the_cpu(tmp_path, spine_data):
