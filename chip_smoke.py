@@ -209,6 +209,30 @@ JSON line; any failure raises and the script exits non-zero:
    evaluated volume (host clock), the device time of one evaluated volume
    (a profiled whole-volume evaluation), the mDice of each mode and the
    AUC.
+14. export (run right after serve): the served lung model's weights
+   through the export CLI (``medicalseg_torch.export.main``) on the card
+   at [2, 1, 128, 128, 128] with a 128^3 bucket, bf16 as the YAML says:
+   ``model.pt2``, ``model_128x128x128.pt2``, ``model.msgpack`` and the
+   manifest. The four volumes of serve through the exported manifest,
+   plain (a warm-up and two requests) and bucketed (two requests), each
+   run through its ``.pt2`` program. The counts are set to 0 just before
+   each run and read just after: exactly the eval forwards the run
+   implies, so the programs launch the hand kernels (the ``torch.library``
+   ops) and no 5^3 conv runs elsewhere; one weight packing per conv (the
+   packed-weight cache hits on the program's parameters after the first
+   forward); argmax agreement with serve's predictions (the rebuilt
+   module) >= 99.5%. Then a program exported with ``--without_argmax``
+   against the rebuilt module's logits on one batch (its launches those
+   of one forward): the max abs difference, and whether it is 0. Prints
+   the export seconds and ms per batch of both paths.
+15. prep (after serve_swl): the lung recipe of the port's prep tools
+   (``medicalseg_torch.tools.prepare_lung_coronavirus``: HUnorm, then
+   resample to 128^3, labels with order 0) on three seeded int16 scans of
+   200 x 512 x 512 and their labels in {0, 1, 2}, written as ``.nii``:
+   first with the device backend on the card, then with the host backend
+   (numpy / scipy). Fatal: the same files and list files, images within
+   ``PREP_TOL`` of the host's, labels equal. Prints seconds a scan of
+   each backend.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -288,6 +312,11 @@ PINS = [(32, 64), (64, 32), (128, 16), (256, 8),
         (128, 16), (64, 32), (32, 64), (16, 128)]
 SCAN = (200, 512, 512)  # a raw CT scan: slices x rows x columns
 HU_TOL = 1e-3  # hu_resize vs plain, on the window's 0..255 scale
+# the prep tools' lung recipe, card against the host backend (numpy /
+# scipy): float32 against scipy's float64 interpolation, on the window's
+# 0..255 scale; labels (nearest) exactly
+PREP_SCANS = 3
+PREP_TOL = 1e-3
 # int8 against bf16 serving, same random-init weights: share of voxels
 # with the same argmax
 INT8_AGREE = 0.99
@@ -792,7 +821,7 @@ def plain_ops():
     its plain version (the reference path on the card). The autograd
     Functions stay in place: only what they launch changes."""
     names = ("_conv5_forward", "conv5_kl_fused", "conv5_dgrad_kl",
-             "conv5_wgrad_kl", "_pin_forward")
+             "conv5_wgrad_kl", "_pin_forward", "_pin_cuda")
     saved = [getattr(c5, n) for n in names]
     c5._conv5_forward = lambda xk, w, b, kind: c5.conv5_kl_plain(xk, w, b)
     c5.conv5_kl_fused = (lambda xk, w, b, ep, kind="head":
@@ -801,6 +830,7 @@ def plain_ops():
     c5.conv5_wgrad_kl = (lambda xk, gk, kind="head":
                          c5.conv5_wgrad_kl_plain(xk, gk))
     c5._pin_forward = c5.pin_kl_plain
+    c5._pin_cuda = c5.pin_kl_plain  # the pin op's CUDA implementation
     saved_hu = hr._hu_resize_d_cuda
     hr._hu_resize_d_cuda = (
         lambda x, out_d, hu_min, hu_max, hu_nan: hr.hu_resize_d_plain(
@@ -924,6 +954,109 @@ def phase_serve(workdir):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
           "profile": profile})
     return launches
+
+
+def phase_export(workdir):
+    """The seeded lung model (``write_deploy``'s weights) through the export
+    CLI on the card, then served from the exported manifest (module
+    docstring, ``export``)."""
+    from medicalseg_torch import export as export_cli
+    imgs = sorted(os.path.join(workdir, "images", f)
+                  for f in os.listdir(os.path.join(workdir, "images")))
+    served = [np.load(os.path.join(workdir, "pred", os.path.basename(p)))
+              for p in imgs]  # phase_serve's predictions (rebuilt module)
+    out, out_logits = (os.path.join(workdir, d) for d in ("export",
+                                                          "export_logits"))
+    common = ["--config", LUNG_TPU, "--model_path",
+              os.path.join(workdir, "model.pt"), "--input_shape",
+              str(BATCH), "1", str(EDGE), str(EDGE), str(EDGE)]
+    t0 = time.perf_counter()
+    export_cli.main(export_cli.parse_args(common + [
+        "--save_dir", out, "--shape_buckets", str(EDGE), str(EDGE),
+        str(EDGE)]))
+    export_s = time.perf_counter() - t0
+    import yaml
+    with open(os.path.join(out, "deploy.yaml")) as f:
+        manifest = yaml.safe_load(f)["Deploy"]
+    check(manifest["model"] == "model.pt2" and manifest["bucket_models"] == {
+        "{0}x{0}x{0}".format(EDGE): "model_{0}x{0}x{0}.pt2".format(EDGE)},
+          "exported manifest {}".format(manifest))
+    manifest.update(shape_buckets=[], bucket_models={})
+    with open(os.path.join(out, "deploy_plain.yaml"), "w") as f:
+        yaml.dump({"Deploy": manifest}, f)
+
+    packs = [0]
+    saved_pack = c5._pack_weights_wg, c5._pack_weights_stem
+
+    def counted(fn):
+        def pack(*args, **kw):
+            packs[0] += 1
+            return fn(*args, **kw)
+        return pack
+
+    runs = {}
+    c5._pack_weights_wg, c5._pack_weights_stem = map(counted, saved_pack)
+    try:
+        # plain batches: a warm-up and two requests; buckets: two requests
+        for mode, config, forwards in (("plain", "deploy_plain.yaml", 3),
+                                       ("buckets", "deploy.yaml", 2)):
+            predictor = make_predictor(out, "pred_" + mode, "--batch_size",
+                                       str(BATCH), config=config)
+            program = (predictor._program if mode == "plain" else None)
+            packs[0] = 0
+            reset_counts()
+            saved = predictor.run(imgs)
+            torch.cuda.synchronize()
+            launches = dict(c5.LAUNCHES)
+            if mode == "buckets":
+                program = predictor._bucket_calls[(EDGE,) * 3]
+            check(program is not None, mode + ": the .pt2 program did not "
+                  "serve")
+            expect = forward_counts(forwards)
+            check(launches == expect, "{}: launch counts {} != expected "
+                  "{}".format(mode, launches, expect))
+            # one packing per conv: later forwards find it in the cache
+            check(packs[0] == 16, "{}: {} weight packings for {} forwards"
+                  .format(mode, packs[0], forwards))
+            agree = min(float((np.load(p) == ref).mean())
+                        for p, ref in zip(saved, served))
+            check(agree >= 0.995, "{}: argmax agreement with the rebuilt "
+                  "module {} < 0.995".format(mode, agree))
+            inf_s = predictor.timer.stages["inference"]
+            runs[mode] = {"launches": launches, "weight_packings": packs[0],
+                          "argmax_agreement_vs_rebuilt": agree,
+                          "ms_per_batch": 1e3 * float(np.mean(inf_s)),
+                          "ms_per_batch_each": [1e3 * t for t in inf_s]}
+    finally:
+        c5._pack_weights_wg, c5._pack_weights_stem = saved_pack
+
+    # the logits: a program without the argmax against the rebuilt module
+    t0 = time.perf_counter()
+    export_cli.main(export_cli.parse_args(common + [
+        "--save_dir", out_logits, "--without_argmax"]))
+    logits_export_s = time.perf_counter() - t0
+    module = torch.export.load(os.path.join(out_logits, "model.pt2")).module()
+    with torch.inference_mode():
+        x = torch.cat([predictor._preprocess(p) for p in imgs[:BATCH]])
+        module.load_state_dict({"net." + k: v for k, v in
+                                predictor.model.state_dict().items()})
+        reset_counts()
+        got = module(x)
+        torch.cuda.synchronize()
+        check(dict(c5.LAUNCHES) == forward_counts(1), "logits program: "
+              "launch counts {}".format(dict(c5.LAUNCHES)))
+        ref = predictor.model(x)[0]
+    check(got.shape == ref.shape and got.dtype == ref.dtype == torch.float32,
+          "logits program shape/dtype")
+    max_d = (got - ref).abs().max().item()
+    emit({"phase": "export", "gpu": smi_line(), "batch": BATCH,
+          "input_shape": [BATCH, 1, EDGE, EDGE, EDGE],
+          "export_seconds": export_s,
+          "logits_export_seconds": logits_export_s,
+          "pt2_mb": os.path.getsize(os.path.join(out, "model.pt2")) / 2 ** 20,
+          "plain": runs["plain"], "buckets": runs["buckets"],
+          "max_abs_logit_diff_vs_rebuilt": max_d,
+          "logits_identical": max_d == 0.0})
 
 
 def raw_scan(shape, seed, device="cuda"):
@@ -1066,6 +1199,84 @@ def phase_serve_raw(workdir):
           "big_scan_vol_per_s": BATCH / (pre[0] + inf_s[0]),
           "launches": launches, "argmax_agreement_vs_plain": agree})
     return launches, scans[0]
+
+
+def phase_prep(workdir):
+    """The lung recipe of the port's prep tools on raw scans, on the card
+    and with the host backend (module docstring, ``prep``)."""
+    from medicalseg_torch.tools import preprocess_utils as pu
+    from medicalseg_torch.tools import prepare_lung_coronavirus as lung
+    root = os.path.join(workdir, "prep")
+    raw = os.path.join(root, "lung_coronavirus_raw")
+    os.makedirs(os.path.join(raw, "20_ncov_scan"))
+    os.makedirs(os.path.join(raw, "lung_mask"))
+    t0 = time.perf_counter()
+    for i in range(PREP_SCANS):
+        name = "coronacases_org_00{}.nii".format(i + 1)
+        medio.write_image(os.path.join(raw, "20_ncov_scan", name),
+                          np.nan_to_num(raw_scan(SCAN, 40 + i).cpu().numpy())
+                          .astype(np.int16), spacing=(0.7, 0.7, 1.5))
+        medio.write_image(os.path.join(raw, "lung_mask", name.replace(
+            "_org_", "_")), np.random.RandomState(50 + i).randint(
+                0, 3, SCAN).astype(np.int16), spacing=(0.7, 0.7, 1.5))
+    write_s = time.perf_counter() - t0
+    prep = lung.Prep_lung_coronavirus(dataset_root=root)
+    check(len(prep.image_files) == len(prep.label_files) == PREP_SCANS,
+          "prep: raw files {} / {}".format(prep.image_files,
+                                           prep.label_files))
+    prep.generate_dataset_json(
+        modalities=("CT",), labels={0: "background", 1: "lung",
+                                    2: "infection"},
+        dataset_name="COVID-19 CT scans")
+    phase_dir = os.path.normpath(prep.phase_path)
+    seconds, outs = {}, {}
+    saved = pu.use_device(), pu.global_var["device"]
+    try:
+        for backend, on in (("gpu", True), ("cpu", False)):
+            pu.set_use_device(on)
+            pu.set_device("cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep.load_save(preprocess=prep.preprocess)
+            torch.cuda.synchronize()
+            seconds[backend] = time.perf_counter() - t0
+            prep.generate_txt()
+            os.rename(phase_dir, phase_dir + "_" + backend)
+            os.makedirs(prep.image_path)
+            os.makedirs(prep.label_path)
+            outs[backend] = phase_dir + "_" + backend
+    finally:
+        pu.set_use_device(saved[0])
+        pu.set_device(saved[1])
+    img_err, label_diff = 0.0, 0
+    for sub in ("images", "labels"):
+        names = sorted(os.listdir(os.path.join(outs["gpu"], sub)))
+        check(names == sorted(os.listdir(os.path.join(outs["cpu"], sub)))
+              and len(names) == PREP_SCANS, "prep: {} {}".format(sub, names))
+        for name in names:
+            got, ref = (np.load(os.path.join(outs[b], sub, name))
+                        for b in ("gpu", "cpu"))
+            check(got.shape == ref.shape == (EDGE,) * 3 and got.dtype ==
+                  ref.dtype == (np.float32 if sub == "images" else np.int32),
+                  "prep: {} {} {} {}".format(name, got.shape, got.dtype,
+                                             ref.dtype))
+            if sub == "images":
+                check(bool(np.isfinite(got).all()), "prep: non-finite image")
+                img_err = max(img_err, float(np.abs(got - ref).max()))
+            else:
+                label_diff += int((got != ref).sum())
+    for txt in ("train_list.txt", "val_list.txt"):
+        check(open(os.path.join(outs["gpu"], txt)).read() == open(
+            os.path.join(outs["cpu"], txt)).read(), "prep: " + txt)
+    check(img_err <= PREP_TOL, "prep: images on the card differ from the "
+          "host backend's by {} > {}".format(img_err, PREP_TOL))
+    check(label_diff == 0, "prep: {} label voxels differ".format(label_diff))
+    emit({"phase": "prep", "gpu": smi_line(), "scans": PREP_SCANS,
+          "scan": list(SCAN), "recipe": "lung: HUnorm + resample to 128^3 "
+          "(labels order 0)", "write_seconds": write_s,
+          "seconds_per_scan": {b: t / PREP_SCANS for b, t in seconds.items()},
+          "max_abs_image_diff_vs_cpu": img_err,
+          "label_voxels_differing": label_diff})
 
 
 def phase_serve_swl(workdir, scan):
@@ -2376,10 +2587,12 @@ def main():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         write_deploy(wd)
         launches = phase_serve(wd)
+        phase_export(wd)
         stats.update(phase_kernels_ingest())
         raw_launches, scan = phase_serve_raw(wd)
         launches["hu_resize"] = raw_launches["hu_resize"]
         phase_serve_swl(wd, scan)
+        phase_prep(wd)
     stats.update(phase_kernels_bwd())
     train_launches = phase_train()
     launches.update({k: train_launches[k] for k in BWD_KERNELS})

@@ -10,9 +10,9 @@ label, image_path). ``raw_item`` gives the untransformed pair for the
 device augmentation path.
 
 ``dataset_root=None`` asks for the reference's download, which the port
-does not do: it raises (the prep tools are ROADMAP, modules to port, item
-8); give the directory that ``tools/generate_synthetic_dataset.py`` or
-the prep tools wrote.
+does not do: it raises; give the directory that
+``tools/generate_synthetic_dataset.py`` or the port's prep tools
+(``medicalseg_torch/tools/prepare_*.py``) wrote.
 """
 
 import os
@@ -61,9 +61,11 @@ class MedicalDataset:
         if self.dataset_root is None:
             raise NotImplementedError(
                 "dataset_root is None: the reference downloads the dataset "
-                "from {!r}, the port does not (the prep tools are ROADMAP, "
-                "modules to port, item 8); set dataset_root to a prepared "
-                "phase0 directory".format(data_URL))
+                "from {!r}, the port does not; prepare the raw data with "
+                "the port's prep tools (python -m "
+                "medicalseg_torch.tools.prepare_<dataset>) and set "
+                "dataset_root to the phase0 directory they write".format(
+                    data_URL))
         if not os.path.exists(self.dataset_root):
             raise ValueError(
                 "The `dataset_root` don't exist please specify the correct "

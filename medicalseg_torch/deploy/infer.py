@@ -2,9 +2,10 @@
 """Deployment inference runner on the GPU.
 
 Counterpart of ``deploy/python/infer.py``, with the same CLI flags and the
-same ``deploy.yaml`` schema (written by ``export.py``). ``DeployConfig``
-parses the manifest, ``Predictor`` rebuilds the model from
-``model_config``, loads ``params`` and serves a list of volumes with
+same ``deploy.yaml`` schema (written by either package's export CLI).
+``DeployConfig`` parses the manifest, ``Predictor`` loads the exported
+programs or rebuilds the model from ``model_config``, loads ``params`` and
+serves a list of volumes with
 optional stage timings (``--benchmark``), an ``output_op`` of argmax |
 softmax | none, and ``.npy`` results. Modes, as in the JAX runner:
 
@@ -25,17 +26,32 @@ softmax | none, and ``.npy`` results. Modes, as in the JAX runner:
 
 Differences from the JAX runner:
 
-* ``params`` names a PyTorch ``state_dict`` file (``.pt``); the ``model``
-  and ``bucket_models`` StableHLO entries are ignored: one rebuilt module
-  serves every shape.
+* ``model`` and ``bucket_models`` name ``torch.export`` programs
+  (``.pt2``, written by ``python -m medicalseg_torch.export``). A program
+  serves plain batches (``model``) or its bucket at its fixed shape; a
+  batch of another size is split into blocks of the program's N, the last
+  padded with its last volume. Another entry (the JAX package's
+  ``.stablehlo``) or a missing file leaves the module rebuilt from
+  ``model_config`` to serve, and the runner logs which path it took; a
+  ``.pt2`` that does not load raises. int8 and ``--use_swl`` always take
+  the rebuilt module, as in the JAX runner, and so does a ``--precision``
+  other than the program's dtype. A program runs on the device it was
+  exported on.
+* ``params`` is a PyTorch ``state_dict`` (``.pt``) or the JAX layout
+  (``.msgpack``, as either package's export and checkpoints write it).
+  The weights served are the params file's: they are loaded into the
+  program's module too, under the same names.
 * ``--device`` is ``cuda`` (default) or ``cpu``. With ``cuda`` and no GPU
   the runner raises; it never carries on on the CPU.
 * ``--precision`` names the compute dtype; without it the
   ``model_config``'s ``dtype`` holds.
 * Preprocessed volumes stay on the device, and the ``preprocess`` stage
-  timer waits for the device before it reads the clock.
-* A non-empty ``transforms`` list in the manifest (host transforms) raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  timer waits for the device before it reads the clock. A non-empty
+  ``transforms`` list (host transforms, built from the port's
+  ``TRANSFORMS`` registry) runs where the JAX runner runs it, after the
+  HU window and resize and before the division by the max, on the host:
+  the volume makes one round trip to the host. An empty list keeps it on
+  the device.
 
 Run: ``python -m medicalseg_torch.deploy.infer --config deploy.yaml
 --image_path scan.nii.gz --precision bf16`` (``--use_swl true``,
@@ -44,6 +60,7 @@ Run: ``python -m medicalseg_torch.deploy.infer --config deploy.yaml
 
 import argparse
 import codecs
+import functools
 import os
 import time
 
@@ -55,9 +72,12 @@ import torch.nn.functional as F
 
 from .. import io as medio
 from .. import ops
+from .. import transforms as _transforms  # noqa: F401 (registers them)
 from ..core.sliding_window import sliding_window_inference_batched
-from ..cvlibs.config import build_model
-from ..utils import get_image_list, logger, quant, strtobool
+from ..cvlibs import manager
+from ..cvlibs.config import DTYPES, build_model
+from ..utils import get_image_list, logger, quant, strtobool, transplant
+from ..utils.msgpack_codec import unpackb
 from ..utils.utils import resolve_device
 
 # int8 names the weights' storage; its compute dtype is bf16
@@ -112,7 +132,18 @@ class DeployConfig:
 
     @property
     def transforms(self):
-        return self.dic["Deploy"].get("transforms", []) or []
+        """The host transforms, built from the ``TRANSFORMS`` registry."""
+        built = []
+        for t in self.dic["Deploy"].get("transforms", []) or []:
+            t = dict(t)
+            kind = t.pop("type")
+            built.append(manager.TRANSFORMS[kind](**t))
+        return built
+
+    @property
+    def model_file(self):
+        name = self.dic["Deploy"].get("model")
+        return os.path.join(self._dir, name) if name else None
 
     @property
     def params_file(self):
@@ -136,6 +167,19 @@ class DeployConfig:
         """(d, h, w) bucket shapes for variable-size routing."""
         return [tuple(b) for b in
                 self.dic["Deploy"].get("shape_buckets", []) or []]
+
+    def bucket_model_file(self, key):
+        models = self.dic["Deploy"].get("bucket_models", {}) or {}
+        return os.path.join(self._dir, models[key]) if key in models else None
+
+
+def read_params(path):
+    """A ``state_dict`` on the CPU from a ``.pt`` file or from a
+    ``.msgpack`` in the JAX layout."""
+    if path.endswith(".msgpack"):
+        with open(path, "rb") as f:
+            return transplant.state_dict_from_flax(unpackb(f.read()))
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class TimeLogger:
@@ -165,34 +209,89 @@ class Predictor:
         self.cfg = DeployConfig(args.config)
         self.timer = TimeLogger()
         self.device = resolve_device(args.device)
-        if self.cfg.transforms:
-            raise NotImplementedError(
-                "deploy transforms are not read by the runner yet (ROADMAP, "
-                "modules to port, item 7: export and the runner's "
-                "manifest)")
         if self.cfg.output_op not in ("argmax", "softmax", "none"):
             raise ValueError("output_op must be argmax, softmax or none, "
                              "got {!r}".format(self.cfg.output_op))
-        dtype = PRECISIONS[args.precision] if args.precision else None
-        # built without storage: every tensor comes from the params file
-        with torch.device("meta"):
-            self.model = build_model(self.cfg.model_config, dtype=dtype)
-        self.model.eval()
+        self.transforms = self.cfg.transforms
+        self.dtype = PRECISIONS[args.precision] if args.precision else None
+        self._state = read_params(self.cfg.params_file)
+        self._model = None
         self._qstate = None
-        if args.precision == "int8":
+        self._bucket_calls = {}  # bucket -> program call or None
+        self._program = None
+        if not (args.use_swl or self.cfg.shape_buckets):
+            self._program = self._load_program(self.cfg.model_file, "model")
+        if args.use_swl or args.precision == "int8" or not (
+                self._program or self.cfg.shape_buckets):
+            self._model = self._rebuild()  # this mode serves through it
+        self._warmed = False
+
+    @property
+    def model(self):
+        """The module rebuilt from ``model_config`` with the params file's
+        weights: built with the runner where its mode serves through it,
+        else at first use."""
+        if self._model is None:
+            self._model = self._rebuild()
+        return self._model
+
+    def _rebuild(self):
+        """The module of ``model_config`` with the params file's weights.
+        With int8 weights its parameters stay on the meta device and the
+        weights live in ``_qstate``."""
+        # built without storage: every tensor comes from the params
+        with torch.device("meta"):
+            model = build_model(self.cfg.model_config, dtype=self.dtype)
+        model.eval()
+        if self.args.precision == "int8":
             # quantized on the host at load time; what moves to the device
             # and stays there is int8 + f32 scales
-            state = torch.load(self.cfg.params_file, map_location="cpu",
-                               weights_only=True)
-            self._transposed = quant.transposed_conv_weights(self.model)
+            self._transposed = quant.transposed_conv_weights(model)
             self._qstate = {k: v.to(self.device) for k, v in
                             quant.quantize_state_dict(
-                                state, self._transposed).items()}
+                                self._state, self._transposed).items()}
         else:
-            state = torch.load(self.cfg.params_file,
-                               map_location=self.device, weights_only=True)
-            self.model.load_state_dict(state, assign=True)
-        self._warmed = False
+            model.load_state_dict({k: v.to(self.device) for k, v in
+                                   self._state.items()}, assign=True)
+        return model
+
+    def _load_program(self, path, what):
+        """A call of the exported program at ``path`` with the params
+        file's weights, or None where the rebuilt module serves ``what``
+        (int8, the sliding window, another precision than the program's, a
+        path that is not a ``.pt2`` file or does not exist). Logs which."""
+        config_dtype = self.cfg.model_config.get("dtype", torch.float32)
+        config_dtype = DTYPES.get(config_dtype, config_dtype)
+        reason = None
+        if self.args.precision == "int8" or self.args.use_swl:
+            reason = "int8" if self.args.precision == "int8" else "--use_swl"
+        elif not path or not path.endswith(".pt2"):
+            reason = "{} is not a .pt2 program".format(path)
+        elif not os.path.exists(path):
+            reason = "{} does not exist".format(path)
+        elif self.dtype not in (None, config_dtype):
+            reason = "--precision {} and a {} program".format(
+                self.args.precision, config_dtype)
+        if reason is not None:
+            logger.info("{}: serving through the module rebuilt from "
+                        "model_config ({})".format(what, reason))
+            return None
+        program = torch.export.load(path)
+        user_inputs = program.graph_signature.user_inputs
+        shape = next(tuple(n.meta["val"].shape) for n in program.graph.nodes
+                     if n.op == "placeholder" and n.name in user_inputs)
+        module = program.module()
+        devices = {t.device.type for t in module.state_dict().values()}
+        if devices != {self.device.type}:
+            raise ValueError("{} runs on {}, the runner on {}: export it "
+                             "with --device {}".format(
+                                 path, devices, self.device,
+                                 self.device.type))
+        module.load_state_dict({"net." + k: v for k, v in
+                                self._state.items()})
+        logger.info("{}: serving through the exported program {} at "
+                    "{}".format(what, path, list(shape)))
+        return functools.partial(_split_pad, module, shape)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -201,10 +300,11 @@ class Predictor:
     def _model_call(self, x):
         """``model(x)``; with int8 weights, through the state dequantized
         for this call."""
+        model = self.model
         if self._qstate is None:
-            return self.model(x)
+            return model(x)
         state = quant.dequantize_state_dict(self._qstate, self._transposed)
-        return torch.func.functional_call(self.model, state, (x,))
+        return torch.func.functional_call(model, state, (x,))
 
     def _output(self, logits):
         if self.cfg.output_op == "softmax":
@@ -215,9 +315,14 @@ class Predictor:
             out = logits
         return out.cpu().numpy()  # .cpu() waits for the device
 
-    def _forward(self, batch):
+    def _forward(self, batch, program=None):
+        """The output of one batch as a host array: through ``program``
+        (its output op inside), else the rebuilt module and the output
+        op."""
         with torch.inference_mode():
             x = torch.as_tensor(batch).to(self.device)
+            if program is not None:
+                return program(x).cpu().numpy()
             return self._output(self._model_call(x)[0])
 
     # ------------------------------------------------------------------
@@ -241,8 +346,12 @@ class Predictor:
             d, h, w = vol.shape[1:4]
             vols.append(F.pad(vol, (0, 0, 0, bucket[2] - w,
                                     0, bucket[1] - h, 0, bucket[0] - d)))
+        if bucket not in self._bucket_calls:
+            key = "{}x{}x{}".format(*bucket)
+            self._bucket_calls[bucket] = self._load_program(
+                self.cfg.bucket_model_file(key), "bucket " + key)
         t0 = time.time()
-        out = self._forward(torch.cat(vols))
+        out = self._forward(torch.cat(vols), self._bucket_calls[bucket])
         self.timer.record("inference", time.time() - t0)
         t0 = time.time()
         for j, (path, vol, _) in enumerate(pend):
@@ -271,9 +380,10 @@ class Predictor:
         """One volume as float32 [1, D, H, W, 1] on the device, divided by
         its max. ``.npy`` passes as it is; a raw medical image is
         HU-windowed and, unless the sliding window will keep its native
-        resolution, resized to the export shape."""
+        resolution, resized to the export shape. The manifest's transforms
+        then run on the host copy, before the division."""
         if path.endswith(".npy"):
-            vol = torch.from_numpy(np.load(path)).to(self.device)
+            vol = np.load(path)
         else:
             data, _ = medio.read_image(path)
             # cast on the host, as the JAX runner does; pageable upload
@@ -282,6 +392,12 @@ class Predictor:
                 vol = ops.hu_norm(raw)
             else:
                 vol = ops.hu_norm_resize(raw, self.cfg.input_shape[1:4])
+        if self.transforms:
+            vol = torch.as_tensor(vol).cpu().numpy()
+            for op in self.transforms:
+                vol = op(vol)[0]
+            vol = np.asarray(vol, np.float32)
+        vol = torch.as_tensor(vol).to(self.device)
         return ops.scale_by_max(vol)[None, ..., None]
 
     def _save(self, path, out, results):
@@ -354,11 +470,11 @@ class Predictor:
             if not self._warmed:
                 # first call loads the kernels and sizes the allocator
                 # outside the timed path
-                self._forward(batch)
+                self._forward(batch, self._program)
                 self._warmed = True
 
             t0 = time.time()
-            out = self._forward(batch)
+            out = self._forward(batch, self._program)
             self.timer.record("inference", time.time() - t0)
 
             t0 = time.time()
@@ -382,6 +498,24 @@ class Predictor:
         if self.args.benchmark:
             self.timer.report()
         return results
+
+
+def _split_pad(module, shape, x):
+    """``module`` (an exported program of fixed input ``shape``) over a
+    batch ``x`` of any size: blocks of the program's N, the last padded
+    with copies of its last volume, the outputs cut back to the batch."""
+    if tuple(x.shape[1:]) != tuple(shape[1:]):
+        raise ValueError("the exported program takes volumes of {}, got "
+                         "{}".format(list(shape[1:]), list(x.shape[1:])))
+    fixed_n, outs = shape[0], []
+    for start in range(0, x.shape[0], fixed_n):
+        block = x[start:start + fixed_n]
+        k = block.shape[0]
+        if k < fixed_n:
+            block = torch.cat([block, block[-1:].expand(
+                fixed_n - k, *block.shape[1:])])
+        outs.append(module(block)[:k])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def main(args):

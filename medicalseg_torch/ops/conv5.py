@@ -23,7 +23,10 @@ kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
 convs on views a tensor copy can describe: :func:`conv5_wgrad_form`),
 ``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16) and
 ``csrc/conv5_wgrad.cu`` (the rest), db is a plain f32 sum.
-:func:`conv5_kl_fused` is inference-only.
+:func:`conv5_kl_fused` is inference-only. It and the no-grad pin of
+:func:`pin_kl` call the ``torch.library`` ops ``medicalseg::conv5_fused``
+and ``medicalseg::pin`` (the eval forward's kernels), so that
+``torch.export`` keeps them as nodes of an exported program.
 
 One wrapper covers every 5^3 conv of V-Net: Ci from 1 to 256, Co from 1
 to 256, in bfloat16 or float32, with f32 accumulation and a single cast of
@@ -189,7 +192,9 @@ def conv5_wgrad_kl_plain(xk, gk):
 
 
 def pin_kl_plain(xk):
-    return xk.contiguous()
+    """A contiguous copy of ``xk`` (a new tensor even where ``xk`` is
+    contiguous: an op's output never aliases its input)."""
+    return xk.clone(memory_format=torch.contiguous_format)
 
 
 # ----------------------------------------------------------------------
@@ -1102,9 +1107,7 @@ def conv5_kl_fused(xk, w, b, ep: Sequence[torch.Tensor], kind="head"):
         raise RuntimeError(
             "conv5_kl_fused has no backward: call it under torch.no_grad() "
             "or use conv5_kl with a separate BatchNorm and activation")
-    if xk.device.type == "cpu":
-        return conv5_kl_plain(xk, w, b, ep)
-    return _conv5_cuda(xk, w, b, kind, tuple(ep))
+    return torch.ops.medicalseg.conv5_fused(xk, w, b, *ep, kind)
 
 
 def conv5(x, w, b, kind="head"):
@@ -1140,7 +1143,7 @@ def pin_kl(xk: torch.Tensor):
     if xk.is_contiguous():
         return xk
     if not (torch.is_grad_enabled() and xk.requires_grad):
-        return _pin_forward(xk)  # nothing to record: skip the Function
+        return torch.ops.medicalseg.pin(xk)  # nothing to record
     return _PinKL.apply(xk)
 
 
@@ -1199,3 +1202,62 @@ def _pin_cuda(xk):
             rc))
     LAUNCHES["pin"] += 1
     return y
+
+
+# ----------------------------------------------------------------------
+# the eval forward's kernels as torch.library ops
+# ----------------------------------------------------------------------
+# ``torch.export`` traces a model with fake tensors, which have no
+# ``data_ptr()`` for a ctypes launch. As ops of their own, the fused conv
+# and the pin enter an exported program as single nodes: a fake
+# implementation gives the tracer the output's shape, dtype and layout, and
+# the program calls the CUDA implementation (the kernel) on the card and
+# the CPU implementation (the plain version) on the CPU. No other device
+# has an implementation, and neither op has a backward: the training path
+# keeps its autograd Functions. Registered through ``torch.library.Library``
+# rather than ``custom_op``, whose Python layers cost the host several
+# times more a call.
+_LIB = torch.library.Library("medicalseg", "DEF")
+_LIB.define("conv5_fused(Tensor xk, Tensor w, Tensor b, Tensor inv, "
+            "Tensor shift, Tensor alpha, str kind) -> Tensor")
+_LIB.define("pin(Tensor xk) -> Tensor")
+
+
+def _conv5_fused_op_cpu(xk, w, b, inv, shift, alpha, kind):
+    """``medicalseg::conv5_fused`` (:func:`conv5_kl_fused` as an op): x [N,
+    D, Ci, H, W] (W contiguous), w [5, 5, 5, Ci, Co], b and the epilogue
+    (inv, shift, alpha) [Co] -> contiguous [N, D, Co, H, W] in x's dtype.
+    The CPU implementation."""
+    return conv5_kl_plain(xk, w, b, (inv, shift, alpha))
+
+
+def _conv5_fused_op_cuda(xk, w, b, inv, shift, alpha, kind):
+    return _conv5_cuda(xk, w, b, kind, (inv, shift, alpha))
+
+
+def _conv5_fused_op_fake(xk, w, b, inv, shift, alpha, kind):
+    n, d, _, h, ww = xk.shape
+    return xk.new_empty((n, d, w.shape[4], h, ww))
+
+
+def _pin_op_cpu(xk):
+    """``medicalseg::pin``: a contiguous copy of ``xk`` (5-D, 2- or 4-byte
+    elements on the card). The CPU implementation."""
+    return pin_kl_plain(xk)
+
+
+def _pin_op_cuda(xk):
+    return _pin_cuda(xk)
+
+
+def _pin_op_fake(xk):
+    return torch.empty_like(xk, memory_format=torch.contiguous_format)
+
+
+_LIB.impl("conv5_fused", _conv5_fused_op_cpu, "CPU")
+_LIB.impl("conv5_fused", _conv5_fused_op_cuda, "CUDA")
+torch.library.register_fake("medicalseg::conv5_fused", _conv5_fused_op_fake,
+                            lib=_LIB)
+_LIB.impl("pin", _pin_op_cpu, "CPU")
+_LIB.impl("pin", _pin_op_cuda, "CUDA")
+torch.library.register_fake("medicalseg::pin", _pin_op_fake, lib=_LIB)

@@ -34,20 +34,27 @@ def strtobool(v):
         "expected a boolean, got {!r}".format(v))
 
 
-def get_image_list(image_path):
+def get_image_list(image_path, valid_suffix=None, filter_key=None):
     """Medical image files under ``image_path`` (a file or a directory,
-    searched recursively), by suffix, sorted. As reference
-    utils.py:142-202 without its suffix and keyword filters, which no
-    caller of the port sets."""
+    searched recursively), sorted. As reference utils.py:142-202:
+    ``valid_suffix`` whitelists suffixes (default: every medical suffix);
+    ``filter_key`` is a dict of {keyword: bool}, and a file is kept only
+    if, for every keyword, (keyword in its name) == bool."""
+    if valid_suffix is None:
+        valid_suffix = MEDICAL_SUFFIXES
 
     def keep(fname):
-        return fname.lower().endswith(MEDICAL_SUFFIXES)
+        if not fname.lower().endswith(tuple(s.lower() for s in valid_suffix)):
+            return False
+        return all((key in fname) == val
+                   for key, val in (filter_key or {}).items())
 
     image_list = []
     if os.path.isfile(image_path):
         if not keep(os.path.basename(image_path)):
-            raise FileNotFoundError("{} does not end in one of {}".format(
-                image_path, MEDICAL_SUFFIXES))
+            raise FileNotFoundError(
+                "{} is not a file with valid suffix {} and filter {}".format(
+                    image_path, valid_suffix, filter_key))
         image_list.append(image_path)
     elif os.path.isdir(image_path):
         for root, _, fnames in os.walk(image_path):

@@ -615,6 +615,7 @@ def _plain_path(monkeypatch):
     monkeypatch.setattr(c5, "conv5_wgrad_kl", lambda xk, gk, kind="head":
                         c5.conv5_wgrad_kl_plain(xk, gk))
     monkeypatch.setattr(c5, "_pin_forward", c5.pin_kl_plain)
+    monkeypatch.setattr(c5, "_pin_cuda", c5.pin_kl_plain)  # the pin op's
 
 
 def test_vnet_kernel_path_matches_plain_path(dev, monkeypatch):
@@ -723,6 +724,42 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
                 scale = want[name[:-4] + "weight"].grad.norm()
             rel = (a.grad - want[name].grad).norm() / scale.clamp_min(1e-30)
             assert rel < 2e-2, (name, rel.item())
+
+
+def test_library_ops_and_an_exported_program_on_the_card(dev, tmp_path):
+    """The ``torch.library`` ops on CUDA tensors pass ``opcheck`` (their
+    fake implementations against the kernels' outputs), and a V-Net
+    exported on the card launches the hand kernels (at 32^3: 15 head and
+    1 stem conv, all fused, and 8 pins) and gives the module's logits bit
+    for bit."""
+    from medicalseg_torch import export
+    x, w, b, ep = _conv_inputs((1, 4, 16, 8, 16), 8, dev, seed=7)
+    xb = x.bfloat16()
+    for args in ((xb, w, b, *ep, "head"),
+                 (xb[:, :, :1].contiguous(), w[:, :, :, :1], b, *ep,
+                  "stem")):
+        result = torch.library.opcheck(
+            torch.ops.medicalseg.conv5_fused.default, args)
+        assert set(result.values()) == {"SUCCESS"}
+    result = torch.library.opcheck(torch.ops.medicalseg.pin.default,
+                                   (xb.transpose(1, 2),))
+    assert set(result.values()) == {"SUCCESS"}
+
+    gen = torch.Generator().manual_seed(8)
+    model = VNet(num_classes=3, generator=gen).to(dev).eval()
+    vol = torch.rand((2, 32, 32, 32, 1), generator=gen).to(dev)
+    export.export_program(
+        export.SavedSegmentationNet(model, with_argmax=False), vol,
+        str(tmp_path / "model.pt2"))
+    module = torch.export.load(str(tmp_path / "model.pt2")).module()
+    c5.reset_launches()
+    with torch.inference_mode():
+        got = module(vol)
+        launches = {k: v for k, v in c5.LAUNCHES.items() if v}
+        ref = model(vol)[0]
+    assert launches == {"conv5_head": 15, "conv5_stem": 1,
+                        "conv5_fused_epilogue": 16, "pin": 8}
+    assert torch.equal(got, ref)
 
 
 def test_predictor_serves_on_the_card(dev, tmp_path):

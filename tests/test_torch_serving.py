@@ -1,6 +1,9 @@
 """The port's serving path (medicalseg_torch.deploy.infer) against the JAX
 VNet, its config layer, its device rule and its import boundary."""
+import argparse
+import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 
@@ -121,42 +124,104 @@ def test_cli_main_runs_on_cpu(tmp_path):
     np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", ["use_swl", "int8", "buckets", "raw"])
-def test_unported_paths_raise_not_implemented(tmp_path, flag):
-    """What the runner does not do yet is the manifest's host transforms:
-    a non-empty ``transforms`` list raises and names its ROADMAP item, in
-    every serving mode. The modes themselves are served."""
-    model_cfg = {"type": "VNet", "num_classes": 2}
-    from medicalseg_torch.models import VNet
-    from medicalseg_torch.utils import flax_from_state_dict
-    variables = flax_from_state_dict(VNet(num_classes=2).state_dict())
-    deploy = {"shape_buckets": [[16, 16, 16]]} if flag == "buckets" else {}
-    deploy["input_shape_ndhwc"] = [1, 16, 16, 16, 1]
-    extra = {"use_swl": ["--use_swl", "true"],
-             "int8": ["--precision", "int8"]}.get(flag, [])
-    transforms = [{"type": "Resize3D", "size": 16}]
-    config = _deploy_dir(tmp_path, variables, model_cfg,
-                         transforms=transforms, **deploy)
-    args = _args(config, str(tmp_path), str(tmp_path / "pred"), "--device",
-                 "cpu", *extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        infer.Predictor(args)
+@pytest.fixture(scope="module")
+def jax_runner():
+    """deploy/python/infer.py as a module, under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_deploy_infer_serving", os.path.join(ROOT, "deploy", "python",
+                                                 "infer.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
-    config = _deploy_dir(tmp_path, variables, model_cfg, **deploy)
-    predictor = infer.Predictor(_args(
-        config, str(tmp_path), str(tmp_path / "pred"), "--device", "cpu",
-        *extra))
-    if flag == "raw":
+
+@pytest.fixture(scope="module")
+def msgpack_weights(tmp_path_factory):
+    """A seeded JAX VNet (2 classes) with non-trivial BatchNorm statistics
+    as one ``model.msgpack``, the params file of both runners."""
+    tmp = tmp_path_factory.mktemp("weights")
+    path = tmp / "model.msgpack"
+    jmodel = JVNet(in_channels=1, num_classes=2)
+    variables = jax.jit(lambda k, a: jmodel.init(k, a, train=False))(
+        jax.random.PRNGKey(5), jnp.zeros((1, 16, 16, 16, 1)))
+    rng = np.random.RandomState(5)
+    stats = jax.tree_util.tree_map(
+        lambda leaf: (0.5 + 0.1 * rng.rand(*leaf.shape)).astype(np.float32),
+        flax.core.unfreeze(variables["batch_stats"]))
+    variables = {"params": jax.device_get(
+        flax.core.unfreeze(variables["params"])), "batch_stats": stats}
+    path.write_bytes(flax.serialization.to_bytes(variables))
+    yield path
+    shutil.rmtree(tmp, ignore_errors=True)  # 180 MB of weights
+
+
+# (transforms of the manifest, volume written, deploy extras, port flags)
+# per serving mode: each transform changes the volume the model sees
+TRANSFORM_MODES = {
+    "use_swl": ([{"type": "Resize3D", "size": [20, 24, 28]}], "npy", {},
+                ["--use_swl", "true"]),
+    "int8": ([{"type": "Resize3D", "size": 32, "order": 1}], "npy", {},
+             ["--precision", "int8"]),
+    "buckets": ([{"type": "Resize3D", "size": 24}], "npy",
+                {"shape_buckets": [[16, 16, 16], [32, 32, 32]]}, []),
+    "raw": ([{"type": "Resize3D", "size": [32, 32, 32]}], "nii.gz", {}, []),
+}
+
+
+@pytest.mark.parametrize("flag", ["use_swl", "int8", "buckets", "raw"])
+def test_unported_paths_raise_not_implemented(tmp_path, flag, jax_runner,
+                                              msgpack_weights):
+    """A non-empty ``transforms`` list in the manifest, once refused with
+    ``NotImplementedError``, is served in every mode: the port's runner
+    and ``deploy/python/infer.py`` read one manifest and one
+    ``model.msgpack``, run the host transforms after the HU window and
+    resize and before the division by the max, and agree. The
+    preprocessed volumes within 1e-6 (1e-3 / 255 for the raw scan, whose
+    window and resize run in f32 in other orders); the saved predictions
+    on >= 99.9% of voxels in f32 and >= 90% with int8 weights (bf16
+    compute, the JAX package's own bar for int8)."""
+    transforms, form, deploy, extra = TRANSFORM_MODES[flag]
+    manifest = {"Deploy": {  # params by its absolute path: no copy
+        "model": "model.stablehlo", "params": str(msgpack_weights),
+        "transforms": transforms, "output_op": "argmax",
+        "input_shape_ndhwc": [1, 16, 16, 16, 1],
+        "model_config": {"type": "VNet", "num_classes": 2}, **deploy}}
+    config = tmp_path / "deploy.yaml"
+    config.write_text(yaml.dump(manifest))
+    rng = np.random.RandomState(7)
+    if form == "npy":
+        path = str(tmp_path / "vol.npy")
+        np.save(path, rng.rand(16, 16, 16).astype(np.float32))
+    else:
         from medicalseg_torch import io as medio
         path = str(tmp_path / "scan.nii.gz")
-        medio.write_image(path, np.random.RandomState(0).randint(
-            -1500, 800, (10, 12, 14)).astype(np.int16))
-    else:
-        path = str(tmp_path / "vol.npy")
-        np.save(path, np.random.RandomState(0).rand(16, 16, 16).astype(
-            np.float32))
-    out = np.load(predictor.run([path])[0])
-    assert out.shape == (16, 16, 16) and out.dtype == np.int32
+        medio.write_image(path, rng.randint(-1500, 800, (10, 12, 14)).astype(
+            np.int16))
+
+    predictor = infer.Predictor(_args(
+        str(config), path, str(tmp_path / "port"), "--device", "cpu",
+        *extra))
+    assert [type(t).__name__ for t in predictor.transforms] == ["Resize3D"]
+    jargs = argparse.Namespace(
+        config=str(config), image_path=path, batch_size=1,
+        save_dir=str(tmp_path / "jax"), device="cpu",
+        precision="int8" if flag == "int8" else "fp32",
+        enable_auto_tune=False, benchmark=False, with_argmax=False,
+        use_swl=flag == "use_swl")
+    jpredictor = jax_runner.Predictor(jargs)
+
+    x = predictor._preprocess(path).numpy()
+    ref_x = jpredictor._preprocess(path)
+    size = transforms[0]["size"]
+    assert x.shape == ref_x.shape == (1, *(
+        size if isinstance(size, list) else [size] * 3), 1)
+    np.testing.assert_allclose(x, ref_x, atol=1e-3 / 255 if form != "npy"
+                               else 1e-6)
+    got = np.load(predictor.run([path])[0])
+    ref = np.load(jpredictor.run([path])[0])
+    assert got.shape == ref.shape == x.shape[1:4]
+    assert got.dtype == ref.dtype == np.int32
+    assert (got == ref).mean() >= (0.9 if flag == "int8" else 0.999)
 
 
 def test_cuda_entry_point_raises_without_gpu(tmp_path):

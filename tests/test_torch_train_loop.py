@@ -166,7 +166,8 @@ def test_eval_loader_yields_the_jax_loaders_items(spine_data):
 def test_datasets_refuse_to_download():
     from medicalseg_torch.datasets import LungCoronavirus, MRISpineSeg
     for cls in (LungCoronavirus, MRISpineSeg):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError,
+                           match="medicalseg_torch.tools.prepare_"):
             cls(num_classes=3)
 
 
