@@ -182,8 +182,9 @@ JSON line; any failure raises and the script exits non-zero:
    ``iter_3`` to 6. The counts are set to 0 before the first run and read
    after the second: every flagship kernel, exactly as nine steps imply.
    Both checkpoints load (steps 3 and 6, finite), every logged loss is
-   finite. Prints each log window's loss, batch cost (ms per iteration)
-   and reader cost, and one profiled iteration of the loop (batch from
+   finite, and the loader logs that it reads through the native reader.
+   Prints each log window's loss, batch cost (ms per iteration) and
+   reader cost, and one profiled iteration of the loop (batch from
    the prefetcher, draws, step): device time and idle share. Then the
    same with the dataset held on the card, three steps a dispatch and a
    trace (``--loader_mode device_cache --steps_per_dispatch 3
@@ -233,6 +234,23 @@ JSON line; any failure raises and the script exits non-zero:
    (numpy / scipy). Fatal: the same files and list files, images within
    ``PREP_TOL`` of the host's, labels equal. Prints seconds a scan of
    each backend.
+16. native (run right after build): the native volume reader
+   (``medicalseg_torch.data_native`` over ``csrc/medloader.cpp``, built
+   with ``g++``): the gzip backend that built and ``g++ --version``'s
+   first line. On four seeded 12 x 512 x 512 spine volumes (train_cli's
+   data) the loader in ``device`` mode (batch 3, bf16 / uint8 wire,
+   pinned, the CLI's one reader thread) against the numpy read the loader
+   made before (``np.load``, ``np.stack``, cast, pinned): six batches of
+   the seeded sequence bit for bit and pinned; the ms of one batch both
+   ways with the volumes held in memory, and read from the files (new
+   readers; ``np.load``); ``build_device_cache`` against the same numpy
+   staging, seconds each, bit for bit. A seeded int16 ``.nii.gz`` scan of
+   ``GZ_SCAN`` inflated by ``gzip_read_bytes`` against the gzip module
+   (byte for byte, ms each) and read by ``io.nifti.read`` (equal to the
+   volume written), then ``load_nii_hu_resize`` to 128^3 on the host
+   against the card path (read, upload, the ``hu_resize`` kernel and the
+   H/W passes) within ``NATIVE_HU_TOL`` on the window's 0..255 scale, ms
+   each.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -243,6 +261,7 @@ train phase) and, last, the
 
 import contextlib
 import copy
+import gzip
 import json
 import logging
 import os
@@ -370,6 +389,14 @@ EVAL_RUNS = (("whole", []), ("sw2", ["--sw_num", "2"]),
              ("auc_int8", ["--auc_roc", "true", "--weights_precision",
                            "int8"]))
 EVAL_MDICE_TOL = 1e-2
+# the native phase: device-mode batches held to the numpy reads, the
+# inflate's scan (int16; gzip of a full scan would take most of the
+# script's time), and the host's fused HU window + resize against the card
+# path (the hu_resize kernel, then the H/W passes) on the window's 0..255
+# scale, float32 sums in another order
+NATIVE_BATCHES = 6
+GZ_SCAN = (64, 512, 512)
+NATIVE_HU_TOL = HU_TOL
 # dataset.json geometry of the eval volumes (x, y, z)
 EVAL_GEOMETRY = {"spacing_resample": [0.75, 0.75, 1.5],
                  "origin": [-12.5, 3.0, 40.0],
@@ -550,6 +577,196 @@ def phase_build():
     paths = _build.build()
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": [p.name for p in paths.values()]})
+
+
+def write_spine_phase0(wd):
+    """Four seeded 12 x 512 x 512 spine volumes (float32 in [0, 255]) and
+    labels in [0, 20) (uint8) as ``.npy`` with train and val lists under
+    ``wd/phase0``; returns that directory."""
+    phase0 = os.path.join(wd, "phase0")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(phase0, sub))
+    rng = np.random.RandomState(TRAIN_SEED)
+    lines = []
+    for i in range(4):
+        name = "spine{}.npy".format(i)
+        np.save(os.path.join(phase0, "images", name),
+                (rng.rand(*FLAGSHIP_STEM[1:]) * 255).astype(np.float32))
+        np.save(os.path.join(phase0, "labels", name),
+                rng.randint(0, 20, FLAGSHIP_STEM[1:]).astype(np.uint8))
+        lines.append("images/{0} labels/{0}\n".format(name))
+    for split in ("train", "val"):
+        with open(os.path.join(phase0, split + "_list.txt"), "w") as f:
+            f.writelines(lines)
+    return phase0
+
+
+def host_ms(fn, reps=5, sync=False):
+    """(last result, median host-clock ms of ``reps`` calls of ``fn``),
+    each call synchronized with the card when ``sync``."""
+    times = []
+    for _ in range(reps):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def numpy_batch(pairs, uidx, img_dtype, lab_dtype, held=None):
+    """A device-mode batch as the loader read it with numpy before the
+    native reader: ``np.load`` (kept in ``held`` as its LRU cache kept the
+    volumes; each call reads the files when None), ``np.stack`` as float32,
+    cast to the wire dtypes, pinned as the prefetcher pinned it."""
+    vols = []
+    for i in uidx:
+        item = None if held is None else held.get(i)
+        if item is None:
+            item = tuple(np.load(p) for p in pairs[i])
+            if held is not None:
+                held[i] = item
+        vols.append(item)
+    images = np.stack([np.asarray(v[0], np.float32) for v in vols])
+    labels = np.stack([np.asarray(v[1]) for v in vols])
+    return (torch.from_numpy(images).to(img_dtype).pin_memory(),
+            torch.from_numpy(labels).to(lab_dtype).pin_memory())
+
+
+def phase_native():
+    """The native volume reader (module docstring, ``native``)."""
+    from medicalseg_torch import data_native
+    from medicalseg_torch.core.loader import TrainLoader
+    from medicalseg_torch.datasets import MedicalDataset
+    t0 = time.perf_counter()
+    backend = data_native.backend()
+    line = {"phase": "native", "gpu": smi_line(), "backend": backend,
+            "gxx": _build.gxx_identity(_build._gxx(), False).splitlines()[0],
+            "build_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        phase0 = write_spine_phase0(wd)
+        ds = MedicalDataset(phase0, phase0, [RandomFlip3D()], 20)
+        kw = dict(batch_size=FLAGSHIP_STEM[0], num_workers=0,
+                  seed=TRAIN_SEED, wire_dtype="bfloat16")
+        loader = TrainLoader(ds, mode="device", pin_memory=True, **kw)
+        index = TrainLoader(ds, mode="device_cache", **kw)
+        pairs = loader.unique_pairs
+        wire = (loader._img_dtype, loader._lab_dtype)
+        held = {}
+        try:
+            for _ in range(NATIVE_BATCHES):
+                uidx = next(index)  # the same seeded sequence
+                got = next(loader)
+                want = numpy_batch(pairs, uidx, *wire, held)
+                check(all(t.is_pinned() for t in got), "a native batch "
+                      "is not in pinned memory")
+                check(all(g.dtype == w.dtype and torch.equal(g, w)
+                          for g, w in zip(got, want)),
+                      "native batch {} differs from the numpy read".format(
+                          list(uidx)))
+            # one batch, every volume in each reader's cache (in ``held``)
+            _, native_ms = host_ms(lambda: loader.read_batch(uidx))
+            _, numpy_ms = host_ms(lambda: numpy_batch(pairs, uidx, *wire,
+                                                      held))
+            _, numpy_read_ms = host_ms(lambda: numpy_batch(pairs, uidx,
+                                                           *wire))
+        finally:
+            loader.stop()
+            index.stop()
+
+        def native_cold():  # new readers: the files read again
+            readers = [data_native.NativeVolumeLoader(
+                [p[k] for p in pairs], threads=1) for k in (0, 1)]
+            try:
+                images, labels = (torch.empty(
+                    (len(uidx),) + FLAGSHIP_STEM[1:], dtype=w,
+                    pin_memory=True) for w in wire)
+                images.copy_(torch.from_numpy(readers[0].load_batch(uidx)))
+                return images, readers[1].load_batch(uidx, wire[1],
+                                                     out=labels)
+            finally:
+                for r in readers:
+                    r.close()
+
+        _, native_read_ms = host_ms(native_cold)
+        line["reader"] = {
+            "batch": list(map(int, uidx)), "wire": [str(w) for w in wire],
+            "batches_equal": NATIVE_BATCHES,
+            "native_ms": native_ms, "numpy_ms": numpy_ms,
+            "native_new_readers_ms": native_read_ms,
+            "numpy_from_files_ms": numpy_read_ms}
+
+        cached = TrainLoader(ds, mode="device_cache", **kw)
+        try:
+            got, native_s = host_ms(lambda: cached.build_device_cache("cuda"),
+                                    reps=1, sync=True)
+        finally:
+            cached.stop()
+
+        def numpy_cache():
+            shape = np.load(pairs[0][0], mmap_mode="r").shape
+            images = torch.empty((len(pairs),) + shape, dtype=wire[0])
+            labels = torch.empty((len(pairs),) + shape, dtype=wire[1])
+            for i, (img, lab) in enumerate(pairs):
+                images[i] = torch.from_numpy(np.load(img))
+                labels[i] = torch.from_numpy(np.load(lab))
+            return images.to("cuda"), labels.to("cuda")
+
+        want, numpy_s = host_ms(numpy_cache, reps=1, sync=True)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "the native device cache differs from the numpy one")
+        line["device_cache"] = {"volumes": len(pairs),
+                                "native_s": native_s / 1e3,
+                                "numpy_s": numpy_s / 1e3}
+        del got, want
+
+        scan = os.path.join(wd, "ct.nii.gz")
+        vol = np.nan_to_num(raw_scan(GZ_SCAN, 40).cpu().numpy()).astype(
+            np.int16)
+        t0 = time.perf_counter()
+        medio.write_image(scan, vol, spacing=(0.7, 0.7, 1.5))
+        write_s = time.perf_counter() - t0
+
+        def gzip_module():
+            with gzip.open(scan, "rb") as f:
+                return f.read()
+
+        raw, inflate_ms = host_ms(lambda: data_native.gzip_read_bytes(scan),
+                                  reps=3)
+        ref, gzip_ms = host_ms(gzip_module, reps=3)
+        check(raw is not None and bytes(raw) == ref, "the native inflate "
+              "differs from the gzip module's bytes")
+        read, read_ms = host_ms(lambda: medio.read_image(scan)[0], reps=3)
+        check(np.array_equal(read, vol), "io.nifti.read of the .nii.gz "
+              "differs from the volume written")
+        del raw, ref
+
+        size = (EDGE,) * 3
+        host, nii_ms = host_ms(lambda: data_native.load_nii_hu_resize(
+            scan, size, out_dtype="float32"), reps=3)
+        hr.reset_launches()
+        card, card_ms = host_ms(lambda: hr.hu_norm_resize(torch.from_numpy(
+            medio.read_image(scan)[0]).to("cuda"), size), reps=3, sync=True)
+        check(hr.LAUNCHES["hu_resize"] == 3, "the card path did not run the "
+              "hu_resize kernel: {}".format(hr.LAUNCHES))
+        err = (host.to("cuda") - card).abs().max().item()
+        check(tuple(host.shape) == size and err <= NATIVE_HU_TOL,
+              "load_nii_hu_resize differs from the hu_resize kernel's path: "
+              "max |d| {}".format(err))
+        line["inflate"] = {"scan": list(GZ_SCAN), "dtype": "int16",
+                           "file_mb": os.path.getsize(scan) / 2 ** 20,
+                           "payload_mb": vol.nbytes / 2 ** 20,
+                           "write_s": write_s, "native_ms": inflate_ms,
+                           "gzip_module_ms": gzip_ms,
+                           "nifti_read_ms": read_ms}
+        line["hu_resize"] = {"size": list(size), "max_abs_err": err,
+                             "tol": NATIVE_HU_TOL,
+                             "host_load_nii_hu_resize_ms": nii_ms,
+                             "card_read_upload_kernel_ms": card_ms}
+    emit(line)
+    return line
 
 
 def phase_kernels():
@@ -1759,21 +1976,7 @@ def phase_train_cli():
     profiled iteration (the second) of the first run: device time and idle
     share."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
-        phase0 = os.path.join(wd, "phase0")
-        for sub in ("images", "labels"):
-            os.makedirs(os.path.join(phase0, sub))
-        rng = np.random.RandomState(TRAIN_SEED)
-        lines = []
-        for i in range(4):
-            name = "spine{}.npy".format(i)
-            np.save(os.path.join(phase0, "images", name),
-                    (rng.rand(*FLAGSHIP_STEM[1:]) * 255).astype(np.float32))
-            np.save(os.path.join(phase0, "labels", name),
-                    rng.randint(0, 20, FLAGSHIP_STEM[1:]).astype(np.uint8))
-            lines.append("images/{0} labels/{0}\n".format(name))
-        for split in ("train", "val"):
-            with open(os.path.join(phase0, split + "_list.txt"), "w") as f:
-                f.writelines(lines)
+        write_spine_phase0(wd)
         cfg = Config(SPINE).dic
         cfg["data_root"] = wd
         for key in ("train_dataset", "val_dataset"):
@@ -1789,12 +1992,17 @@ def phase_train_cli():
                 str(TRAIN_SEED), "--loader_mode", "device"]
 
         reset_counts()
-        with TrainLog() as log, IterationProfile(at=2) as prof:
+        with TrainLog("[TRAIN]", "TrainLoader mode") as log, \
+                IterationProfile(at=2) as prof:
             t0 = time.perf_counter()
             first = train_cli.main(train_cli.parse_args(argv))
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-        first_lines = log.lines
+        reader = [ln for ln in log.lines if "TrainLoader mode" in ln]
+        check(len(reader) == 1 and "mode: device " in reader[0] and
+              "reader=native" in reader[0], "the CLI's loader did not read "
+              "through the native reader: {}".format(reader))
+        first_lines = [ln for ln in log.lines if "[TRAIN]" in ln]
         check(first.step == 6 and sorted(os.listdir(out)) ==
               ["iter_3", "iter_6"], "the CLI left {} at step {}".format(
                   sorted(os.listdir(out)), first.step))
@@ -1840,6 +2048,7 @@ def phase_train_cli():
           "ms_per_iter_steady": windows[1]["batch_cost"] * 1e3,
           "reader_cost_ms_steady": windows[1]["reader_cost"] * 1e3,
           "run_s": first_s, "resumed_run_s": resumed_s,
+          "loader": reader[0],
           "profiled_iteration": 2,
           "iteration_profile": prof.stats,
           "launches_per_step": {k: v / 9 for k, v in launches.items()},
@@ -1905,9 +2114,10 @@ def cli_cached(wd, yml):
     train_profiler.reset()
     torch.cuda.empty_cache()
     lines = log.lines
-    check(sum("mode: device_cache" in ln for ln in lines) == 2,
-          "the cached CLI runs did not hold the data on the card: "
-          "{}".format(lines))
+    check(sum("mode: device_cache" in ln and "reader=native" in ln
+              for ln in lines) == 2,
+          "the cached CLI runs did not hold the data on the card, read "
+          "through the native reader: {}".format(lines))
     lines = [ln for ln in lines if "[TRAIN]" in ln]
     launches = dict(c5.LAUNCHES)
     replays = [step.graphed.replays for step in built.steps]
@@ -2582,8 +2792,9 @@ def phase_train_graph():
 def main():
     phase_device()
     phase_build()
-    stats = phase_kernels()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    phase_native()
+    stats = phase_kernels()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         write_deploy(wd)
         launches = phase_serve(wd)

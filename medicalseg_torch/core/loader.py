@@ -13,10 +13,10 @@ loader with a producer thread a batch or two ahead, in one of three modes.
     unique_pairs`; the train step gathers its batch on the card
     (``core.state.make_cached_train_step``).
   * ``device`` (``auto``'s choice for larger or mixed-shape datasets with
-    device transforms): the producer reads and stacks raw phase0 ``.npy``
-    volumes; augmentation runs on the card at the head of the train step
-    (:class:`~medicalseg_torch.transforms.DeviceAugmentor`). A byte-bounded
-    LRU cache keeps hot volumes in host memory.
+    device transforms): the producer reads each batch of raw phase0
+    ``.npy`` volumes in one call of the native reader; augmentation runs
+    on the card at the head of the train step
+    (:class:`~medicalseg_torch.transforms.DeviceAugmentor`).
   * ``host``: Compose runs per sample across ``num_workers`` threads
     (the reference's DataLoader).
 
@@ -26,13 +26,23 @@ same seed gives the same index sequence in every mode. Batches are CPU
 tensors in a wire format: ``wire_dtype='bfloat16'`` ships images as bf16
 and labels as uint8 (int16 where the classes or the ignore index need it),
 2-4x fewer bytes than float32 / int32; the train step widens them on the
-card. The device cache holds the volumes in the same wire dtypes. The
-native C++ reader is ROADMAP item 8; the port reads with numpy.
+card. The device cache holds the volumes in the same wire dtypes.
+
+In ``device`` and ``device_cache`` modes the volumes are read by the
+native C++ reader (:class:`~medicalseg_torch.data_native.
+NativeVolumeLoader`: a thread pool with its own LRU byte cache and
+prefetch), one for the images and one for the labels over
+:attr:`TrainLoader.unique_pairs`, as the JAX loader reads them: images as
+float32, labels as uint8 when the wire label dtype is uint8 and as int32
+otherwise, each cast to the wire dtype. With ``pin_memory`` (batches bound
+for a card) a ``device`` batch is read into a fresh buffer of torch's
+pinned allocator, so the prefetcher copies it without pinning it again.
+Where the native reader cannot be built, these modes raise with the
+compiler's output. ``host`` mode runs the dataset's Compose in Python.
 """
 
 import queue
 import threading
-from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -56,52 +66,24 @@ def _wire_label_dtype(dataset, wire_dtype):
     return torch.int16 if top < 1 << 15 else torch.int32
 
 
-class _LRUBytes:
-    """Byte-bounded LRU cache of decoded volumes (host RAM): real CT sets
-    run 200+ MB a volume, so an unbounded dict would run a long run out of
-    memory."""
-
-    def __init__(self, cap_bytes):
-        self.cap = int(cap_bytes)
-        self.bytes = 0
-        self.data = OrderedDict()
-        self.lock = threading.Lock()
-
-    def get(self, key):
-        with self.lock:
-            if key in self.data:
-                self.data.move_to_end(key)
-                return self.data[key]
-        return None
-
-    def put(self, key, value):
-        with self.lock:
-            if key in self.data:
-                self.data.move_to_end(key)
-                return
-            self.data[key] = value
-            self.bytes += sum(np.asarray(v).nbytes for v in value)
-            while self.bytes > self.cap and len(self.data) > 1:
-                _, old = self.data.popitem(last=False)
-                self.bytes -= sum(np.asarray(v).nbytes for v in old)
-
-
 class TrainLoader:
     """Infinite shuffled batch iterator over a MedicalDataset.
 
     Yields, in the wire dtypes (module docstring):
       * device mode: (images [N, D, H, W] raw, labels [N, D, H, W]) CPU
-        tensors;
+        tensors, pinned with ``pin_memory``;
       * device_cache mode: int32 index vectors [N] (numpy) into
         :attr:`unique_pairs`, the rows of :meth:`build_device_cache`;
       * host mode: (images [N, D, H, W, 1] float transformed, labels int)
         CPU tensors.
-    Call :meth:`stop` when done.
+    ``cache_bytes`` is the budget of each native reader's cache of
+    decoded volumes (device modes). Call :meth:`stop` when done: it also
+    frees the native readers.
     """
 
     def __init__(self, dataset, batch_size, num_workers=2, seed=0,
-                 mode="auto", wire_dtype="float32", cache_bytes=8 << 30,
-                 device_cache_bytes=DEVICE_CACHE_BYTES):
+                 mode="auto", wire_dtype="float32", cache_bytes=2 << 30,
+                 device_cache_bytes=DEVICE_CACHE_BYTES, pin_memory=False):
         if mode not in MODES:
             raise ValueError("mode must be one of {}, got {!r}".format(
                 MODES, mode))
@@ -109,7 +91,6 @@ class TrainLoader:
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.rng = np.random.RandomState(seed)
-        self.cache = _LRUBytes(cache_bytes)
         self.wire_dtype = wire_dtype
         self._img_dtype = (torch.bfloat16 if wire_dtype in ("bfloat16", "bf16")
                            else torch.float32)
@@ -130,8 +111,19 @@ class TrainLoader:
             raise ValueError("device_cache requires device-supported "
                              "transforms")
         self.mode = mode
-        logger.info("TrainLoader mode: {} (batch_size={}, wire={})".format(
-            self.mode, batch_size, wire_dtype))
+        self.pin_memory = bool(pin_memory)
+        self._native = None
+        reader = "python"
+        if mode in ("device", "device_cache"):
+            from .. import data_native
+            self._native = tuple(
+                data_native.NativeVolumeLoader(
+                    [pair[k] for pair in self.unique_pairs],
+                    threads=self.num_workers, cache_bytes=cache_bytes)
+                for k in (0, 1))
+            reader = "native ({})".format(data_native.backend())
+        logger.info("TrainLoader mode: {} (batch_size={}, wire={}, reader="
+                    "{})".format(self.mode, batch_size, wire_dtype, reader))
 
         self._pool = (ThreadPoolExecutor(self.num_workers)
                       if mode == "host" and self.num_workers > 1 else None)
@@ -159,32 +151,65 @@ class TrainLoader:
                                              self._lab_dtype.itemsize)
         return per * len(self.unique_pairs)
 
+    def _read_labels_as(self):
+        """The dtype the native reader reads labels in: uint8 for a uint8
+        wire (clamped to [0, 255]), else int32 (cast to the wire dtype)."""
+        return torch.uint8 if self._lab_dtype == torch.uint8 else torch.int32
+
+    def _read(self, reader, indices, wire, read, out):
+        """Volumes ``indices`` of ``reader`` into ``out`` ([N, ...] of the
+        ``wire`` dtype): read as ``read`` straight into it when the dtypes
+        agree, else into a staging array and cast."""
+        if wire == read:
+            return reader.load_batch(indices, read, out=out)
+        return out.copy_(torch.from_numpy(reader.load_batch(indices, read)))
+
+    def read_batch(self, uidx):
+        """The device-mode batch of volumes ``unique_pairs[uidx]``:
+        (images, labels) [N, D, H, W] CPU tensors in the wire dtypes, read
+        by the native readers into a fresh buffer (pinned with
+        ``pin_memory``: the copy of the last batch to the card may still
+        read its buffer). ValueError when the volumes' shapes differ."""
+        images_in, labels_in = self._native
+        shape = (len(uidx),) + images_in.shape(uidx[0])
+        images = torch.empty(shape, dtype=self._img_dtype,
+                             pin_memory=self.pin_memory)
+        labels = torch.empty(shape, dtype=self._lab_dtype,
+                             pin_memory=self.pin_memory)
+        return (self._read(images_in, uidx, self._img_dtype, torch.float32,
+                           images),
+                self._read(labels_in, uidx, self._lab_dtype,
+                           self._read_labels_as(), labels))
+
     def build_device_cache(self, device="cuda"):
         """Stage every unique volume on ``device`` (device_cache mode):
         (images [V, D, H, W], labels [V, D, H, W]) in the wire dtypes, row
-        i holding ``unique_pairs[i]``. Raises ValueError when the shapes
-        differ."""
-        images = labels = None
-        shape = None
-        for i, (img_path, lab_path) in enumerate(self.unique_pairs):
-            img = np.load(img_path)
-            if shape is None:
-                shape = img.shape
-                n = len(self.unique_pairs)
-                images = torch.empty((n,) + shape, dtype=self._img_dtype)
-                labels = torch.empty((n,) + shape, dtype=self._lab_dtype)
-            elif img.shape != shape:
+        i holding ``unique_pairs[i]``, read by the native readers volume by
+        volume. Raises ValueError when the shapes differ."""
+        if self._native is None:
+            raise ValueError("build_device_cache reads through the native "
+                             "readers of the device modes; mode is "
+                             + self.mode)
+        images_in, labels_in = self._native
+        n = len(self.unique_pairs)
+        shape = images_in.shape(0)
+        images = torch.empty((n,) + shape, dtype=self._img_dtype)
+        labels = torch.empty((n,) + shape, dtype=self._lab_dtype)
+        for i in range(n):
+            got = images_in.shape(i)
+            if got != shape:
                 raise ValueError(
                     "device_cache requires uniform volume shapes; got {} "
-                    "vs {}".format(img.shape, shape))
-            images[i] = torch.from_numpy(np.asarray(img, np.float32))
-            labels[i] = torch.from_numpy(np.asarray(np.load(lab_path)))
+                    "vs {}".format(got, shape))
+            self._read(images_in, [i], self._img_dtype, torch.float32,
+                       images[i:i + 1])
+            self._read(labels_in, [i], self._lab_dtype,
+                       self._read_labels_as(), labels[i:i + 1])
         logger.info(
             "device cache: {} volumes, images {} {} + labels {} {} = "
             "{:.0f} MB on {}".format(
-                len(self.unique_pairs), tuple(images.shape), images.dtype,
-                tuple(labels.shape), labels.dtype,
-                (images.nbytes + labels.nbytes) / 1e6, device))
+                n, tuple(images.shape), images.dtype, tuple(labels.shape),
+                labels.dtype, (images.nbytes + labels.nbytes) / 1e6, device))
         return images.to(device), labels.to(device)
 
     def _next_indices(self):
@@ -201,33 +226,24 @@ class TrainLoader:
             self._pos += take
         return np.asarray(out)
 
-    def _load_raw(self, idx):
-        path = self.dataset.file_list[idx][0]
-        hit = self.cache.get(path)
-        if hit is None:
-            hit = self.dataset.raw_item(idx)
-            self.cache.put(path, hit)
-        return hit
-
     def _make_batch(self):
         idxs = self._next_indices()
+        uidx = [self._pair_index[tuple(self.dataset.file_list[i])]
+                for i in idxs]
         if self.mode == "device_cache":
-            return np.asarray([self._pair_index[tuple(
-                self.dataset.file_list[i])] for i in idxs], np.int32)
+            return np.asarray(uidx, np.int32)
         if self.mode == "device":
-            pairs = [self._load_raw(i) for i in idxs]
-            images = np.stack([np.asarray(p[0], np.float32) for p in pairs])
-            labels = np.stack([np.asarray(p[1]) for p in pairs])
-        else:
-            def one(i):
-                im, lab, _ = self.dataset[int(i)]
-                # Compose gives [1, D, H, W]; NDHWC wants [D, H, W, 1]
-                return (np.moveaxis(np.asarray(im, np.float32), 0, -1),
-                        np.asarray(lab))
-            items = (list(self._pool.map(one, idxs)) if self._pool
-                     else [one(i) for i in idxs])
-            images = np.stack([it[0] for it in items])
-            labels = np.stack([it[1] for it in items])
+            return self.read_batch(uidx)
+
+        def one(i):
+            im, lab, _ = self.dataset[int(i)]
+            # Compose gives [1, D, H, W]; NDHWC wants [D, H, W, 1]
+            return (np.moveaxis(np.asarray(im, np.float32), 0, -1),
+                    np.asarray(lab))
+        items = (list(self._pool.map(one, idxs)) if self._pool
+                 else [one(i) for i in idxs])
+        images = np.stack([it[0] for it in items])
+        labels = np.stack([it[1] for it in items])
         return (torch.from_numpy(images).to(self._img_dtype),
                 torch.from_numpy(labels).to(self._lab_dtype))
 
@@ -262,10 +278,15 @@ class TrainLoader:
         return item
 
     def stop(self):
+        """End the producer and free the native readers. A producer still
+        inside a native read holds its reader until the read returns;
+        :meth:`NativeVolumeLoader.close` waits for it."""
         self._stop.set()
         self._thread.join(timeout=10)
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
+        for reader in self._native or ():
+            reader.close()
 
     @property
     def iters_per_epoch(self):

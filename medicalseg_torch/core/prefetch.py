@@ -2,8 +2,9 @@
 """Host-to-device prefetch.
 
 Counterpart of ``medicalseg_tpu/core/prefetch.py``. A thread takes each
-host batch from the producer (the loader), pins it and starts its copy to
-the card on a side CUDA stream, recording an event behind the copy; the
+host batch from the producer (the loader), pins it (a no-op for a batch
+the loader read into pinned memory) and starts its copy to the card on a
+side CUDA stream, recording an event behind the copy; the
 consumer's stream waits on that event (the host does not), so the copy of
 batch k + 1 overlaps the step of batch k. Each tensor is marked with
 ``record_stream`` for the consumer's stream, so the caching allocator does

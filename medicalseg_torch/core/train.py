@@ -105,7 +105,8 @@ def train(model,
                                         save_interval))
     loader = TrainLoader(train_dataset, batch_size=batch_size,
                          num_workers=num_workers, seed=seed,
-                         mode=data_loader_mode, wire_dtype=wire_dtype)
+                         mode=data_loader_mode, wire_dtype=wire_dtype,
+                         pin_memory=device.type == "cuda")
     augment = (DeviceAugmentor(train_dataset.raw_transforms, seed=seed + 1)
                if loader.mode in ("device", "device_cache") else None)
     # the cached and multi-step forms replay a CUDA graph of the step

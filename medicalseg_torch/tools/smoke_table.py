@@ -10,7 +10,8 @@ forward and input-gradient times of the bf16 head convs (ms, packing
 apart where the run reports it, bound, library), the pin views, the
 ``kernels`` line, and the serving and training numbers (the cube step, the
 flagship's with and without its augmentation, the augmentation of each
-recipe alone and the train CLI's iterations). To compare two
+recipe alone and the train CLI's iterations), and the native reader's
+batch, device-cache and inflate times beside numpy's. To compare two
 commits, unpack the other one with ``git archive <commit> | tar -x -C
 build/parent`` and run its ``chip_smoke.py`` on the same card, one after
 the other.
@@ -41,7 +42,7 @@ def load(path):
                 run["bwd"][d["conv"]] = d
             elif phase in ("build", "serve", "serve_raw", "serve_swl",
                            "train", "train_flagship", "augment",
-                           "train_cli"):
+                           "train_cli", "native"):
                 run[phase] = d
             elif "kernels" in d:
                 run["kernels"] = {k["name"]: k for k in d["kernels"]}
@@ -127,6 +128,15 @@ def main(paths):
                   fmt(c.get("ms_per_iter_steady"), 1),
                   fmt(c.get("reader_cost_ms_steady"), 2),
                   c.get("windows"), fmt(prof.get("idle_share"))))
+        nat = run.get("native", {})
+        rd, dc, gz = (nat.get(k, {}) for k in ("reader", "device_cache",
+                                                "inflate"))
+        print("native reader ({}) batch ms {} (numpy {}) | device cache s "
+              "{} (numpy {}) | inflate ms {} (gzip module {})".format(
+                  nat.get("backend"), fmt(rd.get("native_ms"), 2),
+                  fmt(rd.get("numpy_ms"), 2), fmt(dc.get("native_s")),
+                  fmt(dc.get("numpy_s")), fmt(gz.get("native_ms"), 1),
+                  fmt(gz.get("gzip_module_ms"), 1)))
         print()
 
 

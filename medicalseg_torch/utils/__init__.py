@@ -1,5 +1,5 @@
 # Copyright 2026. Apache License 2.0.
-from . import logger, loss_utils, metric, quant, transplant
+from . import env, logger, loss_utils, metric, quant, transplant, visualize
 from .checkpoint import (load_checkpoint, load_entire_model,
                          load_pretrained_model, resume, save_checkpoint)
 from .config_check import config_check
@@ -10,8 +10,17 @@ from .utils import (get_image_list, get_sys_env, resolve_device, save_array,
                     seed_all, strtobool)
 
 __all__ = ["logger", "loss_utils", "metric", "quant", "transplant",
-           "state_dict_from_flax", "flax_from_state_dict", "get_image_list",
-           "resolve_device", "strtobool", "seed_all", "get_sys_env",
-           "save_array", "Progbar", "TimeAverager", "calculate_eta",
-           "config_check", "save_checkpoint", "load_checkpoint",
-           "load_pretrained_model", "load_entire_model", "resume"]
+           "visualize", "env", "state_dict_from_flax", "flax_from_state_dict",
+           "get_image_list", "resolve_device", "strtobool", "seed_all",
+           "get_sys_env", "save_array", "Progbar", "TimeAverager",
+           "calculate_eta", "config_check", "save_checkpoint",
+           "load_checkpoint", "load_pretrained_model", "load_entire_model",
+           "resume", *env.__all__]
+
+
+def __getattr__(name):
+    # the home directories, read (and a sub-home created) at each access
+    if name in env.__all__:
+        return getattr(env, name)
+    raise AttributeError("module {!r} has no attribute {!r}".format(
+        __name__, name))

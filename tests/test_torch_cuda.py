@@ -1185,3 +1185,55 @@ def test_capturable_optimizers_replay_as_torch_steps_eagerly(dev, kind):
             graph.replay()
         torch.testing.assert_close(ours.detach(), ref.detach(), atol=1e-5,
                                    rtol=1e-5, msg=str(i))
+
+
+def test_loader_reads_device_batches_into_pinned_memory(dev, tmp_path):
+    """With ``pin_memory`` (the train loop's setting for a card) a
+    ``device``-mode batch comes from the native reader in pinned memory,
+    equal to the unpinned loader's; the prefetcher's pin is then a no-op
+    (the same buffer) and its copy on the card equals the batch."""
+    from medicalseg_torch.core.loader import TrainLoader
+    from medicalseg_torch.core.prefetch import DevicePrefetcher
+    from medicalseg_torch.datasets import MedicalDataset
+    from medicalseg_torch.transforms import RandomFlip3D
+    phase0 = tmp_path / "phase0"
+    rng = np.random.RandomState(9)
+    lines = []
+    for i in range(3):
+        for sub, vol in (("images", rng.rand(6, 10, 12).astype(np.float32)),
+                         ("labels", rng.randint(0, 20, (6, 10, 12))
+                          .astype(np.uint8))):
+            (phase0 / sub).mkdir(parents=True, exist_ok=True)
+            np.save(phase0 / sub / "v{}.npy".format(i), vol)
+        lines.append("images/v{0}.npy labels/v{0}.npy\n".format(i))
+    (phase0 / "train_list.txt").write_text("".join(lines))
+    ds = MedicalDataset(str(phase0), str(phase0), [RandomFlip3D()], 20,
+                        repeat_train=2)
+    kw = dict(batch_size=2, num_workers=2, seed=1, mode="device",
+              wire_dtype="bfloat16")
+    pinned = TrainLoader(ds, pin_memory=True, **kw)
+    plain = TrainLoader(ds, **kw)
+    try:
+        for _ in range(4):
+            got, want = next(pinned), next(plain)
+            for g, w in zip(got, want):
+                assert g.is_pinned() and not w.is_pinned()
+                assert g.pin_memory().data_ptr() == g.data_ptr()
+                assert torch.equal(g, w)
+    finally:
+        pinned.stop()
+        plain.stop()
+    loader = TrainLoader(ds, pin_memory=True, **kw)
+    check = TrainLoader(ds, **kw)
+    prefetcher = DevicePrefetcher(loader, dev)
+    try:
+        for _ in range(4):
+            images, labels = next(prefetcher)
+            want_images, want_labels = next(check)
+            assert images.device.type == "cuda"
+            assert torch.equal(images.cpu(), want_images)
+            assert torch.equal(labels.cpu(), want_labels)
+    finally:
+        prefetcher.close()
+        loader.stop()
+        check.stop()
