@@ -252,6 +252,34 @@ JSON line; any failure raises and the script exits non-zero:
    H/W passes) within ``NATIVE_HU_TOL`` on the window's 0..255 scale, ms
    each.
 
+17. parallel (last): the data x space process mesh
+   (``medicalseg_torch.parallel``). One process first takes one eager
+   step of the cube (``LUNG_TPU``, bf16, remat, 2 x 128^3) and of the
+   flagship (``SPINE``, 6 x 12 x 512 x 512: its batch of 3 a data index)
+   at the global batch, then evaluates the stepped weights on the same
+   batch. Then four ranks (``chip_smoke.py --parallel-rank``; data 2 x
+   space 2, NCCL where the machine has a card a rank, else gloo with all
+   four on the one card) each take the same step on their rows and H
+   block: the loss within ``LOSS_REL``, every leaf's gradient within
+   ``GRAD_REL_L2`` and the BatchNorm statistics within ``PAR_STAT_TOL``
+   (scaled) of the one process's; the eval forward through the fused op
+   on the one process's stepped weights, its logits gathered over the
+   space ranks, argmax agreement >= ``PAR_AGREE``. The counts are set to
+   0 before each rank's step and read after it: every rank launches the
+   same kernels as often, every conv5 kernel of the path among them. The
+   operand shapes of every kernel launch are recorded (the halo'd H/2 + 4
+   rows among them), and the ranks share them out: each shape's kernel on
+   seeded operands against its plain version (bf16 ``TOL``; the weight
+   gradient scaled as kernels_bwd; the pin exact). Then ``torchrun`` with
+   two ranks: the train CLI at ``--space 2`` on the cube config and three
+   seeded 128^3 volumes (three iterations, ``--do_eval``), and the val CLI
+   over the two ranks against the val CLI in this process (mDice within
+   ``PAR_MDICE_TOL``, the log's four decimals). Any rank's failure fails
+   the run. Prints the backend, the card count, each rank's device, the
+   errors, each rank's step ms (host clock: four processes share one card
+   over gloo, a check of correctness, not of scaling) and the torchrun
+   seconds.
+
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
 phase, of ``hu_resize`` from serve_raw, of the backward kernels from the
@@ -2789,6 +2817,423 @@ def phase_train_graph():
     return line
 
 
+# ----------------------------------------------------------------------
+# parallel: the data x space process mesh
+# ----------------------------------------------------------------------
+PAR_WORLD, PAR_SPACE = 4, 2  # data 2 x space 2
+PAR_TIMEOUT = 480  # s: the four ranks together, from their start
+PAR_STAT_TOL = 2e-2  # BN statistics after the step, scaled_err, bf16
+PAR_AGREE = 0.995  # eval argmax agreement with one process
+PAR_MDICE_TOL = 5e-5  # torchrun val against one process (4-decimal log)
+# (name, config, batch per data index): the cube's 2 x 128^3 and the
+# flagship's 3 x 12 x 512 x 512 a data index
+PAR_CASES = (("cube", LUNG_TPU, 1), ("flagship", SPINE, 3))
+
+
+def _par_batch(name, batch, device):
+    """The seeded global batch of a sharded case, made alike in every
+    process: (images NDHWC f32, labels uint8)."""
+    if name == "cube":
+        rng = np.random.RandomState(TRAIN_SEED)
+        images = torch.from_numpy(rng.rand(batch, EDGE, EDGE, EDGE, 1).astype(
+            np.float32)).to(device)
+        labels = torch.from_numpy(rng.randint(
+            0, 3, (batch, EDGE, EDGE, EDGE)).astype(np.uint8)).to(device)
+        return images, labels
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    images = torch.rand((batch,) + FLAGSHIP_STEM[1:] + (1,), generator=gen,
+                        device=device)
+    labels = torch.randint(0, 20, (batch,) + FLAGSHIP_STEM[1:],
+                           generator=gen, device=device, dtype=torch.uint8)
+    return images, labels
+
+
+def _par_state(path, device, weights=None):
+    cfg = Config(path)
+    model = build_model(cfg.dic["model"], generator=torch.Generator(
+    ).manual_seed(TRAIN_SEED))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return cfg, TrainState.create(model, cfg.build_optimizer,
+                                  cfg.lr_scheduler, seed=TRAIN_SEED,
+                                  device=device)
+
+
+def _par_reference(name, path, batch, wd):
+    """One process: the start weights, then one eager step at the global
+    batch (its loss, gradients and BatchNorm statistics), the stepped
+    weights and their eval argmax on the same batch, saved under
+    ``wd``."""
+    cfg, state = _par_state(path, "cuda")
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               os.path.join(wd, name + "_start.pt"))
+    images, labels = _par_batch(name, batch, "cuda")
+    state.generator.manual_seed(TRAIN_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = make_train_step(cfg.loss)(state, images, labels)
+    loss = metrics["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = {"loss": loss, "ms": ms,
+           "grads": {n: p.grad.float().cpu()
+                     for n, p in state.model.named_parameters()},
+           "stats": {k: v.cpu() for k, v in state.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}}
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               os.path.join(wd, name + "_stepped.pt"))
+    state.model.eval()
+    with torch.no_grad():
+        ref["pred"] = torch.argmax(state.model(images)[0], -1).to(
+            torch.uint8).cpu()
+    torch.save(ref, os.path.join(wd, name + "_ref.pt"))
+    del state, images, labels, metrics
+    torch.cuda.empty_cache()
+    return {"loss": loss, "ms": ms}
+
+
+@contextlib.contextmanager
+def _record_shapes(seen):
+    """Record, meanwhile, the operand shapes of every conv5 forward,
+    dgrad, weight-gradient and pin launch: {key: launches}."""
+    fwd, wgrad, pin = c5._conv5_cuda, c5._conv5_wgrad_cuda, c5._pin_cuda
+
+    def conv(xk, w, b, kind, ep, dgrad=False, form=None):
+        key = ("dgrad" if dgrad else "fwd", tuple(xk.shape), tuple(w.shape),
+               str(xk.dtype), kind, ep is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return fwd(xk, w, b, kind, ep, dgrad, form)
+
+    def wg(xk, gk, kind, form=None):
+        key = ("wgrad", tuple(xk.shape), tuple(gk.shape), str(xk.dtype),
+               kind, False)
+        seen[key] = seen.get(key, 0) + 1
+        return wgrad(xk, gk, kind, form)
+
+    def pn(xk):
+        key = ("pin", tuple(xk.shape), tuple(xk.stride()), str(xk.dtype),
+               None, False)
+        seen[key] = seen.get(key, 0) + 1
+        return pin(xk)
+
+    c5._conv5_cuda, c5._conv5_wgrad_cuda, c5._pin_cuda = conv, wg, pn
+    try:
+        yield seen
+    finally:
+        c5._conv5_cuda, c5._conv5_wgrad_cuda, c5._pin_cuda = fwd, wgrad, pin
+
+
+def _check_at_shape(key, seed):
+    """Launch the kernel of a recorded ``key`` on seeded operands of its
+    shapes and hold it to its plain version: the error (scaled for the
+    weight gradient, as kernels_bwd holds it; exact for the pin)."""
+    op, shape, other, dtype, kind, fused = key
+    dtype = getattr(torch, dtype.split(".")[-1])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def rand(*shp, scale=1.0):
+        return (torch.randn(shp, generator=gen, device=dev) * scale).to(dtype)
+
+    if op == "pin":
+        base = torch.randn(sum((s - 1) * t for s, t in zip(shape, other)) +
+                           1, generator=gen, device=dev).to(dtype)
+        view = base.as_strided(shape, other)
+        check(torch.equal(c5._pin_cuda(view), view.contiguous()),
+              "pin differs from contiguous() at {}".format(shape))
+        return 0.0
+    if op == "wgrad":
+        x, g = rand(*shape), rand(*other, scale=0.1)
+        got = c5._conv5_wgrad_cuda(x, g, kind).to(dtype).float()
+        err = scaled_err(got, c5.conv5_wgrad_kl_plain(x, g))
+        check(err <= TOL[dtype], "wgrad at {} {}: scaled error {}".format(
+            shape, other, err))
+        return err
+    ci, co = (other[3], other[4]) if op == "fwd" else (other[4], other[3])
+    w = (torch.randn(other, generator=gen, device=dev) /
+         float(np.sqrt(125 * ci))).float()
+    x = rand(*shape)
+    if op == "dgrad":
+        got = c5._conv5_cuda(x, w, None, "head", None, dgrad=True)
+        ref = c5.conv5_dgrad_kl_plain(x, w)
+    else:
+        b = torch.randn(co, generator=gen, device=dev)
+        ep = (tuple(torch.rand(co, generator=gen, device=dev) + 0.5
+                    for _ in range(3)) if fused else None)
+        got = c5._conv5_cuda(x, w, b, kind, ep)
+        ref = c5.conv5_kl_plain(x, w, b, ep)
+    tol = TOL[dtype]
+    check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
+          "{} at {}: kernel and plain version differ".format(op, shape))
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def parallel_rank(wd):
+    """One rank of the parallel phase (``chip_smoke.py --parallel-rank
+    <dir>``, started by :func:`phase_parallel` with the process group in
+    its environment): each case's sharded step and eval forward held to
+    the one-process reference, the launch counts, then its share of the
+    recorded kernel shapes held to the plain versions. Writes
+    ``rank<r>.json``; a failed check raises."""
+    from medicalseg_torch import parallel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, backend = parallel.init_from_env("cuda")
+    mesh = parallel.build_mesh(space=PAR_SPACE)
+    out = {"rank": mesh.rank, "coords": [mesh.d, mesh.s],
+           "device": str(device), "card": torch.cuda.get_device_name(device),
+           "backend": backend, "cases": {}}
+    seen = {}
+    for name, path, batch in PAR_CASES:
+        start = torch.load(os.path.join(wd, name + "_start.pt"))
+        cfg, state = _par_state(path, device, start)
+        images, labels = parallel.shard_batch(
+            mesh, *_par_batch(name, batch * mesh.data, device),
+            spatial_axis=None)  # the rank's rows, whole samples
+        step = make_train_step(cfg.loss, mesh=mesh)
+        ref = torch.load(os.path.join(wd, name + "_ref.pt"))
+        state.generator.manual_seed(TRAIN_SEED)
+        reset_counts()
+        with _record_shapes(seen):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            _, metrics = step(state, images, labels)
+            loss = metrics["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in c5.LAUNCHES.items() if v}
+            check(abs(loss - ref["loss"]) <= LOSS_REL * abs(ref["loss"]),
+                  "{} rank {}: loss {} vs one process {}".format(
+                      name, mesh.rank, loss, ref["loss"]))
+            rels = grad_rel_l2({n: p.grad.float().cpu() for n, p in
+                                state.model.named_parameters()},
+                               ref["grads"])
+            worst = max(rels.items(), key=lambda kv: kv[1])
+            check(worst[1] <= GRAD_REL_L2, "{} rank {}: gradient of {} off "
+                  "by {} relative L2".format(name, mesh.rank, *worst))
+            stats = state.model.state_dict()
+            stat_err = max(scaled_err(stats[k].cpu(), v)
+                           for k, v in ref["stats"].items())
+            check(stat_err <= PAR_STAT_TOL, "{} rank {}: BN statistics off "
+                  "by {}".format(name, mesh.rank, stat_err))
+            # the eval forward through the fused op, on the one process's
+            # stepped weights: only the sharding differs
+            state.model.load_state_dict(torch.load(
+                os.path.join(wd, name + "_stepped.pt")))
+            state.model.eval()
+            reset_counts()
+            lo, hi = mesh.rows(batch)
+            with torch.no_grad(), parallel.use_mesh(mesh):
+                logits = state.model(mesh.keep_h(images))[0]
+            eval_launches = {k: v for k, v in c5.LAUNCHES.items() if v}
+        full = parallel.gather_h(logits, mesh, axis=2)
+        agree = (torch.argmax(full, -1).to(torch.uint8).cpu() ==
+                 ref["pred"][lo:hi]).float().mean().item()
+        check(agree >= PAR_AGREE, "{} rank {}: eval argmax agreement {} "
+              "with one process".format(name, mesh.rank, agree))
+        check(eval_launches.get("conv5_fused_epilogue", 0) > 0,
+              "{} rank {}: the eval forward launched no fused conv: "
+              "{}".format(name, mesh.rank, eval_launches))
+        out["cases"][name] = {
+            "loss": loss, "loss_one_process": ref["loss"], "ms": ms,
+            "worst_grad_rel_l2": list(worst), "bn_stat_scaled_err": stat_err,
+            "eval_argmax_agreement": agree, "launches": launches,
+            "eval_launches": eval_launches,
+            "local_shape": list(mesh.keep_h(images).shape[:4]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+        del state, images, labels, logits, full, metrics, ref, start
+        torch.cuda.empty_cache()
+    # this rank's share of the distinct kernel shapes, against the plain
+    # versions (every rank launched every one of them: the same shapes)
+    keys = sorted(seen, key=str)
+    errs = {}
+    for i, key in enumerate(keys):
+        if i % mesh.world == mesh.rank:
+            errs["{}:{}:{}:{}".format(i, key[0], list(key[1]), key[3])] = \
+                _check_at_shape(key, TRAIN_SEED + i)
+    out["shapes"] = [[k[0], list(k[1]), list(k[2]), k[3], n]
+                     for k, n in ((k, seen[k]) for k in keys)]
+    out["checked"] = errs
+    with open(os.path.join(wd, "rank{}.json".format(mesh.rank)), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(wd):
+    """Start the :data:`PAR_WORLD` ranks of :func:`parallel_rank`, wait for
+    all, and return their JSON; any rank's failure (or the time limit)
+    kills the others and raises with the ranks' output."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(PAR_WORLD),
+               LOCAL_WORLD_SIZE=str(PAR_WORLD))
+    logs = [open(os.path.join(wd, "rank{}.log".format(r)), "w+")
+            for r in range(PAR_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", wd],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(PAR_WORLD)]
+    deadline = time.time() + PAR_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tails.append("--- rank {} rc {} ---\n{}".format(
+            r, procs[r].returncode, f.read()[-3000:]))
+        f.close()
+    check(all(p.returncode == 0 for p in procs),
+          "parallel ranks failed:\n" + "\n".join(tails))
+    out = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(wd, "rank{}.json".format(r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _torchrun(args, nproc=2, timeout=600):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> <args>``: its output, after a fatal check of its exit code."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc)] + args
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, "{} exited {}:\n{}\n{}".format(
+        " ".join(args[:2]), proc.returncode, proc.stdout[-3000:],
+        proc.stderr[-3000:]))
+    return proc.stdout + proc.stderr, time.time() - t0
+
+
+def _logged_dice(text):
+    lines = [ln for ln in text.splitlines() if "[EVAL] #Images" in ln]
+    check(len(lines) >= 1, "no [EVAL] line in:\n" + text[-3000:])
+    return float(lines[-1].split("Dice: ")[1].split(",")[0]), lines
+
+
+def phase_parallel():
+    """The data x space process mesh (module docstring, ``parallel``)."""
+    line = {"phase": "parallel", "gpu": smi_line(),
+            "device_count": torch.cuda.device_count(), "world": PAR_WORLD,
+            "data": PAR_WORLD // PAR_SPACE, "space": PAR_SPACE}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        line["one_process"] = {
+            name: _par_reference(name, path, batch * PAR_WORLD // PAR_SPACE,
+                                 wd) for name, path, batch in PAR_CASES}
+        t0 = time.time()
+        ranks = _run_ranks(wd)
+        line["ranks_seconds"] = time.time() - t0
+    line["backend"] = ranks[0]["backend"]
+    line["rank_devices"] = [r["device"] for r in ranks]
+    for name, _, _ in PAR_CASES:
+        kernels = set(ranks[0]["cases"][name]["launches"])
+        for key in ("conv5_head", "conv5_stem_tc", "pin", "conv5_dgrad",
+                    "conv5_wgrad_stem_tc"):
+            check(key in kernels, "{}: {} never launched on rank 0".format(
+                name, key))
+        check(any(k.startswith("conv5_wgrad_") and k != "conv5_wgrad_stem_tc"
+                  for k in kernels), name + ": no square weight gradient")
+        for r in ranks:  # every rank launched the same kernels as often
+            check(r["cases"][name]["launches"] ==
+                  ranks[0]["cases"][name]["launches"],
+                  "{}: rank {} launched {} where rank 0 launched {}".format(
+                      name, r["rank"], r["cases"][name]["launches"],
+                      ranks[0]["cases"][name]["launches"]))
+        line[name] = {k: [r["cases"][name][k] for r in ranks]
+                      for k in ranks[0]["cases"][name]}
+    shapes = ranks[0]["shapes"]
+    check(all(r["shapes"] == shapes for r in ranks),
+          "the ranks launched the kernels at different shapes")
+    # every conv launch of the mesh ran on an H block plus its 2 x 2 halo
+    # rows: H - 4 is the block, a power of two at every level of both cases
+    convs = [s for s in shapes if s[0] != "pin"]
+    check(all((s[1][3] - 4) & (s[1][3] - 5) == 0 for s in convs),
+          "conv launches off the halo'd shapes: {}".format(convs))
+    check({s[0] for s in convs} == {"fwd", "dgrad", "wgrad"} and
+          any(s[1][3] == EDGE // PAR_SPACE + 4 for s in convs),
+          "no conv kernel ran at the halo'd cube shape")
+    checked = {}
+    for r in ranks:
+        checked.update(r["checked"])
+    check(len(checked) == len(shapes), "{} of {} shapes held to the plain "
+          "versions".format(len(checked), len(shapes)))
+    line["kernel_shapes"] = shapes
+    line["kernel_shape_errors"] = checked
+    line["torchrun"] = _phase_parallel_cli()
+    emit(line)
+    return line
+
+
+def _phase_parallel_cli():
+    """``torchrun`` with two ranks: the train CLI at ``--space 2`` on the
+    cube config for three iterations with ``--do_eval``, then the val CLI
+    over the two ranks against the one-process val CLI."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        json_path = write_eval_data(wd)
+        cfg = Config(LUNG_TPU).dic
+        cfg["data_root"] = wd
+        for key in ("train_dataset", "val_dataset"):
+            cfg[key]["dataset_root"] = "phase0"
+            cfg[key]["result_dir"] = "phase1"
+        cfg["val_dataset"]["dataset_json_path"] = json_path
+        yml = os.path.join(wd, "lung.yml")
+        import yaml
+        with open(yml, "w") as f:
+            yaml.safe_dump(cfg, f)
+        run = os.path.join(wd, "train")
+        text, secs = _torchrun([
+            "-m", "medicalseg_torch.train", "--config", yml, "--space", "2",
+            "--iters", "3", "--save_interval", "3", "--log_iters", "1",
+            "--batch_size", "1", "--do_eval", "--seed", str(TRAIN_SEED),
+            "--save_dir", run])
+        train_lines = [ln for ln in text.splitlines() if "[TRAIN]" in ln]
+        check(len(train_lines) == 3 and "iter: 3/3" in train_lines[-1],
+              "torchrun train logged {}".format(train_lines))
+        backend = [ln.split("[INFO]")[-1].strip()
+                   for ln in text.splitlines() if "process group:" in ln]
+        check(len(backend) == 1, "torchrun train: {}".format(backend))
+        model_path = os.path.join(run, "iter_3", ckpt.MODEL_FILE)
+        check(os.path.exists(model_path) and os.path.exists(
+            os.path.join(run, "best_model", "best.json")),
+            "torchrun train wrote no iter_3 / best_model")
+        train_dice, _ = _logged_dice(text)
+        out["train"] = {"seconds": secs, "process_group": backend[0],
+                        "train_lines": train_lines,
+                        "eval_mdice": train_dice}
+        text, secs = _torchrun([
+            "-m", "medicalseg_torch.val", "--config", yml, "--model_path",
+            model_path, "--save_dir", os.path.join(wd, "val2")])
+        dice2, lines = _logged_dice(text)
+        with TrainLog("[EVAL]"):
+            one = val_cli.main(val_cli.parse_args([
+                "--config", yml, "--model_path", model_path, "--save_dir",
+                os.path.join(wd, "val1")]))
+        check(abs(dice2 - one["mdice"]) <= PAR_MDICE_TOL,
+              "torchrun val mDice {} vs one process {}".format(
+                  dice2, one["mdice"]))
+        check_dump(os.path.join(wd, "val2"), 2)  # rank 0's share
+        out["val"] = {"seconds": secs, "eval_line": lines[-1],
+                      "mdice_two_ranks": dice2,
+                      "mdice_one_process": one["mdice"]}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     phase_device()
     phase_build()
@@ -2812,6 +3257,7 @@ def main():
     phase_train_graph()
     cli = phase_train_cli()
     phase_eval()
+    phase_parallel()
     for key in FLAGSHIP_KERNELS:
         check(flagship[key] > 0 and cli[key] > 0, key + " never launched "
               "on the flagship's path")
@@ -2832,4 +3278,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        parallel_rank(sys.argv[2])
+    else:
+        main()

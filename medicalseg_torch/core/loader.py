@@ -79,16 +79,24 @@ class TrainLoader:
     ``cache_bytes`` is the budget of each native reader's cache of
     decoded volumes (device modes). Call :meth:`stop` when done: it also
     frees the native readers.
+
+    ``rows`` = (start, stop) keeps those rows of every batch of
+    ``batch_size`` (the global batch of a process mesh: a rank's rows,
+    ``parallel.Mesh.rows``): the batches follow the global order, so the
+    ranks' rows together are the batches of one loader at the global
+    batch. The device cache still holds the whole dataset.
     """
 
     def __init__(self, dataset, batch_size, num_workers=2, seed=0,
                  mode="auto", wire_dtype="float32", cache_bytes=2 << 30,
-                 device_cache_bytes=DEVICE_CACHE_BYTES, pin_memory=False):
+                 device_cache_bytes=DEVICE_CACHE_BYTES, pin_memory=False,
+                 rows=None):
         if mode not in MODES:
             raise ValueError("mode must be one of {}, got {!r}".format(
                 MODES, mode))
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = (0, batch_size) if rows is None else tuple(rows)
         self.num_workers = max(1, num_workers)
         self.rng = np.random.RandomState(seed)
         self.wire_dtype = wire_dtype
@@ -227,7 +235,7 @@ class TrainLoader:
         return np.asarray(out)
 
     def _make_batch(self):
-        idxs = self._next_indices()
+        idxs = self._next_indices()[self.rows[0]:self.rows[1]]
         uidx = [self._pair_index[tuple(self.dataset.file_list[i])]
                 for i in idxs]
         if self.mode == "device_cache":

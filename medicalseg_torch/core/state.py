@@ -22,6 +22,17 @@ Unlike the JAX step, which returns a new immutable state, the port's step
 updates the state in place (parameters, optimizer slots, BatchNorm
 buffers, step counter) and returns the same object.
 
+With a ``mesh`` (``parallel.build_mesh``) of more than one process each
+rank's step takes its rows of the global batch (whole samples), runs
+under the mesh (``parallel.use_mesh``: the augmentation, the forward with
+its halos and global BatchNorm statistics, the global losses), back-
+propagates the global loss over the world size and sums the gradients
+over the world (``parallel.sum_grads``) before the optimizer, so that
+every rank takes the update of one process at the global batch and the
+metrics are the global batch's. Such a step runs eagerly: a CUDA graph
+of it would have to capture the collectives, which only NCCL can (ROADMAP,
+modules to port, item 9).
+
 Quick start::
 
     cfg = Config("configs/lung_coronavirus/"
@@ -40,6 +51,8 @@ import torch
 from ..cvlibs.config import capturable, is_capturable, set_lr
 from ..models.layers import remat
 from ..ops import conv5 as c5
+from ..parallel.collectives import sum_grads
+from ..parallel.mesh import use_mesh
 from ..transforms.device import step_seed
 from ..utils import logger
 from ..utils.loss_utils import loss_computation
@@ -95,21 +108,26 @@ def _check_policy(checkpoint_policy):
                          + repr(checkpoint_policy))
 
 
-def _prepare(state, images, labels, augment_fn):
+def _prepare(state, images, labels, augment_fn, mesh=None):
     """The batch on the state's device, widened (images f32, labels
-    int64), through ``augment_fn`` where there is one."""
+    int64), through ``augment_fn`` where there is one; under a space mesh
+    the rank's H block of it (the augmentation keeps it itself)."""
     device = state.device
     images = torch.as_tensor(images).to(device, non_blocking=True).float()
     labels = torch.as_tensor(labels).to(device, non_blocking=True).long()
     if augment_fn is not None:
         images, labels = augment_fn(images, labels, state.generator)
+    elif mesh is not None:
+        images, labels = mesh.keep_h(images), mesh.keep_h(labels)
     return images, labels
 
 
-def _update(state, images, labels, losses, checkpoint_policy):
+def _update(state, images, labels, losses, checkpoint_policy, mesh=None):
     """One update at the learning rate the optimizer holds: forward,
     losses, backward, optimizer (BatchNorm statistics on the way). Returns
-    the detached metrics; ``state.step`` is left to the caller."""
+    the detached metrics; ``state.step`` is left to the caller. Under a
+    ``mesh`` the losses are global, each rank back-propagates their sum
+    over the world size and the gradients are summed over the world."""
     model, optimizer = state.model, state.optimizer
     model.train()
     optimizer.zero_grad(set_to_none=True)
@@ -120,7 +138,11 @@ def _update(state, images, labels, losses, checkpoint_policy):
     loss_list, per_channel_dice = loss_computation(logits_list, labels,
                                                    losses)
     total = sum(loss_list)
-    total.backward()
+    if mesh is None:
+        total.backward()
+    else:
+        (total / mesh.world).backward()
+        sum_grads(model, mesh)
     optimizer.step()
     return {
         "loss": total.detach(),
@@ -132,8 +154,13 @@ def _update(state, images, labels, losses, checkpoint_policy):
     }
 
 
+def _world_mesh(mesh):
+    """``mesh`` where it spans more than one process, else None."""
+    return mesh if mesh is not None and mesh.world > 1 else None
+
+
 def make_train_step(losses: dict, augment_fn: Optional[Callable] = None,
-                    checkpoint_policy: Optional[str] = None):
+                    checkpoint_policy: Optional[str] = None, mesh=None):
     """Build the train step.
 
     Args:
@@ -144,6 +171,9 @@ def make_train_step(losses: dict, augment_fn: Optional[Callable] = None,
             (``torch.utils.checkpoint``), trading FLOPs for memory on
             large volumes; per-block rematerialization is the model's
             ``remat`` key.
+        mesh: a ``parallel.Mesh``; the step then takes the rank's rows of
+            the global batch and gives the global batch's update and
+            metrics (module docstring).
 
     Returns step(state, images, labels) -> (state, metrics) where metrics
     = {'loss', 'loss_list', 'per_channel_dice'} are detached tensors on
@@ -151,11 +181,15 @@ def make_train_step(losses: dict, augment_fn: Optional[Callable] = None,
     labels [N, D, H, W] (any integer dtype) to int64 on the device.
     """
     _check_policy(checkpoint_policy)
+    mesh = _world_mesh(mesh)
 
     def step(state: TrainState, images, labels):
-        images, labels = _prepare(state, images, labels, augment_fn)
-        set_lr(state.optimizer, state.schedule(state.step))
-        metrics = _update(state, images, labels, losses, checkpoint_policy)
+        with use_mesh(mesh):
+            images, labels = _prepare(state, images, labels, augment_fn,
+                                      mesh)
+            set_lr(state.optimizer, state.schedule(state.step))
+            metrics = _update(state, images, labels, losses,
+                              checkpoint_policy, mesh)
         state.step += 1
         return state, metrics
 
@@ -263,25 +297,32 @@ class _Updates:
     :func:`make_cached_train_step`: the generator re-seeded from (``seed``,
     step) when a seed is given (the train loop's rule), the batch
     prepared and augmented, then one update, the graph's replay on the
-    card and the eager update on the CPU."""
+    card and the eager update on the CPU and under a mesh of more than one
+    process."""
 
-    def __init__(self, losses, augment_fn, checkpoint_policy):
+    def __init__(self, losses, augment_fn, checkpoint_policy, mesh=None):
         _check_policy(checkpoint_policy)
         self.losses = losses
         self.augment_fn = augment_fn
         self.checkpoint_policy = checkpoint_policy
+        self.mesh = _world_mesh(mesh)
         self.graphed = GraphedStep(losses, checkpoint_policy)
+        if self.mesh is not None:
+            logger.info("{} ranks: the train step runs eagerly (no CUDA "
+                        "graph of the collectives)".format(self.mesh.world))
 
     def __call__(self, state, images, labels, seed):
         if seed is not None:
             state.generator.manual_seed(step_seed(seed, state.step))
-        images, labels = _prepare(state, images, labels, self.augment_fn)
-        if images.is_cuda:
-            metrics = self.graphed(state, images, labels)
-        else:
-            set_lr(state.optimizer, state.schedule(state.step))
-            metrics = _update(state, images, labels, self.losses,
-                              self.checkpoint_policy)
+        with use_mesh(self.mesh):
+            images, labels = _prepare(state, images, labels,
+                                      self.augment_fn, self.mesh)
+            if images.is_cuda and self.mesh is None:
+                metrics = self.graphed(state, images, labels)
+            else:
+                set_lr(state.optimizer, state.schedule(state.step))
+                metrics = _update(state, images, labels, self.losses,
+                                  self.checkpoint_policy, self.mesh)
         state.step += 1
         return metrics
 
@@ -292,7 +333,7 @@ def _stacked(metrics):
 
 def make_multi_step(losses: dict, n_steps: int,
                     augment_fn: Optional[Callable] = None,
-                    checkpoint_policy: Optional[str] = None):
+                    checkpoint_policy: Optional[str] = None, mesh=None):
     """A train step that advances up to ``n_steps`` iterations a call.
 
     Returns multi(state, images, labels, seed=None) -> (state, metrics)
@@ -303,8 +344,9 @@ def make_multi_step(losses: dict, n_steps: int,
     the generator is re-seeded from (``seed``, step) before each update,
     as the train loop does before each eager step (the JAX
     ``fold_in(key, step)``). On the card each update is a replay of one
-    CUDA graph (:class:`GraphedStep`, ``multi.graphed``)."""
-    run = _Updates(losses, augment_fn, checkpoint_policy)
+    CUDA graph (:class:`GraphedStep`, ``multi.graphed``), and eager under
+    a ``mesh`` of more than one process (:func:`make_train_step`)."""
+    run = _Updates(losses, augment_fn, checkpoint_policy, mesh)
 
     def multi(state, images, labels, seed=None):
         rows = images.shape[0]
@@ -323,7 +365,8 @@ def make_multi_step(losses: dict, n_steps: int,
 
 def make_cached_train_step(losses: dict, n_steps: int = 1,
                            augment_fn: Optional[Callable] = None,
-                           checkpoint_policy: Optional[str] = None):
+                           checkpoint_policy: Optional[str] = None,
+                           mesh=None):
     """Train step over a dataset held on the device.
 
     Returns step(state, cache_images, cache_labels, idx, seed=None) ->
@@ -333,8 +376,10 @@ def make_cached_train_step(losses: dict, n_steps: int = 1,
     with n <= ``n_steps`` for n updates (metrics stacked along [n]). The
     batch is gathered on the device (``index_select``), so a step uploads
     only its index vector. ``seed`` as in :func:`make_multi_step`; on the
-    card each update is a replay of one CUDA graph (``step.graphed``)."""
-    run = _Updates(losses, augment_fn, checkpoint_policy)
+    card each update is a replay of one CUDA graph (``step.graphed``),
+    eager under a ``mesh`` of more than one process, where ``idx`` holds
+    the rank's rows of the global batch's indices."""
+    run = _Updates(losses, augment_fn, checkpoint_policy, mesh)
 
     def one(state, cache_images, cache_labels, idx, seed):
         return run(state, cache_images.index_select(0, idx),

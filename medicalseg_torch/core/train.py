@@ -36,6 +36,17 @@ and draws. ``profiler_options`` traces a window of iterations
 
 Checkpoints are written synchronously, and there is no end-of-training
 FLOPs report (the JAX package's comes from XLA's cost analysis).
+
+Over a process mesh (``mesh``, or ``space`` with the process group that
+``torchrun`` starts: ``parallel.init_from_env``) ``batch_size`` is per
+data index, as in the JAX loop: the global batch is ``batch_size x
+data``, each rank's loader keeps its rows of the global, seeded batch
+order (whole samples; a space rank keeps its H block after the
+augmentation), and the step gives the update and metrics of the global
+batch (``core.state``), eagerly. Every rank resumes from the same file;
+rank 0 alone logs, writes checkpoints and ``best.json`` and runs
+VisualDL, while the others wait at a barrier. The evaluation runs over
+the same mesh (``core.val.evaluate``).
 """
 
 import json
@@ -46,11 +57,13 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..transforms import DeviceAugmentor
 from ..transforms.device import step_seed
 from ..utils import (TimeAverager, calculate_eta, logger, resume,
                      save_checkpoint, train_profiler)
+from ..parallel import mesh as mesh_lib
 from ..utils.checkpoint import _atomic_write
 from ..utils.utils import resolve_device
 from .loader import TrainLoader
@@ -81,6 +94,8 @@ def train(model,
           profiler_options=None,
           to_static_training=False,
           seed=0,
+          mesh=None,
+          space=1,
           data_loader_mode="auto",
           steps_per_dispatch=1,
           wire_dtype="bfloat16",
@@ -88,14 +103,18 @@ def train(model,
     """Train ``model`` on ``train_dataset``; returns the final
     :class:`~.state.TrainState`.
 
-    The surface is the JAX function's without the mesh (``mesh``,
-    ``space``) and ``async_checkpoint``: ``optimizer`` builds the
-    optimizer over the parameters (``Config.build_optimizer``),
-    ``lr_scheduler`` is the schedule (``Config.lr_scheduler``), ``losses``
-    the loss config (``Config.loss``), and ``device`` is 'cuda' unless the
-    caller asks for 'cpu'. ``to_static_training`` is accepted and unused,
-    as in the JAX package."""
+    The surface is the JAX function's without ``async_checkpoint``:
+    ``optimizer`` builds the optimizer over the parameters
+    (``Config.build_optimizer``), ``lr_scheduler`` is the schedule
+    (``Config.lr_scheduler``), ``losses`` the loss config
+    (``Config.loss``), ``mesh`` a ``parallel.Mesh`` (else one is built
+    over the process group with ``space``: module docstring), and
+    ``device`` is 'cuda' unless the caller asks for 'cpu' (a rank's card,
+    ``cuda:LOCAL_RANK``, under ``torchrun``). ``to_static_training`` is
+    accepted and unused, as in the JAX package."""
     device = resolve_device(device)
+    if mesh is None:
+        mesh = mesh_lib.build_mesh(space=space)
     n_dispatch = max(int(steps_per_dispatch), 1)
     if n_dispatch > 1 and (log_iters % n_dispatch or
                            save_interval % n_dispatch):
@@ -103,10 +122,17 @@ def train(model,
             "steps_per_dispatch ({}) must divide log_iters ({}) and "
             "save_interval ({})".format(n_dispatch, log_iters,
                                         save_interval))
-    loader = TrainLoader(train_dataset, batch_size=batch_size,
+    sharded = mesh.world > 1
+    if sharded:
+        logger.info("Training over {} ranks: data {} x space {} ({}), "
+                    "global batch {}".format(
+                        mesh.world, mesh.data, mesh.space, mesh.backend,
+                        batch_size * mesh.data))
+    loader = TrainLoader(train_dataset, batch_size=batch_size * mesh.data,
                          num_workers=num_workers, seed=seed,
                          mode=data_loader_mode, wire_dtype=wire_dtype,
-                         pin_memory=device.type == "cuda")
+                         pin_memory=device.type == "cuda",
+                         rows=mesh.rows(batch_size))
     augment = (DeviceAugmentor(train_dataset.raw_transforms, seed=seed + 1)
                if loader.mode in ("device", "device_cache") else None)
     # the cached and multi-step forms replay a CUDA graph of the step
@@ -120,7 +146,7 @@ def train(model,
         os.makedirs(save_dir, exist_ok=True)
 
     log_writer = None
-    if use_vdl:
+    if use_vdl and mesh.primary:
         from tensorboardX import SummaryWriter
         log_writer = SummaryWriter(save_dir)
     best_mean_dice, best_model_iter = -1.0, -1
@@ -136,11 +162,12 @@ def train(model,
     if loader.mode == "device_cache":
         cache = loader.build_device_cache(device)
         step_fn = make_cached_train_step(losses, n_dispatch,
-                                         augment_fn=augment)
+                                         augment_fn=augment, mesh=mesh)
     elif n_dispatch > 1:
-        step_fn = make_multi_step(losses, n_dispatch, augment_fn=augment)
+        step_fn = make_multi_step(losses, n_dispatch, augment_fn=augment,
+                                  mesh=mesh)
     else:
-        step_fn = make_train_step(losses, augment_fn=augment)
+        step_fn = make_train_step(losses, augment_fn=augment, mesh=mesh)
         prefetcher = DevicePrefetcher(loader, device)
     reader_cost = TimeAverager()
     batch_cost = TimeAverager()
@@ -192,7 +219,7 @@ def train(model,
                      loss_list.mean(0)]).tolist()
                 pending = []
             _record(batch_cost, time.time() - batch_start, take,
-                    batch_size)
+                    batch_size * mesh.data)
 
             if log:
                 lr = float(lr_scheduler(it)) if lr_scheduler else 0.0
@@ -217,17 +244,23 @@ def train(model,
                 if val_dataset is not None:
                     result = evaluate(state, val_dataset, losses,
                                       num_workers=num_workers,
-                                      writer=log_writer, save_dir=save_dir)
+                                      writer=log_writer, save_dir=save_dir,
+                                      mesh=mesh)
                 current = os.path.join(save_dir, "iter_{}".format(it))
-                save_checkpoint(current, state.model, state.optimizer, it)
+                if mesh.primary:
+                    save_checkpoint(current, state.model, state.optimizer,
+                                    it)
                 save_models.append(current)
                 if len(save_models) > keep_checkpoint_max > 0:
-                    shutil.rmtree(save_models.popleft(), ignore_errors=True)
+                    old = save_models.popleft()
+                    if mesh.primary:
+                        shutil.rmtree(old, ignore_errors=True)
                 if result is not None:
                     if result["mdice"] > best_mean_dice:
                         best_mean_dice, best_model_iter = result["mdice"], it
-                        _save_best(save_dir, state.model, best_mean_dice,
-                                   best_model_iter)
+                        if mesh.primary:
+                            _save_best(save_dir, state.model,
+                                       best_mean_dice, best_model_iter)
                     logger.info(
                         "[EVAL] The model with the best validation mDice "
                         "({:.4f}) was saved at iter {}.".format(
@@ -238,6 +271,8 @@ def train(model,
                         if "auc_roc" in result:
                             log_writer.add_scalar("Evaluate/auc_roc",
                                                   result["auc_roc"], it)
+                if sharded:  # the others wait for rank 0's files
+                    dist.barrier()
             # eval and checkpoint time stays out of the next batch cost
             batch_start = time.time()
     finally:

@@ -14,9 +14,18 @@ logged.
 
 The forward, the loss and the areas run under ``torch.inference_mode()``
 on the card; each volume's numbers come back to the host once and are
-summed there in float64. The JAX function's ``mesh`` (volumes spread over
-the devices and hosts) is not ported: one process evaluates the whole set
-(multi-GPU is ROADMAP, modules to port, item 9).
+summed there in float64.
+
+Over a process mesh (``mesh``, after the JAX function's volume
+distribution) each data index takes a contiguous share of the volumes
+(``parallel.process_shard``); on a space axis each volume's forward is
+H-sharded over the data index's ranks (halos in the convs) and its logits
+are gathered back whole, so the loss, the areas and the dump are those of
+the whole volume. ``sw_num`` shards over the data axis only (its windows
+stay whole), and ``auc_roc``, which needs every probability in one place,
+evaluates the whole set on every rank. The partial sums of the first rank
+of each data index are all-reduced in float64; rank 0 alone dumps and
+shows the progress bar.
 """
 
 import json
@@ -25,7 +34,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.collectives import gather_h
+from ..parallel.mesh import process_shard, use_mesh
 from ..utils import Progbar, TimeAverager, logger, metric, save_array
 from ..utils.loss_utils import loss_computation
 from . import infer
@@ -66,6 +78,20 @@ def _image_infor(dataset, dataset_json, idx):
             "origin": image_json.get("origin", (0, 0, 0))}
 
 
+class _SpaceSharded:
+    """The eval forward of a whole volume with its H axis sharded over the
+    space ranks of ``mesh``: the rank's H block through ``model`` under
+    the mesh, and the logits gathered back whole."""
+
+    def __init__(self, model, mesh):
+        self.model, self.mesh = model, mesh
+
+    def __call__(self, ims):
+        with use_mesh(self.mesh):
+            logits = self.model(self.mesh.keep_h(ims))
+        return [gather_h(logits[0], self.mesh, axis=2)]
+
+
 def evaluate(state,
              eval_dataset,
              losses,
@@ -74,20 +100,31 @@ def evaluate(state,
              auc_roc=False,
              writer=None,
              save_dir=None,
-             sw_num=None):
+             sw_num=None,
+             mesh=None):
     """Evaluate ``state.model`` (a :class:`~.state.TrainState`, or
     anything with ``model`` and ``step``) on ``eval_dataset`` with the
-    first loss of ``losses``. ``num_workers`` is accepted as the JAX
-    function's and unused (the loader reads in turn). The model's train
-    mode is restored on return.
+    first loss of ``losses``, over ``mesh`` (a ``parallel.Mesh``, every
+    rank calling; module docstring) where one is given. ``num_workers`` is
+    accepted as the JAX function's and unused (the loader reads in turn).
+    The model's train mode is restored on return.
 
-    Returns {"mdice": float, "mdice_hard": float[, "auc_roc": float]}.
+    Returns {"mdice": float, "mdice_hard": float[, "auc_roc": float]},
+    the same on every rank.
     """
     new_loss = {"types": [losses["types"][0]], "coef": [losses["coef"][0]]}
     model = state.model
     device = next(model.parameters()).device
     num_classes = eval_dataset.num_classes
-    loader = EvalLoader(eval_dataset)
+    sharded = mesh is not None and mesh.world > 1 and not auc_roc
+    primary = mesh is None or mesh.primary
+    lo, hi = (process_shard(len(eval_dataset), mesh) if sharded
+              else (0, len(eval_dataset)))
+    # a space rank's sums repeat its data index's first rank's
+    counts = not sharded or mesh.s == 0
+    forward = (_SpaceSharded(model, mesh)
+               if sharded and mesh.space > 1 and not sw_num else model)
+    loader = EvalLoader(eval_dataset, start=lo, stop=hi)
     total_iters = len(loader)
 
     dataset_json = None
@@ -119,7 +156,7 @@ def evaluate(state,
             with torch.inference_mode():
                 ims = torch.from_numpy(im).to(device)
                 labels = torch.from_numpy(label).to(device).long()
-                pred, logit = _logits(model, ims, labels.shape[1:],
+                pred, logit = _logits(forward, ims, labels.shape[1:],
                                       eval_dataset, sw_num)
                 loss_list, pcd = loss_computation([logit], labels, new_loss)
                 areas = torch.stack(metric.calculate_area(
@@ -140,7 +177,7 @@ def evaluate(state,
             channel_sum = (per_channel_dice.copy() if channel_sum is None
                            else channel_sum + per_channel_dice)
 
-            if i < DUMPED and save_dir is not None:
+            if i < DUMPED and save_dir is not None and primary:
                 save_array(
                     save_path=os.path.join(save_dir, str(i)),
                     save_content={"pred": pred[0].cpu().numpy(),
@@ -152,7 +189,7 @@ def evaluate(state,
 
             batch_cost_averager.record(time.time() - batch_start,
                                        num_samples=1)
-            if print_detail:
+            if print_detail and primary:
                 progbar_val.update(i + 1, [
                     ("batch_cost", batch_cost_averager.get_average()),
                     ("reader cost", reader_cost_averager.get_average())])
@@ -162,9 +199,21 @@ def evaluate(state,
     finally:
         model.train(was_training)
 
-    count = max(float(total_iters), 1.0)
+    count = float(total_iters)
     if channel_sum is None:
-        channel_sum = np.zeros((1,), np.float64)
+        channel_sum = np.zeros((num_classes if sharded else 1,), np.float64)
+    if sharded:
+        vec = torch.from_numpy(np.concatenate(
+            [[mdice_sum, loss_sum, count], channel_sum,
+             area_sum.reshape(-1)]).astype(np.float64) * counts)
+        if mesh.backend == "nccl":
+            vec = vec.to(device)
+        dist.all_reduce(vec)
+        vec = vec.cpu().numpy()
+        mdice_sum, loss_sum, count = vec[0], vec[1], vec[2]
+        channel_sum = vec[3:3 + channel_sum.shape[0]]
+        area_sum = vec[3 + channel_sum.shape[0]:].reshape(3, -1)
+    count = max(count, 1.0)
     mdice = mdice_sum / count
     channel_dice_array = channel_sum / count
     loss_all = loss_sum / count

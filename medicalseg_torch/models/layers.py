@@ -9,6 +9,12 @@ conv, BatchNorm and PReLU chain in it without layout copies.
 Mixed precision as in the JAX package: ``dtype`` is the activation dtype
 (bfloat16 when serving), while parameters and BatchNorm statistics stay
 float32 and are cast where they are used.
+
+Under a mesh (``parallel.use_mesh``) each rank holds its rows of the
+global batch, and with a space axis its H block: BatchNorm takes its
+batch statistics over the world, dropout keeps its rows of the global
+batch's masks, and the down / up convs check that their H windows do not
+reach across shards (the 5^3 convs exchange their halo in ``ops/conv5``).
 """
 
 import contextlib
@@ -20,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv5 as c5
 from ..ops.updown import conv_down_kl, conv_up_kl
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.mesh import active_mesh
 
 
 def _bshape(c):
@@ -95,7 +103,11 @@ class BatchNorm3D(nn.Module):
     Unlike ``torch.nn.BatchNorm3d`` it keeps the *biased* batch variance in
     ``running_var`` (the JAX package's, and the train-dynamics oracle's,
     semantics). ``MOMENTUM`` is flax's: running = m * running + (1 - m) *
-    batch, so flax's 0.9 is torch's ``momentum=0.1``.
+    batch, so flax's 0.9 is torch's ``momentum=0.1``. Under a mesh the
+    batch statistics are the global batch's: the per-channel sums of x
+    and x^2 (f32, one [2, C] all-reduce with a differentiable backward)
+    over every rank's voxels, so the running statistics are the same on
+    every rank.
     """
     MOMENTUM = 0.9
     EPSILON = 1e-5
@@ -118,9 +130,17 @@ class BatchNorm3D(nn.Module):
         if self.training:
             xf = x.float()
             axes = (0, 1, 3, 4)
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
+            mesh = active_mesh()
+            if mesh is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp(xf.square().mean(dim=axes) -
+                                  mean.square(), min=0.0)
+            else:
+                count = xf.numel() // xf.shape[2] * mesh.world
+                sums = all_reduce_sum(torch.stack(
+                    [xf.sum(dim=axes), xf.square().sum(dim=axes)])) / count
+                mean = sums[0]
+                var = torch.clamp(sums[1] - mean.square(), min=0.0)
             if not _RECOMPUTING:
                 with torch.no_grad():
                     m = self.MOMENTUM
@@ -224,7 +244,9 @@ class ChannelDropout(nn.Module):
     eval. The mask is drawn from ``generator``, on the generator's device:
     give the module a generator on the model's device
     (``VNet.seed_dropout``) and no mask crosses from the host. A
-    recomputed (checkpointed) forward reuses the mask of the first run."""
+    recomputed (checkpointed) forward reuses the mask of the first run.
+    Under a mesh every rank draws the global batch's masks from its copy
+    of the generator (seeded alike on every rank) and keeps its rows."""
     RATE = 0.5
 
     def __init__(self, generator: torch.Generator):
@@ -237,9 +259,12 @@ class ChannelDropout(nn.Module):
             return xk
         n, _, c = xk.shape[:3]
         if not _RECOMPUTING or self._keep is None:
+            mesh = active_mesh()
+            rows = (0, n) if mesh is None else mesh.rows(n)
             self._keep = torch.rand(
-                (n, 1, c, 1, 1), generator=self.generator,
-                device=self.generator.device) >= self.RATE
+                (n * (mesh.data if mesh else 1), 1, c, 1, 1),
+                generator=self.generator,
+                device=self.generator.device)[rows[0]:rows[1]] >= self.RATE
         return xk * (self._keep.to(xk.device, xk.dtype) / (1.0 - self.RATE))
 
 
@@ -261,6 +286,7 @@ class DownConvKL(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, xk):
+        _check_h_windows(self, xk, down=True)
         return conv_down_kl(xk.to(self.dtype), self.weight, self.bias,
                             self.stride)
 
@@ -285,5 +311,29 @@ class UpConvKL(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, xk):
+        _check_h_windows(self, xk, down=False)
         return conv_up_kl(xk.to(self.dtype), self.weight, self.bias,
                           self.stride)
+
+
+def _check_h_windows(conv, xk, down):
+    """Under a space mesh a strided conv runs on the rank's H block as it
+    is: its H window must not be longer than its H stride (no window
+    reaches into a neighbour's rows), and a down conv's block must hold
+    whole strides (H divisible by space x the H strides above it). Raises
+    with the shapes otherwise."""
+    mesh = active_mesh()
+    if mesh is None or mesh.space == 1:
+        return
+    kh, sh = conv.weight.shape[3], conv.stride[1]
+    if kh > sh:
+        raise NotImplementedError(
+            "{} with H window {} over stride {} under a space mesh needs a "
+            "halo the port does not exchange (ROADMAP, modules to port, "
+            "item 9)".format(type(conv).__name__, kh, sh))
+    if down and xk.shape[3] % sh:
+        raise ValueError(
+            "an H block of {} rows ({}) does not hold whole strides of {}: "
+            "the volume's H must divide by space x the H strides; the "
+            "fallback that replicates H for uneven shards is not "
+            "ported".format(xk.shape[3], tuple(xk.shape), sh))

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ...cvlibs import manager
+from ...parallel.mesh import active_mesh
 
 
 @manager.LOSSES.add_component
@@ -49,7 +50,13 @@ class BCELoss:
 
     def __call__(self, logits, labels):
         """logits: [N, D, H, W, C]; labels: [N, D, H, W] int (one-hot
-        expanded) or [N, D, H, W, C] float in [0, 1]."""
+        expanded) or [N, D, H, W, C] float in [0, 1]. Not under a mesh:
+        its global-batch form is ROADMAP, modules to port, item 9."""
+        if active_mesh() is not None:
+            raise NotImplementedError(
+                "BCELoss over a process mesh is not ported (ROADMAP, modules "
+                "to port, item 9); the shipped configs use CrossEntropyLoss "
+                "and DiceLoss")
         num_classes = logits.shape[-1]
         mask = labels != self.ignore_index
         if labels.dim() == logits.dim() - 1:

@@ -9,13 +9,14 @@ voxels masked out.
 
 The default (fused) form gathers each voxel's log-probability at its
 label; ``MEDSEG_LOSS_FUSED=0`` sums per-class masks in a loop over the
-classes (``loss_utils.fused_masks``). Both give the JAX package's numbers.
+classes (``loss_utils.fused_masks``). Both give the JAX package's numbers. Under a
+mesh the weights and both sums are the global batch's.
 """
 
 import torch
 
 from ...cvlibs import manager
-from .loss_utils import class_weights, fused_masks
+from .loss_utils import class_weights, fused_masks, global_sums
 
 
 @manager.LOSSES.add_component
@@ -71,5 +72,7 @@ class CrossEntropyLoss:
                 nll = nll - log_probs[..., c] * m
                 w = w + weight[c] * m
             w = w * valid
-        # weighted-mean semantics: sum(w * nll) / sum(w)
-        return (nll * w).sum() / torch.clamp(w.sum(), min=self.EPS)
+        # weighted-mean semantics: sum(w * nll) / sum(w), over the global
+        # batch under a mesh
+        num, den = global_sums(torch.stack([(nll * w).sum(), w.sum()]))
+        return num / torch.clamp(den, min=self.EPS)

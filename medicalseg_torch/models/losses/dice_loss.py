@@ -13,13 +13,15 @@ classes. Both give the JAX package's numbers on batched logits. On
 unbatched (4-D) logits the port's fused form still equals its loop form,
 while the JAX fused form does not: it promotes the logits to 5-D but sums
 over the label's axes only, so it is left with a spatial axis. This is the
-one place the port departs from the JAX fused form.
+one place the port departs from the JAX fused form. Under a mesh
+(``parallel.use_mesh``) the intersect and denominator sums are the global
+batch's.
 """
 
 import torch
 
 from ...cvlibs import manager
-from .loss_utils import flatten, fused_masks
+from .loss_utils import flatten, fused_masks, global_sums
 
 
 @manager.LOSSES.add_component
@@ -97,6 +99,9 @@ class DiceLoss:
                 denoms.append((p_c * p_c).sum() + mask_c.sum())
             intersect = torch.stack(intersects)
             denominator = torch.stack(denoms)
+        # over the global batch under a mesh
+        intersect, denominator = global_sums(torch.stack([intersect,
+                                                          denominator]))
         if self.weight is not None:
             if self.weight.device != intersect.device:
                 # moved once: a CUDA graph of the step cannot capture the

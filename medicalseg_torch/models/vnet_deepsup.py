@@ -15,7 +15,11 @@ d2, d3]``, each NDHWC [N, D, H, W, num_classes] in float32, the order the
 
 The heads run in the compute dtype through cuDNN's ``conv3d``, as the JAX
 package runs them through XLA's convolution: no Pallas kernel covers a 3^3
-conv there either.
+conv there either. Under a space mesh (``parallel.use_mesh``) each head
+takes one halo row from each H neighbour and convolves without H padding,
+and the upsample works on the rank's H block with its neighbours' edge
+rows (``ops.resize.upsample_trilinear_batch``), as XLA's partitioner does
+for the JAX model.
 """
 
 from typing import Optional, Sequence
@@ -27,6 +31,8 @@ from torch import nn
 from ..cvlibs import manager
 from ..ops import conv5 as c5
 from ..ops.resize import upsample_trilinear_batch
+from ..parallel.collectives import halo_h
+from ..parallel.mesh import active_mesh
 from .layers import he_normal_
 from .vnet import _TRIPLE, VNet
 
@@ -48,9 +54,12 @@ class ConvHead(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, xk):
+        mesh, pad = active_mesh(), 1
+        if mesh is not None and mesh.space > 1:
+            xk, pad = halo_h(xk, mesh, 1), (1, 0, 1)
         y = F.conv3d(xk.transpose(1, 2).to(self.dtype),
                      self.weight.to(self.dtype), self.bias.to(self.dtype),
-                     padding=1)
+                     padding=pad)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -87,11 +96,12 @@ class VNetDeepSup(VNet):
         out128 = run(self.down_tr128, out64)
         out256 = run(self.down_tr256, out128)
         out = run(self.up_tr256, out256, out128)
-        d1 = upsample_trilinear_batch(self.Conv_0(out), size)
+        mesh = active_mesh()
+        d1 = upsample_trilinear_batch(self.Conv_0(out), size, mesh)
         out = run(self.up_tr128, out, out64)
-        d2 = upsample_trilinear_batch(self.Conv_1(out), size)
+        d2 = upsample_trilinear_batch(self.Conv_1(out), size, mesh)
         out = run(self.up_tr64, out, out32)
-        d3 = upsample_trilinear_batch(self.Conv_2(out), size)
+        d3 = upsample_trilinear_batch(self.Conv_2(out), size, mesh)
         out = run(self.up_tr32, out, out16)
         out = c5.from_kl(run(self.out_tr, out))
         return [out.float(), d1.float(), d2.float(), d3.float()]

@@ -47,6 +47,20 @@ Every wrapper has a plain PyTorch version beside it (``*_plain``). A
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
 launches its kernel or raises. :data:`LAUNCHES` counts the launches of
 each kernel.
+
+Under a mesh with a space axis (``parallel.use_mesh``), :func:`conv5_kl`
+and :func:`conv5_kl_fused` take the rank's H block [N, D, C, H/S, W] and
+run as the JAX ``_cp_batchmap_kl`` / ``_cp_batchmap_kl_fused`` /
+``_cp_wgrad_kl`` partitions do: P = 2 halo rows from each H neighbour
+(zeros at the volume's edges, ``parallel.halo_h``), the same kernel on
+the extended shard [N, D, C, H/S + 4, W], and its rows ``[P:-P]``. The
+backward's dx is rows ``[P:-P]`` of the dgrad kernel on the halo'd
+cotangent; dW is the weight-gradient kernel on the saved halo'd input and
+the cotangent zero-padded by P rows, a partial sum that
+``parallel.sum_grads`` completes over the world (as it does the batch
+shards' partials); db is local. Nothing gives way to another route on a
+CUDA tensor. A mesh without a space axis changes nothing here: no halo
+and no extra copy.
 """
 
 import ctypes
@@ -58,6 +72,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ..parallel.collectives import halo_h
+from ..parallel.mesh import active_mesh
 
 K = 5  # kernel edge
 P = K // 2  # halo
@@ -1087,12 +1103,49 @@ class _Conv5KL(torch.autograd.Function):
         return dx, dw, db, None
 
 
+class _Conv5KLHalo(torch.autograd.Function):
+    """conv5_kl on the rank's H block under a space mesh: the JAX
+    ``_cp_batchmap_kl`` forward and ``_conv5_kl_bwd`` through
+    ``_cp_batchmap_kl`` / ``_cp_wgrad_kl`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, xk, w, b, kind, mesh):
+        ctx.kind, ctx.mesh = kind, mesh
+        xe = halo_h(xk, mesh, P)
+        ctx.save_for_backward(xe, w)
+        return _conv5_forward(xe, w, b, kind)[:, :, :, P:-P]
+
+    @staticmethod
+    def backward(ctx, gk):
+        xe, w = ctx.saved_tensors
+        gk = pin_kl(gk)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv5_dgrad_kl(halo_h(gk, ctx.mesh, P), w)[:, :, :, P:-P]
+        if ctx.needs_input_grad[1]:
+            dw = conv5_wgrad_kl(xe, F.pad(gk, (0, 0, P, P)),
+                                ctx.kind).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = gk.float().sum(dim=(0, 1, 3, 4))
+        return dx, dw, db, None, None
+
+
+def _space_mesh():
+    """The active mesh where it has a space axis, else None."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.space > 1 else None
+
+
 def conv5_kl(xk, w, b, kind="head"):
     """5^3 SAME conv in kernel layout: [N, D, Ci, H, W] -> [N, D, Co, H, W]
     in x's dtype. ``kind``: 'head' (any Ci) or 'stem' (Ci = 1).
     Differentiable in x, w and b; dx is skipped when x needs no gradient
-    (the stem's input is the image)."""
+    (the stem's input is the image). Under a space mesh ``xk`` is the
+    rank's H block (module docstring)."""
     _check_conv(xk, w, b, kind, None)
+    mesh = _space_mesh()
+    if mesh is not None:
+        return _Conv5KLHalo.apply(xk, w, b, kind, mesh)
     return _Conv5KL.apply(xk, w, b, kind)
 
 
@@ -1107,6 +1160,11 @@ def conv5_kl_fused(xk, w, b, ep: Sequence[torch.Tensor], kind="head"):
         raise RuntimeError(
             "conv5_kl_fused has no backward: call it under torch.no_grad() "
             "or use conv5_kl with a separate BatchNorm and activation")
+    mesh = _space_mesh()
+    if mesh is not None:
+        xe = halo_h(xk, mesh, P)
+        return torch.ops.medicalseg.conv5_fused(xe, w, b, *ep,
+                                                kind)[:, :, :, P:-P]
     return torch.ops.medicalseg.conv5_fused(xk, w, b, *ep, kind)
 
 

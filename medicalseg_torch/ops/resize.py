@@ -20,6 +20,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..parallel.collectives import halo_h
 
 
 @contextlib.contextmanager
@@ -90,13 +93,34 @@ def _halfpixel_on(in_size, out_size, dtype, device):
     return mat.pin_memory().to(device, non_blocking=True)
 
 
-def upsample_trilinear_batch(x, size):
+@functools.lru_cache(maxsize=64)
+def _halfpixel_shard_on(in_size, out_size, space, s, dtype, device):
+    """Shard ``s`` of ``space`` of :func:`_linear_matrix_halfpixel` for a
+    global (``out_size``, ``in_size``) resize: its output rows, and its
+    input rows with one halo row on each side (zero columns beyond the
+    volume's edges), [out / space, in / space + 2], kept on ``device``."""
+    mat = F.pad(_linear_matrix_halfpixel(in_size, out_size, dtype), (1, 1))
+    ho, hi = out_size // space, in_size // space
+    mat = mat[s * ho:(s + 1) * ho, s * hi:s * hi + hi + 2].contiguous()
+    if torch.device(device).type == "cpu":
+        return mat
+    return mat.pin_memory().to(device, non_blocking=True)
+
+
+def upsample_trilinear_batch(x, size, mesh=None):
     """Half-pixel trilinear resize of an NDHWC batch [N, D, H, W, C] to
     ``size`` (d, h, w), as three per-axis matrix products in ``x``'s dtype
     (an integer batch in float32), one for each axis that changes. For the
     deep-supervision heads, which upsample their logits to the input size
     every step. Upsampling (or the identity) only: a downscale raises, as
-    a fixed two-tap matrix does not anti-alias."""
+    a fixed two-tap matrix does not anti-alias.
+
+    With a ``mesh`` that has a space axis, ``x`` and ``size`` are the
+    rank's H blocks of the global tensors: the H product takes one edge
+    row from each H neighbour (``parallel.halo_h``, differentiable) and
+    the rank's rows of the global matrix, so that the result is the
+    rank's block of the global resize (clamped at the volume's edges
+    only)."""
     size = tuple(int(s) for s in size)
     n, d, h, w, c = x.shape
     if (d, h, w) == size:
@@ -105,14 +129,21 @@ def upsample_trilinear_batch(x, size):
         raise ValueError(
             "upsample_trilinear_batch only upsamples; got {} -> {}".format(
                 (d, h, w), size))
+    sharded = mesh is not None and mesh.space > 1
     dt = x.dtype if x.dtype.is_floating_point else torch.float32
     out = x.to(dt)
     for axis, spec in ((1, "ad,ndhwc->nahwc"), (2, "bh,ndhwc->ndbwc"),
                        (3, "xw,ndhwc->ndhxc")):
-        if out.shape[axis] != size[axis - 1]:
-            mat = _halfpixel_on(out.shape[axis], size[axis - 1], dt,
-                                x.device)
-            out = torch.einsum(spec, mat, out)
+        if out.shape[axis] == size[axis - 1]:
+            continue
+        if axis == 2 and sharded:
+            mat = _halfpixel_shard_on(out.shape[2] * mesh.space,
+                                      size[1] * mesh.space, mesh.space,
+                                      mesh.s, dt, x.device)
+            out = torch.einsum(spec, mat, halo_h(out, mesh, 1, axis=2))
+            continue
+        mat = _halfpixel_on(out.shape[axis], size[axis - 1], dt, x.device)
+        out = torch.einsum(spec, mat, out)
     return out.to(x.dtype)
 
 

@@ -11,8 +11,20 @@ tensorboardX events to ``--save_dir``. ``--loader_mode device_cache``
 (``auto``'s choice for a dataset of one volume shape that fits in 1 GiB)
 and ``--steps_per_dispatch`` above 1 train through a CUDA graph of the
 step on the card; ``--profiler_options`` writes a Chrome trace of a window
-of iterations. ``--space`` sizes the TPU mesh and is rejected unless it
-keeps its default.
+of iterations.
+
+Under ``torchrun`` the ranks form a data x space process mesh (one process
+a card; ``parallel.init_from_env``): ``--space S`` shards each volume's H
+axis over S ranks, the data axis takes the rest of the world, and
+``--batch_size`` is per data index (the global batch is ``batch_size x
+data``). NCCL where each rank has a card of its own, gloo where ranks
+share one (or with ``--device cpu``); the log names the one taken. E.g.
+two cards, the lung recipe H-sharded over both::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m medicalseg_torch.train --config \\
+        configs/lung_coronavirus/vnet_lung_coronavirus_128_128_128_15k_tpu.yml \\
+        --space 2 --iters 100 --save_interval 50 --seed 0
 
 Example, the flagship recipe (its dataset made by
 ``tools/generate_synthetic_dataset.py``, see the YAML)::
@@ -97,9 +109,9 @@ def parse_args(argv=None):
         default=None, type=int)
     parser.add_argument(
         "--space", dest="space",
-        help="Spatial-partition axis of the JAX package's TPU mesh; the "
-             "port runs on one card, so only the default 1 is accepted.",
-        type=int, default=1)
+        help="Spatial-partition axis size of the process mesh (1 = pure "
+             "data parallel); the ranks come from torchrun.", type=int,
+        default=1)
     parser.add_argument(
         "--loader_mode", dest="loader_mode",
         help="Data pipeline mode: auto | device | device_cache | host. "
@@ -120,18 +132,16 @@ def parse_args(argv=None):
     parser.add_argument(
         "--device", dest="device", help="cuda (default) or cpu.",
         type=str, default="cuda", choices=["cuda", "cpu"])
-    args = parser.parse_args(argv)
-    if args.space != 1:
-        parser.error("--space sizes the JAX package's TPU mesh; the port "
-                     "trains on one card (--space 1)")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(args):
     from .core.train import train
     from .cvlibs import Config
+    from .parallel import init_from_env
     from .utils import config_check, get_sys_env, logger, seed_all
 
+    device, _ = init_from_env(args.device)
     if args.seed is not None:
         seed_all(args.seed)
         logger.info("Set seed to {}".format(args.seed))
@@ -180,10 +190,11 @@ def main(args):
         keep_checkpoint_max=args.keep_checkpoint_max,
         profiler_options=args.profiler_options,
         seed=args.seed if args.seed is not None else 0,
+        space=args.space,
         data_loader_mode=args.loader_mode,
         steps_per_dispatch=args.steps_per_dispatch,
         wire_dtype=args.wire_dtype,
-        device=args.device)
+        device=str(device))
 
 
 if __name__ == "__main__":

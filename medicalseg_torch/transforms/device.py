@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops import intensity, resize, spatial
+from ..parallel.mesh import active_mesh
 from . import transform as T
 
 N_ATTEMPTS = 10  # rejection attempts of a random-resized crop
@@ -154,7 +155,12 @@ class DeviceAugmentor:
     ``augment_fn``; ``generator`` is the state's, of which only the seed
     it was last given is read, so the draws of a call depend on (``seed``,
     that seed) only. :meth:`draw`, :meth:`params` and :meth:`apply` are
-    its three stages."""
+    its three stages.
+
+    Under a mesh (``parallel.use_mesh``) ``images`` and ``labels`` are the
+    rank's rows of the global batch, whole samples: every rank draws the
+    global batch's parameters and applies its rows', and a rank of a space
+    axis then keeps its H block of the result."""
 
     def __init__(self, transforms, seed=0):
         if not supports(transforms):
@@ -290,7 +296,16 @@ class DeviceAugmentor:
                 torch.stack([o[1] for o in outs]))
 
     def __call__(self, images, labels, generator):
-        draws = self.draw(images.shape[0], generator.initial_seed())
+        n = images.shape[0]
+        mesh = active_mesh()
+        if mesh is None:
+            draws = self.draw(n, generator.initial_seed())
+        else:  # the global batch's draws; this rank's rows
+            lo, hi = mesh.rows(n)
+            draws = self.draw(n * mesh.data, generator.initial_seed())[lo:hi]
         params = [self.params(d, tuple(images.shape[1:4]), labels[i])
                   for i, d in enumerate(draws)]
-        return self.apply(images, labels, params)
+        images, labels = self.apply(images, labels, params)
+        if mesh is not None:  # whole samples augmented; this rank's H block
+            images, labels = mesh.keep_h(images), mesh.keep_h(labels)
+        return images, labels

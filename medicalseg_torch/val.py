@@ -11,7 +11,13 @@ int8`` or ``bf16``), and evaluates the config's val set with
 ``core.val.evaluate``: whole volumes, or the sliding window with
 ``--sw_num``, AUC-ROC with ``--auc_roc true``, the first five volumes
 dumped under ``--save_dir``, tensorboardX events there with
-``--use_vdl``.
+``--use_vdl``. Under ``torchrun`` the ranks (one a card) share the volumes
+out over the data axis of a process mesh of the whole world, as the root
+``val.py`` evaluates over ``build_mesh()``; rank 0 dumps and logs, and
+every rank returns the same result::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m medicalseg_torch.val --config <yml> --model_path <model.msgpack>
 
 Example::
 
@@ -70,9 +76,11 @@ def main(args):
     from .core.state import TrainState
     from .core.val import evaluate
     from .cvlibs import Config
+    from .parallel import build_mesh, init_from_env
     from .utils import config_check, get_sys_env, load_entire_model, logger
     from .utils.quant import round_trip_parameters
 
+    device, _ = init_from_env(args.device)
     info = ["{}: {}".format(k, v) for k, v in get_sys_env().items()]
     logger.info("\n".join(["", format("Environment Information", "-^48s")] +
                           info + ["-" * 48]))
@@ -95,7 +103,7 @@ def main(args):
     config_check(cfg, val_dataset=val_dataset)
 
     state = TrainState.create(cfg.model, cfg.build_optimizer,
-                              cfg.lr_scheduler, device=args.device)
+                              cfg.lr_scheduler, device=str(device))
     if args.model_path:
         load_entire_model(state.model, args.model_path)
         logger.info("Loaded trained params of model successfully")
@@ -104,15 +112,17 @@ def main(args):
         logger.info("Rounded the parameters through {} for evaluation".format(
             args.weights_precision))
 
+    mesh = build_mesh()
     log_writer = None
-    if args.use_vdl:
+    if args.use_vdl and mesh.primary:
         from tensorboardX import SummaryWriter
         log_writer = SummaryWriter(args.save_dir)
     try:
         return evaluate(state, val_dataset, cfg.loss,
                         num_workers=args.num_workers, print_detail=True,
                         auc_roc=args.auc_roc, writer=log_writer,
-                        save_dir=args.save_dir, sw_num=args.sw_num)
+                        save_dir=args.save_dir, sw_num=args.sw_num,
+                        mesh=mesh)
     finally:
         if log_writer is not None:
             log_writer.close()

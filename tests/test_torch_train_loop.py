@@ -349,8 +349,12 @@ def test_cli_trains_the_flagship_recipe_on_the_cpu(tmp_path, spine_data):
 
 
 def test_cli_rejects_tpu_only_flags(capsys):
+    """``--space`` sizes the process mesh now: it parses, and a space axis
+    larger than the world is refused when the mesh is built (one process
+    here; tests/test_torch_parallel.py trains over two)."""
+    from medicalseg_torch.parallel import build_mesh
     from medicalseg_torch.train import parse_args
     assert parse_args(["--space", "1"]).device == "cuda"
-    with pytest.raises(SystemExit):
-        parse_args(["--space", "2"])
-    assert "--space" in capsys.readouterr().err
+    assert parse_args(["--space", "2"]).space == 2
+    with pytest.raises(ValueError, match="space=2"):
+        build_mesh(space=2)
