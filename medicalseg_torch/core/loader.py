@@ -66,6 +66,16 @@ def _wire_label_dtype(dataset, wire_dtype):
     return torch.int16 if top < 1 << 15 else torch.int32
 
 
+def _on_device(dataset):
+    return device_supports(getattr(dataset, "raw_transforms", None) or [])
+
+
+def takes_host_mode(dataset, mode):
+    """Whether a :class:`TrainLoader` of ``dataset`` in ``mode`` runs in
+    host mode (``auto`` does where a transform has no device form)."""
+    return mode == "host" or (mode == "auto" and not _on_device(dataset))
+
+
 class TrainLoader:
     """Infinite shuffled batch iterator over a MedicalDataset.
 
@@ -84,7 +94,9 @@ class TrainLoader:
     ``batch_size`` (the global batch of a process mesh: a rank's rows,
     ``parallel.Mesh.rows``): the batches follow the global order, so the
     ranks' rows together are the batches of one loader at the global
-    batch. The device cache still holds the whole dataset.
+    batch. The device cache still holds the whole dataset. That holds for
+    the device modes only: host mode's transforms draw from numpy's global
+    generator in this process, so ``core.train`` refuses it over a mesh.
     """
 
     def __init__(self, dataset, batch_size, num_workers=2, seed=0,
@@ -108,8 +120,7 @@ class TrainLoader:
         self.unique_pairs = sorted({tuple(p) for p in dataset.file_list})
         self._pair_index = {pair: i
                             for i, pair in enumerate(self.unique_pairs)}
-        on_device = device_supports(getattr(dataset, "raw_transforms", None)
-                                    or [])
+        on_device = _on_device(dataset)
         if mode == "auto":
             mode = "host"
             if on_device:

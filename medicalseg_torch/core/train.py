@@ -42,7 +42,8 @@ Over a process mesh (``mesh``, or ``space`` with the process group that
 data index, as in the JAX loop: the global batch is ``batch_size x
 data``, each rank's loader keeps its rows of the global, seeded batch
 order (whole samples; a space rank keeps its H block after the
-augmentation), and the step gives the update and metrics of the global
+augmentation; the ``host`` loader mode raises ``NotImplementedError``),
+and the step gives the update and metrics of the global
 batch (``core.state``), eagerly. Every rank resumes from the same file;
 rank 0 alone logs, writes checkpoints and ``best.json`` and runs
 VisualDL, while the others wait at a barrier. The evaluation runs over
@@ -66,7 +67,7 @@ from ..utils import (TimeAverager, calculate_eta, logger, resume,
 from ..parallel import mesh as mesh_lib
 from ..utils.checkpoint import _atomic_write
 from ..utils.utils import resolve_device
-from .loader import TrainLoader
+from .loader import TrainLoader, takes_host_mode
 from .prefetch import DevicePrefetcher
 from .state import (TrainState, make_cached_train_step, make_multi_step,
                     make_train_step)
@@ -128,6 +129,14 @@ def train(model,
                     "global batch {}".format(
                         mesh.world, mesh.data, mesh.space, mesh.backend,
                         batch_size * mesh.data))
+    if sharded and takes_host_mode(train_dataset, data_loader_mode):
+        # host transforms draw from numpy's global generator, per rank and
+        # in thread order: the ranks' rows would not be one global batch
+        raise NotImplementedError(
+            "the host loader mode is not ported over a mesh of {} ranks "
+            "(ROADMAP.md module item 9): use a dataset whose transforms "
+            "run on the device (loader mode device or "
+            "device_cache)".format(mesh.world))
     loader = TrainLoader(train_dataset, batch_size=batch_size * mesh.data,
                          num_workers=num_workers, seed=seed,
                          mode=data_loader_mode, wire_dtype=wire_dtype,

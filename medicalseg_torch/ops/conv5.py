@@ -1081,50 +1081,31 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
 
 
 class _Conv5KL(torch.autograd.Function):
-    """conv5_kl with the backward of the JAX ``_conv5_kl_bwd``."""
-
-    @staticmethod
-    def forward(ctx, xk, w, b, kind):
-        ctx.kind = kind
-        ctx.save_for_backward(xk, w)
-        return _conv5_forward(xk, w, b, kind)
-
-    @staticmethod
-    def backward(ctx, gk):
-        xk, w = ctx.saved_tensors
-        gk = pin_kl(gk)
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = conv5_dgrad_kl(gk, w)
-        if ctx.needs_input_grad[1]:
-            dw = conv5_wgrad_kl(xk, gk, ctx.kind).to(w.dtype)
-        if ctx.needs_input_grad[2]:
-            db = gk.float().sum(dim=(0, 1, 3, 4))
-        return dx, dw, db, None
-
-
-class _Conv5KLHalo(torch.autograd.Function):
-    """conv5_kl on the rank's H block under a space mesh: the JAX
+    """conv5_kl with the backward of the JAX ``_conv5_kl_bwd``. Under a
+    space mesh (``mesh`` not None) ``xk`` is the rank's H block: the JAX
     ``_cp_batchmap_kl`` forward and ``_conv5_kl_bwd`` through
     ``_cp_batchmap_kl`` / ``_cp_wgrad_kl`` (module docstring)."""
 
     @staticmethod
     def forward(ctx, xk, w, b, kind, mesh):
         ctx.kind, ctx.mesh = kind, mesh
-        xe = halo_h(xk, mesh, P)
-        ctx.save_for_backward(xe, w)
-        return _conv5_forward(xe, w, b, kind)[:, :, :, P:-P]
+        if mesh is not None:
+            xk = halo_h(xk, mesh, P)
+        ctx.save_for_backward(xk, w)
+        return _unhalo(_conv5_forward(xk, w, b, kind), mesh)
 
     @staticmethod
     def backward(ctx, gk):
-        xe, w = ctx.saved_tensors
+        xk, w = ctx.saved_tensors
+        mesh = ctx.mesh
         gk = pin_kl(gk)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv5_dgrad_kl(halo_h(gk, ctx.mesh, P), w)[:, :, :, P:-P]
+            ge = gk if mesh is None else halo_h(gk, mesh, P)
+            dx = _unhalo(conv5_dgrad_kl(ge, w), mesh)
         if ctx.needs_input_grad[1]:
-            dw = conv5_wgrad_kl(xe, F.pad(gk, (0, 0, P, P)),
-                                ctx.kind).to(w.dtype)
+            ge = gk if mesh is None else F.pad(gk, (0, 0, P, P))
+            dw = conv5_wgrad_kl(xk, ge, ctx.kind).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = gk.float().sum(dim=(0, 1, 3, 4))
         return dx, dw, db, None, None
@@ -1136,6 +1117,12 @@ def _space_mesh():
     return mesh if mesh is not None and mesh.space > 1 else None
 
 
+def _unhalo(yk, mesh):
+    """``yk`` without the P halo rows on each side of its H axis, where
+    there is a space mesh."""
+    return yk if mesh is None else yk[:, :, :, P:-P]
+
+
 def conv5_kl(xk, w, b, kind="head"):
     """5^3 SAME conv in kernel layout: [N, D, Ci, H, W] -> [N, D, Co, H, W]
     in x's dtype. ``kind``: 'head' (any Ci) or 'stem' (Ci = 1).
@@ -1143,10 +1130,7 @@ def conv5_kl(xk, w, b, kind="head"):
     (the stem's input is the image). Under a space mesh ``xk`` is the
     rank's H block (module docstring)."""
     _check_conv(xk, w, b, kind, None)
-    mesh = _space_mesh()
-    if mesh is not None:
-        return _Conv5KLHalo.apply(xk, w, b, kind, mesh)
-    return _Conv5KL.apply(xk, w, b, kind)
+    return _Conv5KL.apply(xk, w, b, kind, _space_mesh())
 
 
 def conv5_kl_fused(xk, w, b, ep: Sequence[torch.Tensor], kind="head"):
@@ -1162,10 +1146,9 @@ def conv5_kl_fused(xk, w, b, ep: Sequence[torch.Tensor], kind="head"):
             "or use conv5_kl with a separate BatchNorm and activation")
     mesh = _space_mesh()
     if mesh is not None:
-        xe = halo_h(xk, mesh, P)
-        return torch.ops.medicalseg.conv5_fused(xe, w, b, *ep,
-                                                kind)[:, :, :, P:-P]
-    return torch.ops.medicalseg.conv5_fused(xk, w, b, *ep, kind)
+        xk = halo_h(xk, mesh, P)
+    return _unhalo(torch.ops.medicalseg.conv5_fused(xk, w, b, *ep, kind),
+                   mesh)
 
 
 def conv5(x, w, b, kind="head"):

@@ -9,7 +9,7 @@ inserts for the global batch:
   rank's block, zeros at the volume's edges, differentiable (its backward
   hands each halo row's cotangent back to the rank that owns the row and
   adds it there).
-* :func:`all_reduce_sum`: a sum over the world (or a group) whose backward
+* :func:`all_reduce_sum`: a sum over the world whose backward
   all-reduces the cotangents. Each rank's objective is then the global
   loss over the world size, and after :func:`sum_grads` every parameter
   gradient is the gradient of the global-batch loss, as under JAX's
@@ -127,44 +127,40 @@ def halo_h(x, mesh, rows, axis=3):
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x):
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
+        dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        dist.all_reduce(g)
+        return g
 
 
-def all_reduce_sum(x, group=None):
-    """The sum of ``x`` over the ranks of ``group`` (the world by default),
-    differentiable: the backward sums the cotangents over the same
-    ranks."""
+def all_reduce_sum(x):
+    """The sum of ``x`` over the world, differentiable: the backward sums
+    the cotangents over the world."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _AllReduceSum.apply(x, group)
+        return _AllReduceSum.apply(x)
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y)
     return y
 
 
 def sum_grads(module, mesh):
     """Sum every parameter gradient of ``module`` over the world, as one
-    flattened all-reduce (per dtype)."""
+    flattened all-reduce (every parameter of the port is float32)."""
     if mesh is None or mesh.world == 1:
         return
     grads = [p.grad for p in module.parameters() if p.grad is not None]
-    for dtype in sorted({g.dtype for g in grads}, key=str):  # one order
-        same = [g for g in grads if g.dtype == dtype]
-        flat = torch.cat([g.reshape(-1) for g in same])
-        dist.all_reduce(flat)
-        offset = 0
-        for g in same:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def gather_h(x, mesh, axis=2):

@@ -43,6 +43,8 @@ import torch.distributed as dist
 
 # the mesh the port's modules shard over while it is active (use_mesh)
 _ACTIVE = None
+# how long a collective waits for the other ranks before it raises
+_TIMEOUT_S = 600.0
 
 
 class Mesh:
@@ -150,7 +152,7 @@ def shard_batch(mesh: Mesh, images, labels, spatial_axis: Optional[int] = 2):
 
 def init_process_group(rank: int, world: int, device="cuda",
                        local_rank: int = 0, local_world: Optional[int] = None,
-                       store=None, timeout_s: float = 600.0):
+                       store=None):
     """Join a process group of ``world`` ranks as ``rank`` and return (the
     rank's device, the backend). On CUDA the rank takes card
     ``local_rank`` where the host has a card for each of its
@@ -171,7 +173,7 @@ def init_process_group(rank: int, world: int, device="cuda",
         device = torch.device("cuda", local_rank % count)
         torch.cuda.set_device(device)
     kwargs = dict(backend=backend, rank=rank, world_size=world,
-                  timeout=datetime.timedelta(seconds=timeout_s))
+                  timeout=datetime.timedelta(seconds=_TIMEOUT_S))
     if store is not None:
         kwargs["store"] = store
     else:

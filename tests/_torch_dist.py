@@ -197,7 +197,7 @@ def main(rank, world, tmp):
     from medicalseg_torch.parallel import build_mesh, init_process_group
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(tmp, "store"), world)
-    init_process_group(rank, world, "cpu", store=store, timeout_s=120)
+    init_process_group(rank, world, "cpu", store=store)
     try:
         jobs = torch.load(os.path.join(tmp, "jobs.pt"), weights_only=False)
         # every rank builds every mesh (and its groups) in one order
