@@ -278,7 +278,24 @@ JSON line; any failure raises and the script exits non-zero:
    the run. Prints the backend, the card count, each rank's device, the
    errors, each rank's step ms (host clock: four processes share one card
    over gloo, a check of correctness, not of scaling) and the torchrun
-   seconds.
+   seconds. The same step and eval forward of the cube config at H = 80
+   (``cube_h80``: 2 x 128 x 80 x 128; its deepest level's five rows
+   replicated over space 2) against one process at the same bounds, with
+   its own shape check: conv launches at the halo'd blocks (44, 24, 14, 9
+   rows) and the whole replicated 5 rows, each held to its plain version.
+   Each rank's host-mode loader (crop, rotation and flip drawn on the host
+   by two threads) against its rows of the one-process loader's batches,
+   bit for bit; and ``torchrun`` trains two iterations at ``--space 2
+   --loader_mode host --num_workers 2``. Where every rank has a card
+   (NCCL) the cube and the flagship also run as the cached step, eager
+   and as replays of one CUDA graph a rank (``graphed``: each of four
+   steps bit for bit on every rank, host ms a step both ways, a profiled
+   step's device ms, NCCL kernel ms and idle share both ways, launches a
+   replay), then the same four steps as the cached step with [n, B]
+   index rows (a dispatch of three and a remainder of one) and as the
+   multi-step form (super-batches of two), each bit for bit the eager
+   steps; over gloo the line says ``"graphed": "not run: gloo, one
+   card"``.
 
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
@@ -307,7 +324,7 @@ sys.path.insert(0, ROOT)
 
 from medicalseg_torch.core.state import (TrainState,  # noqa: E402
                                          make_cached_train_step,
-                                         make_train_step)
+                                         make_multi_step, make_train_step)
 from medicalseg_torch.cvlibs.config import Config, build_model  # noqa: E402
 from medicalseg_torch import io as medio  # noqa: E402
 from medicalseg_torch.core.sliding_window import (  # noqa: E402
@@ -1023,7 +1040,10 @@ def profile_call(fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     device time of the kernels each PyTorch operator launched itself (its
     self device time; the ten largest of each), and the device's idle share
-    of the host wall time of that call."""
+    of the host wall time of that call. NCCL kernels are summed apart
+    (``nccl_ms``), out of the busy time: a collective's kernel runs on its
+    own stream and spins while it waits for the other ranks, so its time
+    overlaps the compute stream's and is not work."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1038,15 +1058,19 @@ def profile_call(fn):
 def profile_stats(prof, wall_ms):
     """:func:`profile_call`'s figures from a finished profiler over a
     window of ``wall_ms`` on the host clock."""
-    groups = {}
+    groups, nccl_ms = {}, 0.0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if "nccl" in ev.key.lower():
+            nccl_ms += ms
             continue
         name = ev.key
         for tag in KERNEL_TAGS:
             if tag in name:
                 name = tag
-        groups[name] = groups.get(name, 0.0) + ev.self_device_time_total / 1e3
+        groups[name] = groups.get(name, 0.0) + ms
     busy_ms = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
     ops = [(ev.key, ev.self_device_time_total / 1e3)
@@ -1055,6 +1079,7 @@ def profile_stats(prof, wall_ms):
            torch.autograd.DeviceType.CPU and ev.self_device_time_total]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
             "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "nccl_ms": nccl_ms,
             "device_ms_by_kernel": [[k[:80], v] for k, v in top],
             "device_ms_by_op": [[k[:80], v] for k, v in sorted(
                 ops, key=lambda kv: -kv[1])[:10]]}
@@ -2568,37 +2593,86 @@ def _dropout_mask(model):
     return None
 
 
+def _graph_inputs(path, shape, classes, batch, steps, device, rows=None,
+                  start=None):
+    """What the graphed cases start from: the config; a seeded device
+    cache of ``GRAPH_VOLUMES`` volumes of ``shape`` as
+    TrainLoader.build_device_cache holds it (raw volumes in the bf16 /
+    uint8 wire dtypes); the seeded stream of ``steps`` batches of
+    ``batch`` cache indices (``rows`` = (lo, hi) keeps a rank's rows of
+    each); the recipe's device augmentation; and ``new_state()``, a fresh
+    capturable TrainState from the ``start`` weights (the seeded
+    initialisation by default)."""
+    cfg = Config(path)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
+    cache = ((torch.rand((GRAPH_VOLUMES,) + shape, generator=gen,
+                         device=device) * 255).to(torch.bfloat16),
+             torch.randint(0, classes, (GRAPH_VOLUMES,) + shape,
+                           generator=gen, device=device, dtype=torch.uint8))
+    rng = np.random.RandomState(TRAIN_SEED)
+    order = np.concatenate([rng.permutation(GRAPH_VOLUMES) for _ in range(
+        -(-steps * batch // GRAPH_VOLUMES))])
+    stream = order[:steps * batch].reshape(steps, batch)
+    if rows is not None:
+        stream = stream[:, rows[0]:rows[1]]
+    stream = stream.astype(np.int32)
+    if start is None:
+        start = build_model(cfg.dic["model"], generator=torch.Generator(
+        ).manual_seed(TRAIN_SEED)).state_dict()
+    augment = DeviceAugmentor(recipe_transforms(path), seed=TRAIN_SEED + 1)
+
+    def new_state():
+        model = build_model(cfg.dic["model"], generator=torch.Generator(
+        ).manual_seed(TRAIN_SEED))
+        model.load_state_dict(start)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED,
+                                 device=device, capturable_optimizer=True)
+
+    return cfg, cache, stream, augment, new_state
+
+
+def _eager_call(step, state, cache, idx, syncs_error=False):
+    """One eager step on the cached volumes ``idx``, the generator
+    re-seeded from (seed, step) as the train loop does; with
+    ``syncs_error`` a host sync inside the step raises (a sync would break
+    a capture). Returns its metrics."""
+    state.generator.manual_seed(step_seed(TRAIN_SEED, state.step))
+    idx = torch.from_numpy(idx).long().to(cache[0].device)
+    if syncs_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step(state, cache[0].index_select(0, idx),
+                    cache[1].index_select(0, idx))[1]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _timed_steps(call, dispatches, after):
+    """``call(i, d)`` for each dispatch ``d`` (one step's indices, or
+    several steps'), synchronized on both sides: the losses in step order,
+    the host ms a step of each dispatch, and ``after()`` after each."""
+    out = {"loss": [], "ms": [], "after": []}
+    for i, d in enumerate(dispatches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = call(i, d)
+        torch.cuda.synchronize()
+        loss = metrics["loss"].reshape(-1)
+        out["ms"].append((time.perf_counter() - t0) * 1e3 / loss.numel())
+        out["loss"].extend(loss.tolist())
+        out["after"].append(after())
+    return out
+
+
 def _graph_case(name, path, shape, classes, batch):
     """One config through the eager step and the graphed cached step from
     one state and one stream of cached batches (module docstring,
     ``train_graph``). Returns its JSON entry."""
-    cfg = Config(path)
-    mc = cfg.dic["model"]
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
-    # the device cache as TrainLoader.build_device_cache holds it: raw
-    # volumes in the bf16 / uint8 wire dtypes
-    cache_images = (torch.rand((GRAPH_VOLUMES,) + shape, generator=gen,
-                               device=dev) * 255).to(torch.bfloat16)
-    cache_labels = torch.randint(0, classes, (GRAPH_VOLUMES,) + shape,
-                                 generator=gen, device=dev,
-                                 dtype=torch.uint8)
-    rng = np.random.RandomState(TRAIN_SEED)
     steps = GRAPH_STEPS[name]
-    order = np.concatenate([rng.permutation(GRAPH_VOLUMES)
-                            for _ in range(steps)])
-    stream = order[:steps * batch].reshape(steps, batch).astype(np.int32)
-    start = build_model(mc, generator=torch.Generator().manual_seed(
-        TRAIN_SEED)).state_dict()
-    augment = DeviceAugmentor(recipe_transforms(path), seed=TRAIN_SEED + 1)
-
-    def new_state():
-        model = build_model(mc, generator=torch.Generator().manual_seed(
-            TRAIN_SEED))
-        model.load_state_dict(start)
-        return TrainState.create(model, cfg.build_optimizer,
-                                 cfg.lr_scheduler, seed=TRAIN_SEED,
-                                 capturable_optimizer=True)
+    cfg, cache, stream, augment, new_state = _graph_inputs(
+        path, shape, classes, batch, steps, torch.device("cuda"))
+    cache_images, cache_labels = cache
 
     def probe(state, counts):
         """Eval-mode logits of the first cached volume, raw and unaugmented
@@ -2621,38 +2695,19 @@ def _graph_case(name, path, shape, classes, batch):
     state = new_state()
     torch.cuda.reset_peak_memory_stats()
     c5.reset_launches()
-    eager = {"loss": [], "ms": [], "mask": [], "probe": []}
     eager_probed = {}
-    for i, idx in enumerate(stream):
-        state.generator.manual_seed(step_seed(TRAIN_SEED, state.step))
-        idx_dev = torch.from_numpy(idx).long().to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == 0:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            _, metrics = eager_step(state, cache_images.index_select(
-                0, idx_dev), cache_labels.index_select(0, idx_dev))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        eager["ms"].append((time.perf_counter() - t0) * 1e3)
-        eager["loss"].append(metrics["loss"].item())
-        eager["mask"].append(_dropout_mask(state.model))
-        eager["probe"].append(probe(state, eager_probed))
+    eager = _timed_steps(
+        lambda i, idx: _eager_call(eager_step, state, cache, idx, i == 0),
+        stream, lambda: (_dropout_mask(state.model),
+                         probe(state, eager_probed)))
+    eager["mask"], eager["probe"] = map(list, zip(*eager.pop("after")))
     eager_launches = {k: (v - eager_probed[k]) / steps
                       for k, v in c5.LAUNCHES.items()}
     eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     eager_params = {k: v.float().clone()
                     for k, v in state.model.state_dict().items()}
-
-    def eager_call():
-        state.generator.manual_seed(step_seed(TRAIN_SEED, state.step))
-        idx_dev = torch.from_numpy(stream[0]).long().to(dev)
-        eager_step(state, cache_images.index_select(0, idx_dev),
-                   cache_labels.index_select(0, idx_dev))
-
-    eager_profile = profile_call(eager_call)
+    eager_profile = profile_call(
+        lambda: _eager_call(eager_step, state, cache, stream[0]))
     del state, eager_step
     torch.cuda.empty_cache()
 
@@ -2662,21 +2717,15 @@ def _graph_case(name, path, shape, classes, batch):
     state = new_state()
     torch.cuda.reset_peak_memory_stats()
     c5.reset_launches()
-    graphed = {"loss": [], "ms": [], "mask": [], "probe": []}
     probed = {}
-    for idx in stream:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, metrics = cached(state, cache_images, cache_labels, idx,
-                            seed=TRAIN_SEED)
-        torch.cuda.synchronize()
-        graphed["ms"].append((time.perf_counter() - t0) * 1e3)
-        graphed["loss"].append(metrics["loss"].item())
-        # the capture leaves the graph's (unrun) buffers in the modules:
-        # the masks a replay drew are read from the replays on
-        graphed["mask"].append(_dropout_mask(state.model)
-                               if cached.graphed.replays else None)
-        graphed["probe"].append(probe(state, probed))
+    # the capture leaves the graph's (unrun) buffers in the modules: the
+    # masks a replay drew are read from the replays on
+    graphed = _timed_steps(
+        lambda i, idx: cached(state, *cache, idx, seed=TRAIN_SEED)[1],
+        stream, lambda: (_dropout_mask(state.model)
+                         if cached.graphed.replays else None,
+                         probe(state, probed)))
+    graphed["mask"], graphed["probe"] = map(list, zip(*graphed.pop("after")))
     graph = cached.graphed
     # the probe's eval forwards are not the step's
     launches = {k: v - probed[k] for k, v in c5.LAUNCHES.items()}
@@ -2759,15 +2808,9 @@ def _graph_case(name, path, shape, classes, batch):
     cached2 = make_cached_train_step(cfg.loss, 2, augment_fn=augment)
     state = new_state()
     torch.cuda.reset_peak_memory_stats()
-    two = {"loss": [], "ms": []}
-    for rows in stream.reshape(steps // 2, 2, batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, metrics = cached2(state, cache_images, cache_labels, rows,
-                             seed=TRAIN_SEED)
-        torch.cuda.synchronize()
-        two["ms"].append((time.perf_counter() - t0) * 1e3 / 2)
-        two["loss"].extend(metrics["loss"].tolist())
+    two = _timed_steps(
+        lambda i, rows: cached2(state, *cache, rows, seed=TRAIN_SEED)[1],
+        stream.reshape(steps // 2, 2, batch), lambda: None)
     two_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(cached2.graphed.replays == steps - 1 and state.step == steps,
           "{}: two steps a dispatch took {} replays".format(
@@ -2828,17 +2871,29 @@ PAR_MDICE_TOL = 5e-5  # torchrun val against one process (4-decimal log)
 # (name, config, batch per data index): the cube's 2 x 128^3 and the
 # flagship's 3 x 12 x 512 x 512 a data index
 PAR_CASES = (("cube", LUNG_TPU, 1), ("flagship", SPINE, 3))
+# the cube config at H = 80: H 80 -> 40 -> 20 -> 10 -> 5, the deepest
+# level's five rows replicated over space 2 (parallel.h_levels)
+PAR_H80 = ("cube_h80", LUNG_TPU, 1)
+PAR_SHAPES = {"cube": (EDGE, EDGE, EDGE), "cube_h80": (EDGE, 80, EDGE),
+              "flagship": FLAGSHIP_STEM[1:]}
+# host-mode loading over the mesh: seeded volumes, the global batch, the
+# batches compared, and the recipe (drawn on the host)
+PAR_HOST = {"shape": (24, 40, 32), "volumes": 5, "batch": 4, "batches": 3}
+# the graphed cached step over NCCL: the capture's eager warm-up, then
+# three replays, each bit for bit the eager sharded step
+PAR_GRAPH_STEPS = 4
 
 
 def _par_batch(name, batch, device):
     """The seeded global batch of a sharded case, made alike in every
     process: (images NDHWC f32, labels uint8)."""
-    if name == "cube":
+    if name != "flagship":
+        shape = (batch,) + PAR_SHAPES[name]
         rng = np.random.RandomState(TRAIN_SEED)
-        images = torch.from_numpy(rng.rand(batch, EDGE, EDGE, EDGE, 1).astype(
+        images = torch.from_numpy(rng.rand(*shape, 1).astype(
             np.float32)).to(device)
-        labels = torch.from_numpy(rng.randint(
-            0, 3, (batch, EDGE, EDGE, EDGE)).astype(np.uint8)).to(device)
+        labels = torch.from_numpy(rng.randint(0, 3, shape).astype(
+            np.uint8)).to(device)
         return images, labels
     gen = torch.Generator(device=device).manual_seed(TRAIN_SEED)
     images = torch.rand((batch,) + FLAGSHIP_STEM[1:] + (1,), generator=gen,
@@ -2982,8 +3037,8 @@ def parallel_rank(wd):
     out = {"rank": mesh.rank, "coords": [mesh.d, mesh.s],
            "device": str(device), "card": torch.cuda.get_device_name(device),
            "backend": backend, "cases": {}}
-    seen = {}
-    for name, path, batch in PAR_CASES:
+    seen, seen_h80 = {}, {}
+    for name, path, batch in PAR_CASES + (PAR_H80,):
         start = torch.load(os.path.join(wd, name + "_start.pt"))
         cfg, state = _par_state(path, device, start)
         images, labels = parallel.shard_batch(
@@ -2993,7 +3048,7 @@ def parallel_rank(wd):
         ref = torch.load(os.path.join(wd, name + "_ref.pt"))
         state.generator.manual_seed(TRAIN_SEED)
         reset_counts()
-        with _record_shapes(seen):
+        with _record_shapes(seen_h80 if name == PAR_H80[0] else seen):
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             _, metrics = step(state, images, labels)
@@ -3041,21 +3096,197 @@ def parallel_rank(wd):
             "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2 ** 30}
         del state, images, labels, logits, full, metrics, ref, start
         torch.cuda.empty_cache()
+    out["host_loader"] = _par_host_rows(wd, mesh)
+    out["graphed"] = {}
+    if backend == "nccl":
+        for name, path, batch in PAR_CASES:
+            out["graphed"][name] = _par_graphed(name, path, batch, mesh,
+                                                device, wd)
     # this rank's share of the distinct kernel shapes, against the plain
     # versions (every rank launched every one of them: the same shapes)
-    keys = sorted(seen, key=str)
+    keys = sorted(set(seen) | set(seen_h80), key=str)
     errs = {}
     for i, key in enumerate(keys):
         if i % mesh.world == mesh.rank:
             errs["{}:{}:{}:{}".format(i, key[0], list(key[1]), key[3])] = \
                 _check_at_shape(key, TRAIN_SEED + i)
     out["shapes"] = [[k[0], list(k[1]), list(k[2]), k[3], n]
-                     for k, n in ((k, seen[k]) for k in keys)]
+                     for k, n in ((k, seen[k]) for k in sorted(seen,
+                                                              key=str))]
+    out["h80_shapes"] = [[k[0], list(k[1]), list(k[2]), k[3], n]
+                         for k, n in ((k, seen_h80[k])
+                                      for k in sorted(seen_h80, key=str))]
     out["checked"] = errs
+    out["distinct_shapes"] = len(keys)
     with open(os.path.join(wd, "rank{}.json".format(mesh.rank)), "w") as f:
         json.dump(out, f)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _host_loader(wd, rows):
+    """The host-mode loader over the parallel phase's seeded volumes
+    (``PAR_HOST``) at the global batch, keeping ``rows``: a crop, a
+    rotation and a flip drawn on the host, two worker threads."""
+    from medicalseg_torch.core.loader import TrainLoader
+    from medicalseg_torch.datasets import MedicalDataset
+    from medicalseg_torch.transforms import RandomRotation3D
+    phase0 = os.path.join(wd, "host")
+    transforms = [RandomResizedCrop3D((16, 32, 24), scale=(0.8, 1.2)),
+                  RandomRotation3D(20), RandomFlip3D()]
+    dataset = MedicalDataset(phase0, phase0, transforms, 3)
+    return TrainLoader(dataset, PAR_HOST["batch"], num_workers=2,
+                       seed=TRAIN_SEED, mode="host", rows=rows)
+
+
+def _write_host_data(wd):
+    """``PAR_HOST``'s seeded volumes and labels with their list files, and
+    the one-process host loader's first batches (``host_ref.pt``)."""
+    phase0 = os.path.join(wd, "host")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(phase0, sub))
+    rng = np.random.RandomState(TRAIN_SEED)
+    lines = []
+    for i in range(PAR_HOST["volumes"]):
+        np.save(os.path.join(phase0, "images", "v{}.npy".format(i)),
+                rng.rand(*PAR_HOST["shape"]).astype(np.float32))
+        np.save(os.path.join(phase0, "labels", "v{}.npy".format(i)),
+                rng.randint(0, 3, PAR_HOST["shape"]).astype(np.uint8))
+        lines.append("images/v{0}.npy labels/v{0}.npy\n".format(i))
+    with open(os.path.join(phase0, "train_list.txt"), "w") as f:
+        f.writelines(lines)
+    loader = _host_loader(wd, None)
+    try:
+        torch.save([next(loader) for _ in range(PAR_HOST["batches"])],
+                   os.path.join(wd, "host_ref.pt"))
+    finally:
+        loader.stop()
+
+
+def _par_host_rows(wd, mesh):
+    """This rank's host-mode batches against its rows of the one-process
+    loader's: bit for bit (fatal)."""
+    ref = torch.load(os.path.join(wd, "host_ref.pt"))
+    lo, hi = mesh.rows(PAR_HOST["batch"] // mesh.data)
+    loader = _host_loader(wd, (lo, hi))
+    try:
+        got = [next(loader) for _ in range(PAR_HOST["batches"])]
+    finally:
+        loader.stop()
+    same = [torch.equal(g[0], r[0][lo:hi]) and torch.equal(g[1], r[1][lo:hi])
+            for g, r in zip(got, ref)]
+    check(all(same), "rank {}: host-mode rows {} differ from the one "
+          "process's ({})".format(mesh.rank, (lo, hi), same))
+    return {"rows": [lo, hi], "batches": len(same), "bitwise": all(same)}
+
+
+def _state_tensors(state):
+    """Every tensor a step writes: parameters, BatchNorm statistics and the
+    optimizer's slots, as copies."""
+    out = {k: v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, slots in enumerate(state.optimizer.state.values()):
+        for k, v in slots.items():
+            if torch.is_tensor(v):
+                out["opt{}.{}".format(i, k)] = v.detach().clone()
+    return out
+
+
+def _par_graphed(name, path, batch, mesh, device, wd):
+    """The sharded step over the mesh (NCCL: a card a rank) from one start
+    and one stream of cached batches, eager against its graphed forms:
+    the cached step one step a dispatch, the cached step with [n, B]
+    index rows (a dispatch of three, then a remainder of one) and the
+    multi-step form (super-batches of two). Each rank's losses and every
+    parameter, BatchNorm statistic and optimizer slot after each dispatch
+    bit for bit the eager steps' (fatal), each form in
+    ``PAR_GRAPH_STEPS - 1`` replays. For the first form also the host ms
+    of a step both ways, one profiled step's device, NCCL and idle shares
+    both ways (:func:`profile_call`), the replay's device ms (CUDA events)
+    and the hand-kernel launches of a replay, which every form's graph
+    holds alike."""
+    steps = PAR_GRAPH_STEPS
+    cfg, cache, stream, augment, new_state = _graph_inputs(
+        path, PAR_SHAPES[name], 20 if name == "flagship" else 3,
+        batch * mesh.data, steps, device, rows=mesh.rows(batch),
+        start=torch.load(os.path.join(wd, name + "_start.pt")))
+    eager_step = make_train_step(cfg.loss, augment_fn=augment, mesh=mesh)
+    state = new_state()
+    eager = _timed_steps(
+        lambda i, idx: _eager_call(eager_step, state, cache, idx), stream,
+        lambda: _state_tensors(state))
+    eager_profile = profile_call(
+        lambda: _eager_call(eager_step, state, cache, stream[0]))
+    del state
+    torch.cuda.empty_cache()
+
+    def cached_call(run, rows):
+        return run(state, *cache, rows, seed=TRAIN_SEED)
+
+    def multi_call(run, rows):
+        idx = torch.from_numpy(rows).long().to(device)
+        return run(state, cache[0][idx], cache[1][idx], seed=TRAIN_SEED)
+
+    # (form, its step, its dispatches, how a dispatch calls it); each step
+    # made when its form runs, so that one graph is alive at a time
+    forms = (("cached", lambda: make_cached_train_step(
+                 cfg.loss, 1, augment_fn=augment, mesh=mesh),
+              list(stream), cached_call),
+             ("cached_3", lambda: make_cached_train_step(
+                 cfg.loss, 3, augment_fn=augment, mesh=mesh),
+              [stream[:3], stream[3:]], cached_call),
+             ("multi_2", lambda: make_multi_step(
+                 cfg.loss, 2, augment_fn=augment, mesh=mesh),
+              [stream[:2], stream[2:]], multi_call))
+    out = {"steps": steps, "local_batch": stream.shape[1],
+           "local_shape": [stream.shape[1], PAR_SHAPES[name][0],
+                           PAR_SHAPES[name][1] // mesh.space,
+                           PAR_SHAPES[name][2]],
+           "eager_losses": eager["loss"], "eager_ms_each": eager["ms"],
+           "eager_ms_per_step": float(np.median(eager["ms"][1:])),
+           "eager_profile": _profile_line(eager_profile)}
+    for form, make, dispatches, call in forms:
+        run, state = make(), new_state()
+        got = _timed_steps(
+            lambda i, rows: call(run, rows)[1], dispatches,
+            lambda: all(torch.equal(v, eager["after"][state.step - 1][k])
+                        for k, v in _state_tensors(state).items()))
+        graph = run.graphed
+        bitwise = got["after"] + [got["loss"] == eager["loss"]]
+        check(graph.replays == steps - 1 and state.step == steps,
+              "{} {} rank {}: {} replays in {} steps".format(
+                  name, form, mesh.rank, graph.replays, state.step))
+        check(all(bitwise), "{} {} rank {}: the graphed sharded step is not "
+              "the eager one bit for bit (after each dispatch, losses: {}; "
+              "losses {} vs {})".format(name, form, mesh.rank, bitwise,
+                                        got["loss"], eager["loss"]))
+        launches = {k: v for k, v in graph.launches.items() if v}
+        if form == "cached":
+            check(sum(launches.values()) > 0, name + ": the graph holds no "
+                  "hand kernel")
+            out.update({
+                "graphed_losses": got["loss"], "bitwise": bitwise,
+                "graphed_ms_each": got["ms"],
+                "graphed_ms_per_step": float(np.median(got["ms"][1:])),
+                "graphed_profile": _profile_line(profile_call(
+                    lambda: call(run, stream[0]))),
+                "replay_device_ms": time_ms(graph.graph.replay, reps=3),
+                "launches_per_replay": launches})
+        else:
+            check(launches == out["launches_per_replay"], "{} {}: {} "
+                  "launches a replay, the cached step's {}".format(
+                      name, form, launches, out["launches_per_replay"]))
+            out[form] = {"losses": got["loss"], "bitwise": bitwise,
+                         "ms_each": got["ms"]}
+        del state, run, graph
+        torch.cuda.empty_cache()
+    return out
+
+
+def _profile_line(prof):
+    """The parallel line's share of :func:`profile_call`'s figures."""
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "nccl_ms",
+                                 "idle_share")}
 
 
 def _free_port():
@@ -3133,7 +3364,9 @@ def phase_parallel():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         line["one_process"] = {
             name: _par_reference(name, path, batch * PAR_WORLD // PAR_SPACE,
-                                 wd) for name, path, batch in PAR_CASES}
+                                 wd)
+            for name, path, batch in PAR_CASES + (PAR_H80,)}
+        _write_host_data(wd)
         t0 = time.time()
         ranks = _run_ranks(wd)
         line["ranks_seconds"] = time.time() - t0
@@ -3169,13 +3402,66 @@ def phase_parallel():
     checked = {}
     for r in ranks:
         checked.update(r["checked"])
-    check(len(checked) == len(shapes), "{} of {} shapes held to the plain "
-          "versions".format(len(checked), len(shapes)))
+    check(len(checked) == ranks[0]["distinct_shapes"], "{} of {} shapes "
+          "held to the plain versions".format(len(checked),
+                                               ranks[0]["distinct_shapes"]))
     line["kernel_shapes"] = shapes
     line["kernel_shape_errors"] = checked
+    line["cube_h80"] = _par_h80_line(ranks)
+    check(all(r["host_loader"]["bitwise"] for r in ranks),
+          "host-mode rows differ from the one process's")
+    line["host_loader"] = [r["host_loader"] for r in ranks]
+    line["graphed"] = _par_graphed_line(ranks)
     line["torchrun"] = _phase_parallel_cli()
     emit(line)
     return line
+
+
+def _par_h80_line(ranks):
+    """The H = 80 case across the ranks: the same launches on every rank,
+    the fused eval conv among them, and its own kernel shapes: the
+    H-sharded levels' blocks with their 2 x 2 halo rows (44, 24, 14 and 9
+    rows) and the replicated deepest level's whole 5 rows (no halo), each
+    held to its plain version in the ranks (``kernel_shape_errors``)."""
+    name = PAR_H80[0]
+    for r in ranks:
+        check(r["cases"][name]["launches"] ==
+              ranks[0]["cases"][name]["launches"],
+              "{}: rank {} launched {} where rank 0 launched {}".format(
+                  name, r["rank"], r["cases"][name]["launches"],
+                  ranks[0]["cases"][name]["launches"]))
+    shapes = ranks[0]["h80_shapes"]
+    check(all(r["h80_shapes"] == shapes for r in ranks),
+          name + ": the ranks launched the kernels at different shapes")
+    rows = {s[1][3] for s in shapes if s[0] != "pin"}
+    check(rows == {44, 24, 14, 9, 5}, "{}: conv launches at H rows {}, not "
+          "the halo'd blocks 44, 24, 14, 9 and the replicated 5".format(
+              name, sorted(rows)))
+    out = {k: [r["cases"][name][k] for r in ranks]
+           for k in ranks[0]["cases"][name]}
+    out["kernel_shapes"] = shapes
+    return out
+
+
+def _par_graphed_line(ranks):
+    """The graphed cached step's results across the ranks (NCCL), or why
+    it did not run."""
+    if ranks[0]["backend"] != "nccl":
+        count = torch.cuda.device_count()
+        return "not run: {}, {}".format(ranks[0]["backend"], "one card" if
+                                        count == 1 else "{} cards".format(
+                                            count))
+    out = {}
+    for name, _, _ in PAR_CASES:
+        per = [r["graphed"][name] for r in ranks]
+        check(all(p["launches_per_replay"] == per[0]["launches_per_replay"]
+                  for p in per), name + ": the ranks' replays launch "
+              "different kernels")
+        check(all(all(b) for p in per for b in (
+            p["bitwise"], p["cached_3"]["bitwise"], p["multi_2"]["bitwise"])),
+              name + ": a replay is not the eager sharded step bit for bit")
+        out[name] = {k: [p[k] for p in per] for k in per[0]}
+    return out
 
 
 def _phase_parallel_cli():
@@ -3231,6 +3517,21 @@ def _phase_parallel_cli():
                       "mdice_two_ranks": dice2,
                       "mdice_one_process": one["mdice"]}
         torch.cuda.empty_cache()
+        # host-mode loading: the recipe's crop, rotation and flip drawn on
+        # the host by two loader threads a rank
+        run = os.path.join(wd, "host")
+        text, secs = _torchrun([
+            "-m", "medicalseg_torch.train", "--config", yml, "--space", "2",
+            "--iters", "2", "--save_interval", "2", "--log_iters", "1",
+            "--batch_size", "1", "--loader_mode", "host", "--num_workers",
+            "2", "--seed", str(TRAIN_SEED), "--save_dir", run])
+        train_lines = [ln for ln in text.splitlines() if "[TRAIN]" in ln]
+        check(len(train_lines) == 2 and "iter: 2/2" in train_lines[-1],
+              "torchrun host-mode train logged {}".format(train_lines))
+        check("TrainLoader mode: host" in text and os.path.exists(
+            os.path.join(run, "iter_2", ckpt.MODEL_FILE)),
+            "torchrun host-mode train: no host loader or no iter_2")
+        out["train_host"] = {"seconds": secs, "train_lines": train_lines}
     return out
 
 

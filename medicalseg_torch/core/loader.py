@@ -18,7 +18,11 @@ loader with a producer thread a batch or two ahead, in one of three modes.
     on the card at the head of the train step
     (:class:`~medicalseg_torch.transforms.DeviceAugmentor`).
   * ``host``: Compose runs per sample across ``num_workers`` threads
-    (the reference's DataLoader).
+    (the reference's DataLoader). Each sample's transforms draw from a
+    generator seeded from (seed, batch number, row of the global batch),
+    so the draws depend neither on thread order nor on the process. The
+    batch number is the loader's count of batches made, so a resumed run
+    restarts it from 0, as it restarts the shuffle.
 
 The shuffle is the JAX loader's: ``np.random.RandomState(seed)`` permutes
 the train list (repeated ``repeat_train`` times) epoch by epoch, so the
@@ -70,12 +74,6 @@ def _on_device(dataset):
     return device_supports(getattr(dataset, "raw_transforms", None) or [])
 
 
-def takes_host_mode(dataset, mode):
-    """Whether a :class:`TrainLoader` of ``dataset`` in ``mode`` runs in
-    host mode (``auto`` does where a transform has no device form)."""
-    return mode == "host" or (mode == "auto" and not _on_device(dataset))
-
-
 class TrainLoader:
     """Infinite shuffled batch iterator over a MedicalDataset.
 
@@ -92,11 +90,11 @@ class TrainLoader:
 
     ``rows`` = (start, stop) keeps those rows of every batch of
     ``batch_size`` (the global batch of a process mesh: a rank's rows,
-    ``parallel.Mesh.rows``): the batches follow the global order, so the
-    ranks' rows together are the batches of one loader at the global
-    batch. The device cache still holds the whole dataset. That holds for
-    the device modes only: host mode's transforms draw from numpy's global
-    generator in this process, so ``core.train`` refuses it over a mesh.
+    ``parallel.Mesh.rows``) and makes nothing else: the batches follow the
+    global order and host mode seeds each row's draws from its global
+    row, so the ranks' rows together are, bit for bit, the batches of one
+    loader at the global batch. The device cache still holds the whole
+    dataset.
     """
 
     def __init__(self, dataset, batch_size, num_workers=2, seed=0,
@@ -110,7 +108,9 @@ class TrainLoader:
         self.batch_size = batch_size
         self.rows = (0, batch_size) if rows is None else tuple(rows)
         self.num_workers = max(1, num_workers)
+        self.seed = int(seed)
         self.rng = np.random.RandomState(seed)
+        self._made = 0  # batches made: the host draws' step
         self.wire_dtype = wire_dtype
         self._img_dtype = (torch.bfloat16 if wire_dtype in ("bfloat16", "bf16")
                            else torch.float32)
@@ -254,13 +254,18 @@ class TrainLoader:
         if self.mode == "device":
             return self.read_batch(uidx)
 
-        def one(i):
-            im, lab, _ = self.dataset[int(i)]
+        step, self._made = self._made, self._made + 1
+
+        def one(row, i):
+            # the draws of global row ``row`` of batch ``step``
+            rng = np.random.default_rng([self.seed, step, row])
+            im, lab, _ = self.dataset.item(int(i), rng)
             # Compose gives [1, D, H, W]; NDHWC wants [D, H, W, 1]
             return (np.moveaxis(np.asarray(im, np.float32), 0, -1),
                     np.asarray(lab))
-        items = (list(self._pool.map(one, idxs)) if self._pool
-                 else [one(i) for i in idxs])
+        rows = range(self.rows[0], self.rows[0] + len(idxs))
+        items = (list(self._pool.map(one, rows, idxs)) if self._pool
+                 else [one(r, i) for r, i in zip(rows, idxs)])
         images = np.stack([it[0] for it in items])
         labels = np.stack([it[1] for it in items])
         return (torch.from_numpy(images).to(self._img_dtype),

@@ -29,9 +29,14 @@ its halos and global BatchNorm statistics, the global losses), back-
 propagates the global loss over the world size and sums the gradients
 over the world (``parallel.sum_grads``) before the optimizer, so that
 every rank takes the update of one process at the global batch and the
-metrics are the global batch's. Such a step runs eagerly: a CUDA graph
-of it would have to capture the collectives, which only NCCL can (ROADMAP,
-modules to port, item 9).
+metrics are the global batch's. The cached and multi-step forms replay
+one CUDA graph of that step on each rank where the process group runs on
+NCCL (a card a rank): the capture holds the halo exchanges, the
+BatchNorm and loss all-reduces and :func:`~..parallel.sum_grads`, and
+every rank captures on the same step, at the same shapes and with its
+collectives in one order. Over gloo, which moves host memory that a graph
+cannot hold (several ranks sharing one card, or the CPU), the step runs
+eagerly and says so once.
 
 Quick start::
 
@@ -224,16 +229,32 @@ class GraphedStep:
     new values. Nothing falls back to the eager step: a capture that fails
     raises.
 
+    With a ``mesh`` of more than one process (NCCL) the update is the
+    sharded one (``_update(..., mesh)`` under ``use_mesh``), and the graph
+    holds its collectives. The warm-up runs every collective the capture
+    records, in the same order, so that every communicator (the space and
+    data groups', the world's for the halo exchanges) exists before the
+    capture. Every rank re-captures on the same call: the condition is the
+    model, the optimizer and the batch shapes, which the ranks share.
+
+    The capture is thread-local (``capture_error_mode``): only this
+    thread's CUDA calls are held to the capture's rules, so that the
+    loader's producer thread and, under a mesh, the process group's
+    watchdog thread, which polls the eager collectives' events, do not
+    invalidate it.
+
     ``launches`` counts the hand kernels one replay launches (the
     :data:`ops.conv5.LAUNCHES` of the capture), and ``replays`` the
     replays: a replay does not tick :data:`ops.conv5.LAUNCHES`, so the
     kernels a run launched are the counters plus ``replays`` times
     ``launches``, less the capture's own count."""
 
-    def __init__(self, losses: dict, checkpoint_policy: Optional[str] = None):
+    def __init__(self, losses: dict, checkpoint_policy: Optional[str] = None,
+                 mesh=None):
         _check_policy(checkpoint_policy)
         self.losses = losses
         self.checkpoint_policy = checkpoint_policy
+        self.mesh = _world_mesh(mesh)
         self.graph = None
         self.launches = {}
         self.replays = 0
@@ -265,20 +286,23 @@ class GraphedStep:
         self.graph = self._metrics = None
         # this call's update, eagerly, on a side stream (the warm-up the
         # capture needs: lazy slots, cuDNN plans, the upsample matrices)
+        mesh = self.mesh
         current = torch.cuda.current_stream(images.device)
         side = torch.cuda.Stream(images.device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), use_mesh(mesh):
             metrics = _update(state, images, labels, self.losses,
-                              self.checkpoint_policy)
+                              self.checkpoint_policy, mesh)
         current.wait_stream(side)
         self._images, self._labels = images.clone(), labels.clone()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         before = dict(c5.LAUNCHES)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"), \
+                use_mesh(mesh):
             self._metrics = _update(state, self._images, self._labels,
-                                    self.losses, self.checkpoint_policy)
+                                    self.losses, self.checkpoint_policy,
+                                    mesh)
         self.launches = {k: c5.LAUNCHES[k] - before[k] for k in before}
         self.graph, self.replays = graph, 0
         self._owner, self._shapes = (state.model, state.optimizer), shapes
@@ -287,8 +311,10 @@ class GraphedStep:
                          *(v for slots in state.optimizer.state.values()
                            for v in slots.values() if torch.is_tensor(v))]
         logger.info("Captured the train step into a CUDA graph: {} hand "
-                    "kernel launches a replay".format(
-                        sum(self.launches.values())))
+                    "kernel launches a replay{}".format(
+                        sum(self.launches.values()),
+                        "" if mesh is None else ", rank {} of {} ({})".format(
+                            mesh.rank, mesh.world, mesh.backend)))
         return metrics
 
 
@@ -296,9 +322,8 @@ class _Updates:
     """The updates of :func:`make_multi_step` and
     :func:`make_cached_train_step`: the generator re-seeded from (``seed``,
     step) when a seed is given (the train loop's rule), the batch
-    prepared and augmented, then one update, the graph's replay on the
-    card and the eager update on the CPU and under a mesh of more than one
-    process."""
+    prepared and augmented, then one update: the graph's replay where
+    :meth:`replays` says so, else the eager update."""
 
     def __init__(self, losses, augment_fn, checkpoint_policy, mesh=None):
         _check_policy(checkpoint_policy)
@@ -306,10 +331,23 @@ class _Updates:
         self.augment_fn = augment_fn
         self.checkpoint_policy = checkpoint_policy
         self.mesh = _world_mesh(mesh)
-        self.graphed = GraphedStep(losses, checkpoint_policy)
-        if self.mesh is not None:
-            logger.info("{} ranks: the train step runs eagerly (no CUDA "
-                        "graph of the collectives)".format(self.mesh.world))
+        self.graphed = GraphedStep(losses, checkpoint_policy, self.mesh)
+        self._said = False
+
+    def replays(self, images) -> bool:
+        """Whether the update of a batch ``images`` replays the CUDA graph:
+        on the card, in one process or over NCCL. Over gloo the step runs
+        eagerly (module docstring); that is logged once."""
+        if not images.is_cuda:
+            return False
+        if self.mesh is None or self.mesh.backend == "nccl":
+            return True
+        if not self._said:
+            logger.info("{} ranks over {}: the train step runs eagerly (a "
+                        "CUDA graph holds NCCL collectives only)".format(
+                            self.mesh.world, self.mesh.backend))
+            self._said = True
+        return False
 
     def __call__(self, state, images, labels, seed):
         if seed is not None:
@@ -317,7 +355,7 @@ class _Updates:
         with use_mesh(self.mesh):
             images, labels = _prepare(state, images, labels,
                                       self.augment_fn, self.mesh)
-            if images.is_cuda and self.mesh is None:
+            if self.replays(images):
                 metrics = self.graphed(state, images, labels)
             else:
                 set_lr(state.optimizer, state.schedule(state.step))
@@ -344,8 +382,9 @@ def make_multi_step(losses: dict, n_steps: int,
     the generator is re-seeded from (``seed``, step) before each update,
     as the train loop does before each eager step (the JAX
     ``fold_in(key, step)``). On the card each update is a replay of one
-    CUDA graph (:class:`GraphedStep`, ``multi.graphed``), and eager under
-    a ``mesh`` of more than one process (:func:`make_train_step`)."""
+    CUDA graph (:class:`GraphedStep`, ``multi.graphed``), also under a
+    ``mesh`` of more than one process over NCCL; over gloo it is the eager
+    sharded step (:func:`make_train_step`)."""
     run = _Updates(losses, augment_fn, checkpoint_policy, mesh)
 
     def multi(state, images, labels, seed=None):
@@ -377,8 +416,9 @@ def make_cached_train_step(losses: dict, n_steps: int = 1,
     batch is gathered on the device (``index_select``), so a step uploads
     only its index vector. ``seed`` as in :func:`make_multi_step`; on the
     card each update is a replay of one CUDA graph (``step.graphed``),
-    eager under a ``mesh`` of more than one process, where ``idx`` holds
-    the rank's rows of the global batch's indices."""
+    also under a ``mesh`` of more than one process over NCCL (eager over
+    gloo), where ``idx`` holds the rank's rows of the global batch's
+    indices."""
     run = _Updates(losses, augment_fn, checkpoint_policy, mesh)
 
     def one(state, cache_images, cache_labels, idx, seed):

@@ -40,13 +40,14 @@ FLOPs report (the JAX package's comes from XLA's cost analysis).
 Over a process mesh (``mesh``, or ``space`` with the process group that
 ``torchrun`` starts: ``parallel.init_from_env``) ``batch_size`` is per
 data index, as in the JAX loop: the global batch is ``batch_size x
-data``, each rank's loader keeps its rows of the global, seeded batch
-order (whole samples; a space rank keeps its H block after the
-augmentation; the ``host`` loader mode raises ``NotImplementedError``),
-and the step gives the update and metrics of the global
-batch (``core.state``), eagerly. Every rank resumes from the same file;
-rank 0 alone logs, writes checkpoints and ``best.json`` and runs
-VisualDL, while the others wait at a barrier. The evaluation runs over
+data``, each rank's loader makes its rows of the global, seeded batch
+order and nothing else (whole samples, in every loader mode; a space
+rank keeps its H block after the augmentation, or on the card in
+``host`` mode), and the step gives the update and metrics of the global
+batch (``core.state``): eagerly, or as replays of one CUDA graph a rank
+in the cached and multi-step forms over NCCL. Every rank resumes from
+the same file; rank 0 alone logs, writes checkpoints and ``best.json``
+and runs VisualDL, while the others wait at a barrier. The evaluation runs over
 the same mesh (``core.val.evaluate``).
 """
 
@@ -67,7 +68,7 @@ from ..utils import (TimeAverager, calculate_eta, logger, resume,
 from ..parallel import mesh as mesh_lib
 from ..utils.checkpoint import _atomic_write
 from ..utils.utils import resolve_device
-from .loader import TrainLoader, takes_host_mode
+from .loader import TrainLoader
 from .prefetch import DevicePrefetcher
 from .state import (TrainState, make_cached_train_step, make_multi_step,
                     make_train_step)
@@ -109,7 +110,8 @@ def train(model,
     (``Config.build_optimizer``), ``lr_scheduler`` is the schedule
     (``Config.lr_scheduler``), ``losses`` the loss config
     (``Config.loss``), ``mesh`` a ``parallel.Mesh`` (else one is built
-    over the process group with ``space``: module docstring), and
+    over the process group with ``space``: module docstring; every loader
+    mode runs over it), and
     ``device`` is 'cuda' unless the caller asks for 'cpu' (a rank's card,
     ``cuda:LOCAL_RANK``, under ``torchrun``). ``to_static_training`` is
     accepted and unused, as in the JAX package."""
@@ -129,14 +131,6 @@ def train(model,
                     "global batch {}".format(
                         mesh.world, mesh.data, mesh.space, mesh.backend,
                         batch_size * mesh.data))
-    if sharded and takes_host_mode(train_dataset, data_loader_mode):
-        # host transforms draw from numpy's global generator, per rank and
-        # in thread order: the ranks' rows would not be one global batch
-        raise NotImplementedError(
-            "the host loader mode is not ported over a mesh of {} ranks "
-            "(ROADMAP.md module item 9): use a dataset whose transforms "
-            "run on the device (loader mode device or "
-            "device_cache)".format(mesh.world))
     loader = TrainLoader(train_dataset, batch_size=batch_size * mesh.data,
                          num_workers=num_workers, seed=seed,
                          mode=data_loader_mode, wire_dtype=wire_dtype,

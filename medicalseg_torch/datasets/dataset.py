@@ -92,8 +92,14 @@ class MedicalDataset:
             self.file_list = self.file_list * repeat_train
 
     def __getitem__(self, idx):
+        return self.item(idx)
+
+    def item(self, idx, rng=None):
+        """``self[idx]`` with the transforms' draws from ``rng`` (a
+        ``numpy.random.Generator``; the loader's host mode seeds one a
+        sample)."""
         image_path, label_path = self.file_list[idx]
-        im, label = self.transforms(im=image_path, label=label_path)
+        im, label = self.transforms(im=image_path, label=label_path, rng=rng)
         return im, label, image_path
 
     def raw_item(self, idx):

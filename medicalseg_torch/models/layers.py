@@ -13,8 +13,15 @@ float32 and are cast where they are used.
 Under a mesh (``parallel.use_mesh``) each rank holds its rows of the
 global batch, and with a space axis its H block: BatchNorm takes its
 batch statistics over the world, dropout keeps its rows of the global
-batch's masks, and the down / up convs check that their H windows do not
-reach across shards (the 5^3 convs exchange their halo in ``ops/conv5``).
+batch's masks, and the 5^3 convs exchange their halo in ``ops/conv5``.
+The down and up convs take the level of the mesh they produce
+(``parallel.h_levels``): a down conv whose H window is longer than its
+stride, or whose block does not hold whole strides, joins the blocks into
+a whole H axis and convolves that; an up conv out of a replicated level
+keeps the rank's block of its output again. An up conv whose windows
+overlap always starts from a replicated level (its stage's down conv
+replicated it), so every rank computes the overlapping rows whole. Inside an H-replicated region
+(``Mesh.whole``) the modules run on the whole H axis with no halo.
 """
 
 import contextlib
@@ -26,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv5 as c5
 from ..ops.updown import conv_down_kl, conv_up_kl
-from ..parallel.collectives import all_reduce_sum
+from ..parallel.collectives import all_reduce_sum, gather_h
 from ..parallel.mesh import active_mesh
 
 
@@ -270,7 +277,8 @@ class ChannelDropout(nn.Module):
 
 class DownConvKL(nn.Module):
     """Strided VALID conv (JAX ``S2DConv`` / ``nn.Conv``); owns ``weight``
-    [Co, Ci, *kernel] and ``bias`` [Co] in f32."""
+    [Co, Ci, *kernel] and ``bias`` [Co] in f32. Under a space mesh
+    ``into`` is the mesh of the level it produces (module docstring)."""
 
     def __init__(self, in_features, features, kernel, stride,
                  dtype=torch.float32):
@@ -285,16 +293,31 @@ class DownConvKL(nn.Module):
         he_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, xk):
-        _check_h_windows(self, xk, down=True)
+    def _conv(self, xk):
         return conv_down_kl(xk.to(self.dtype), self.weight, self.bias,
                             self.stride)
+
+    def forward(self, xk, into=None):
+        mesh = active_mesh()
+        if mesh is None or not mesh.splits_h:
+            return self._conv(xk)
+        if into is None or into.splits_h:
+            kh, sh = self.weight.shape[3], self.stride[1]
+            if kh > sh or xk.shape[3] % sh:
+                raise ValueError(
+                    "{} (H window {}, stride {}) cannot keep an H block of "
+                    "{} rows sharded: pass the replicated level "
+                    "(parallel.h_levels)".format(type(self).__name__, kh, sh,
+                                                 xk.shape[3]))
+            return self._conv(xk)
+        return self._conv(gather_h(xk, mesh, axis=3))
 
 
 class UpConvKL(nn.Module):
     """VALID transposed conv (JAX ``D2SConvTranspose`` /
     ``nn.ConvTranspose``); owns ``weight`` [Ci, Co, *kernel] and ``bias``
-    [Co] in f32."""
+    [Co] in f32. Under a space mesh ``into`` is the mesh of the level it
+    produces (module docstring)."""
 
     def __init__(self, in_features, features, kernel, stride,
                  dtype=torch.float32):
@@ -310,30 +333,20 @@ class UpConvKL(nn.Module):
         he_normal_(self.weight, self.weight[:, 0].numel(), generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, xk):
-        _check_h_windows(self, xk, down=False)
-        return conv_up_kl(xk.to(self.dtype), self.weight, self.bias,
-                          self.stride)
-
-
-def _check_h_windows(conv, xk, down):
-    """Under a space mesh a strided conv runs on the rank's H block as it
-    is: its H window must not be longer than its H stride (no window
-    reaches into a neighbour's rows), and a down conv's block must hold
-    whole strides (H divisible by space x the H strides above it). Raises
-    with the shapes otherwise."""
-    mesh = active_mesh()
-    if mesh is None or mesh.space == 1:
-        return
-    kh, sh = conv.weight.shape[3], conv.stride[1]
-    if kh > sh:
-        raise NotImplementedError(
-            "{} with H window {} over stride {} under a space mesh needs a "
-            "halo the port does not exchange (ROADMAP, modules to port, "
-            "item 9)".format(type(conv).__name__, kh, sh))
-    if down and xk.shape[3] % sh:
-        raise ValueError(
-            "an H block of {} rows ({}) does not hold whole strides of {}: "
-            "the volume's H must divide by space x the H strides; the "
-            "fallback that replicates H for uneven shards is not "
-            "ported".format(xk.shape[3], tuple(xk.shape), sh))
+    def forward(self, xk, into=None):
+        mesh = active_mesh()
+        split = mesh is not None and mesh.splits_h
+        if split and (self.weight.shape[3] > self.stride[1] or (
+                into is not None and not into.splits_h)):
+            raise ValueError(
+                "{} (H window {}, stride {}) on an H block: its input level "
+                "must be replicated (parallel.h_levels replicates the level "
+                "below a window longer than its stride)".format(
+                    type(self).__name__, self.weight.shape[3],
+                    self.stride[1]))
+        y = conv_up_kl(xk.to(self.dtype), self.weight, self.bias,
+                       self.stride)
+        if not split and into is not None and into.splits_h:
+            # out of the replicated region: the rank's block
+            return into.keep_h(y, axis=3).contiguous()
+        return y

@@ -6,7 +6,10 @@ Counterpart of
 ``weight='dynamic'`` computes per-voxel pos/neg weights from the batch
 label balance, ``pos_weight='dynamic'`` a scalar positive-class weight,
 with ``ignore_index`` masking and one-hot expansion of sparse labels.
-Registered but unused by the shipped configs.
+Registered but unused by the shipped configs. Under a mesh
+(``parallel.use_mesh``) the means, the masked fraction and the dynamic
+weights' positive and negative counts are the global batch's: sums over
+the world (``loss_utils.global_sums``), as in the other losses.
 """
 
 import torch
@@ -14,6 +17,7 @@ import torch.nn.functional as F
 
 from ...cvlibs import manager
 from ...parallel.mesh import active_mesh
+from .loss_utils import global_sums
 
 
 @manager.LOSSES.add_component
@@ -44,19 +48,14 @@ class BCELoss:
                 "'dynamic', but it is {}".format(pos_weight))
 
     def _balance(self, labels_f):
-        pos_num = (labels_f == 1).float().sum()
-        neg_num = (labels_f == 0).float().sum()
+        pos_num, neg_num = global_sums(torch.stack(
+            [(labels_f == 1).float().sum(), (labels_f == 0).float().sum()]))
         return pos_num, neg_num, pos_num + neg_num
 
     def __call__(self, logits, labels):
         """logits: [N, D, H, W, C]; labels: [N, D, H, W] int (one-hot
-        expanded) or [N, D, H, W, C] float in [0, 1]. Not under a mesh:
-        its global-batch form is ROADMAP, modules to port, item 9."""
-        if active_mesh() is not None:
-            raise NotImplementedError(
-                "BCELoss over a process mesh is not ported (ROADMAP, modules "
-                "to port, item 9); the shipped configs use CrossEntropyLoss "
-                "and DiceLoss")
+        expanded) or [N, D, H, W, C] float in [0, 1]; under a mesh the
+        rank's shard of the global batch's (module docstring)."""
         num_classes = logits.shape[-1]
         mask = labels != self.ignore_index
         if labels.dim() == logits.dim() - 1:
@@ -97,4 +96,9 @@ class BCELoss:
         if weight is not None:
             loss = loss * weight
         loss = loss * mask
-        return loss.mean() / (mask.mean() + self.EPS)
+        mesh = active_mesh()
+        if mesh is None:
+            return loss.mean() / (mask.mean() + self.EPS)
+        count = float(loss.numel() * mesh.world)
+        total, masked = global_sums(torch.stack([loss.sum(), mask.sum()]))
+        return (total / count) / (masked / count + self.EPS)

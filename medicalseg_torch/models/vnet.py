@@ -25,6 +25,7 @@ from torch import nn
 
 from ..cvlibs import manager
 from ..ops import conv5 as c5
+from ..parallel.mesh import active_mesh, h_levels, use_mesh
 from .layers import (BatchNorm3D, ChannelDropout, Conv1x1KL, Conv5KL,
                      ConvBNAct, DownConvKL, NConvs, UpConvKL, activation,
                      remat)
@@ -77,10 +78,16 @@ class DownTransition(nn.Module):
         self.ops = NConvs(out_channels, n_convs, elu, dtype)
         self.relu2 = activation(elu, out_channels, dtype)
 
-    def forward(self, xk):
-        down = self.relu1(self.bn1(self.down_conv(xk)))
-        out = self.ops(self.do1(down))
-        return self.relu2(out + down)
+    def forward(self, xk, levels=None):
+        """``levels``: the meshes of the input's and the output's level
+        (``parallel.h_levels``); the active mesh for both when None."""
+        at, into = levels or (active_mesh(),) * 2
+        with use_mesh(at):
+            down = self.down_conv(xk, into)
+        with use_mesh(into):
+            down = self.relu1(self.bn1(down))
+            out = self.ops(self.do1(down))
+            return self.relu2(out + down)
 
 
 class UpTransition(nn.Module):
@@ -102,10 +109,16 @@ class UpTransition(nn.Module):
         self.ops = NConvs(out_channels, n_convs, elu, dtype)
         self.relu2 = activation(elu, out_channels, dtype)
 
-    def forward(self, xk, skipk):
-        out = self.relu1(self.bn1(self.up_conv(self.do1(xk))))
-        xcat = torch.cat([out, self.do2(skipk).to(self.dtype)], dim=2)
-        return self.relu2(self.ops(xcat) + xcat)
+    def forward(self, xk, skipk, levels=None):
+        """``levels`` as :meth:`DownTransition.forward`'s: the meshes of
+        ``xk``'s level and of the output's (and ``skipk``'s)."""
+        at, into = levels or (active_mesh(),) * 2
+        with use_mesh(at):
+            up = self.up_conv(self.do1(xk), into)
+        with use_mesh(into):
+            out = self.relu1(self.bn1(up))
+            xcat = torch.cat([out, self.do2(skipk).to(self.dtype)], dim=2)
+            return self.relu2(self.ops(xcat) + xcat)
 
 
 class OutputTransition(ConvBNAct):
@@ -148,6 +161,8 @@ class VNet(nn.Module):
         ss = [tuple(s) for s in stride_size]
         self.dtype = dtype
         self.remat = bool(remat)
+        # the H window and stride of each down conv (and its up conv)
+        self.h_windows = [(k[1], st[1]) for k, st in zip(ks, ss)]
         g = generator
         self.in_tr = InputTransition(in_channels, elu, dtype)
         self.down_tr32 = DownTransition(16, 1, elu, False, ss[0], ks[0],
@@ -194,16 +209,30 @@ class VNet(nn.Module):
                 return block(*args)
         return run
 
-    def forward(self, x):
+    def h_levels(self, xk):
+        """The mesh of each of the five levels for a kernel-layout input
+        (``parallel.h_levels``: H sharded, or replicated from the first
+        level whose block the strides do not divide)."""
+        return h_levels(active_mesh(), xk.shape[3], self.h_windows)
+
+    def trunk(self, xk):
+        """The encoder and the decoder: up_tr32's output, and [(output,
+        its level's mesh)] of up_tr256, up_tr128 and up_tr64 (the deep
+        supervision's inputs)."""
         run = self.block_runner()
-        xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
+        lv = self.h_levels(xk)
         out16 = run(self.in_tr, xk)
-        out32 = run(self.down_tr32, out16)
-        out64 = run(self.down_tr64, out32)
-        out128 = run(self.down_tr128, out64)
-        out256 = run(self.down_tr256, out128)
-        out = run(self.up_tr256, out256, out128)
-        out = run(self.up_tr128, out, out64)
-        out = run(self.up_tr64, out, out32)
-        out = run(self.up_tr32, out, out16)
-        return [c5.from_kl(run(self.out_tr, out)).float()]
+        out32 = run(self.down_tr32, out16, lv[0:2])
+        out64 = run(self.down_tr64, out32, lv[1:3])
+        out128 = run(self.down_tr128, out64, lv[2:4])
+        out256 = run(self.down_tr256, out128, lv[3:5])
+        up3 = run(self.up_tr256, out256, out128, lv[4:2:-1])
+        up2 = run(self.up_tr128, up3, out64, lv[3:1:-1])
+        up1 = run(self.up_tr64, up2, out32, lv[2:0:-1])
+        out = run(self.up_tr32, up1, out16, lv[1::-1])
+        return out, [(up3, lv[3]), (up2, lv[2]), (up1, lv[1])]
+
+    def forward(self, x):
+        xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
+        out, _ = self.trunk(xk)
+        return [c5.from_kl(self.block_runner()(self.out_tr, out)).float()]

@@ -19,7 +19,8 @@ conv there either. Under a space mesh (``parallel.use_mesh``) each head
 takes one halo row from each H neighbour and convolves without H padding,
 and the upsample works on the rank's H block with its neighbours' edge
 rows (``ops.resize.upsample_trilinear_batch``), as XLA's partitioner does
-for the JAX model.
+for the JAX model. A head at an H-replicated level (``parallel.h_levels``)
+convolves and upsamples the whole H axis and keeps the rank's block.
 """
 
 from typing import Optional, Sequence
@@ -32,7 +33,7 @@ from ..cvlibs import manager
 from ..ops import conv5 as c5
 from ..ops.resize import upsample_trilinear_batch
 from ..parallel.collectives import halo_h
-from ..parallel.mesh import active_mesh
+from ..parallel.mesh import active_mesh, use_mesh
 from .layers import he_normal_
 from .vnet import _TRIPLE, VNet
 
@@ -55,7 +56,7 @@ class ConvHead(nn.Module):
 
     def forward(self, xk):
         mesh, pad = active_mesh(), 1
-        if mesh is not None and mesh.space > 1:
+        if mesh is not None and mesh.splits_h:
             xk, pad = halo_h(xk, mesh, 1), (1, 0, 1)
         y = F.conv3d(xk.transpose(1, 2).to(self.dtype),
                      self.weight.to(self.dtype), self.bias.to(self.dtype),
@@ -90,18 +91,20 @@ class VNetDeepSup(VNet):
         run = self.block_runner()
         size = tuple(x.shape[1:4])
         xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
-        out16 = run(self.in_tr, xk)
-        out32 = run(self.down_tr32, out16)
-        out64 = run(self.down_tr64, out32)
-        out128 = run(self.down_tr128, out64)
-        out256 = run(self.down_tr256, out128)
-        out = run(self.up_tr256, out256, out128)
-        mesh = active_mesh()
-        d1 = upsample_trilinear_batch(self.Conv_0(out), size, mesh)
-        out = run(self.up_tr128, out, out64)
-        d2 = upsample_trilinear_batch(self.Conv_1(out), size, mesh)
-        out = run(self.up_tr64, out, out32)
-        d3 = upsample_trilinear_batch(self.Conv_2(out), size, mesh)
-        out = run(self.up_tr32, out, out16)
+        out, ups = self.trunk(xk)
+        deep = [_upsampled(head, up, level, size) for head, (up, level)
+                in zip((self.Conv_0, self.Conv_1, self.Conv_2), ups)]
         out = c5.from_kl(run(self.out_tr, out))
-        return [out.float(), d1.float(), d2.float(), d3.float()]
+        return [out.float()] + [d.float() for d in deep]
+
+
+def _upsampled(head, xk, level, size):
+    """A head's logits upsampled to the input block's ``size``, under its
+    level's mesh: in an H-replicated level the whole H axis is upsampled
+    and the rank keeps its block (its loss then counts each voxel once)."""
+    with use_mesh(level):
+        y = head(xk)
+    if level is None or not level.whole_h:
+        return upsample_trilinear_batch(y, size, level)
+    whole = (size[0], size[1] * level.space, size[2])
+    return level.keep_h(upsample_trilinear_batch(y, whole), axis=2)

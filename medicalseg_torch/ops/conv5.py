@@ -59,8 +59,10 @@ cotangent; dW is the weight-gradient kernel on the saved halo'd input and
 the cotangent zero-padded by P rows, a partial sum that
 ``parallel.sum_grads`` completes over the world (as it does the batch
 shards' partials); db is local. Nothing gives way to another route on a
-CUDA tensor. A mesh without a space axis changes nothing here: no halo
-and no extra copy.
+CUDA tensor. A mesh without a space axis, or in an H-replicated region
+(``Mesh.whole``, where the JAX partition asks for H replication because
+H does not divide), changes nothing here: the whole H axis, no halo and
+no extra copy.
 """
 
 import ctypes
@@ -1112,9 +1114,9 @@ class _Conv5KL(torch.autograd.Function):
 
 
 def _space_mesh():
-    """The active mesh where it has a space axis, else None."""
+    """The active mesh where it splits the H axis, else None."""
     mesh = active_mesh()
-    return mesh if mesh is not None and mesh.space > 1 else None
+    return mesh if mesh is not None and mesh.splits_h else None
 
 
 def _unhalo(yk, mesh):

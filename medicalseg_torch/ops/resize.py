@@ -115,7 +115,7 @@ def upsample_trilinear_batch(x, size, mesh=None):
     every step. Upsampling (or the identity) only: a downscale raises, as
     a fixed two-tap matrix does not anti-alias.
 
-    With a ``mesh`` that has a space axis, ``x`` and ``size`` are the
+    With a ``mesh`` that splits the H axis, ``x`` and ``size`` are the
     rank's H blocks of the global tensors: the H product takes one edge
     row from each H neighbour (``parallel.halo_h``, differentiable) and
     the rank's rows of the global matrix, so that the result is the
@@ -129,7 +129,7 @@ def upsample_trilinear_batch(x, size, mesh=None):
         raise ValueError(
             "upsample_trilinear_batch only upsamples; got {} -> {}".format(
                 (d, h, w), size))
-    sharded = mesh is not None and mesh.space > 1
+    sharded = mesh is not None and mesh.splits_h
     dt = x.dtype if x.dtype.is_floating_point else torch.float32
     out = x.to(dt)
     for axis, spec in ((1, "ad,ndhwc->nahwc"), (2, "bh,ndhwc->ndbwc"),

@@ -17,7 +17,11 @@ inserts for the global batch:
   BatchNorm's cross-rank terms.)
 * :func:`sum_grads`: one flattened all-reduce of every parameter gradient.
 * :func:`gather_h`: the space group's H blocks joined into the whole
-  tensor (the sharded evaluation's logits).
+  tensor (the sharded evaluation's logits, and the entry into an
+  H-replicated region): differentiable, its backward sums the cotangent
+  over the space group and keeps the rank's block (a reduce-scatter), as
+  each rank's cotangent of a replicated tensor is only its own path's
+  share.
 
 On NCCL the tensors cross between cards as they are. On gloo, which sends
 and receives host memory only, the halo rows and the gathered blocks are
@@ -76,7 +80,7 @@ def _halo(x, mesh, rows, axis):
     if h < rows:
         # the halo reaches past the next neighbour: the whole H axis,
         # zero-padded, and the rank's window of it
-        full = gather_h(x, mesh, axis)
+        full = _gather(x, mesh, axis)
         pad = [0, 0] * (x.dim() - 1 - axis) + [rows, rows]
         return torch.nn.functional.pad(full, pad).narrow(
             axis, mesh.s * h, h + 2 * rows).contiguous()
@@ -125,18 +129,20 @@ def halo_h(x, mesh, rows, axis=3):
     return _halo(x, mesh, rows, axis)
 
 
+def _all_reduce(x, group=None):
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=group)
+    return y
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
-        return y
+        return _all_reduce(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        return _all_reduce(g)
 
 
 def all_reduce_sum(x):
@@ -144,9 +150,7 @@ def all_reduce_sum(x):
     the cotangents over the world."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _AllReduceSum.apply(x)
-    y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y)
-    return y
+    return _all_reduce(x)
 
 
 def sum_grads(module, mesh):
@@ -163,14 +167,34 @@ def sum_grads(module, mesh):
         offset += g.numel()
 
 
-def gather_h(x, mesh, axis=2):
-    """The space group's blocks of ``x`` along ``axis`` joined in space
-    order: the whole tensor on every rank of the group."""
-    if mesh.space == 1:
-        return x
+def _gather(x, mesh, axis):
     staged = _staged(mesh) and x.device.type != "cpu"
     part = _to_host(x) if staged else x.contiguous()
     parts = [torch.empty_like(part) for _ in range(mesh.space)]
     dist.all_gather(parts, part, group=mesh.space_group)
     out = torch.cat(parts, dim=axis)
     return out.to(x.device, non_blocking=True) if staged else out
+
+
+class _GatherH(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.h = mesh, axis, x.shape[axis]
+        return _gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, h = ctx.mesh, ctx.h
+        g = _all_reduce(g, mesh.space_group)
+        return g.narrow(ctx.axis, mesh.s * h, h).contiguous(), None, None
+
+
+def gather_h(x, mesh, axis=2):
+    """The space group's blocks of ``x`` along ``axis`` joined in space
+    order: the whole tensor on every rank of the group. Differentiable in
+    ``x`` (module docstring)."""
+    if mesh.space == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherH.apply(x, mesh, axis)
+    return _gather(x, mesh, axis)

@@ -27,9 +27,14 @@ the halo exchange is staged through pinned host buffers, as gloo's send
 and receive take host memory. ``--device cpu`` uses gloo. Every
 initialisation logs the backend it took.
 
-The space axis needs H divisible by ``space`` and by the model's H
-strides on each shard; JAX's fallback that replicates H for uneven
-shards is not ported, and the port raises with the shape instead.
+The input's H must divide by ``space`` (a JAX mesh cannot place an
+uneven batch either). Deeper down, where a block would no longer hold
+whole strides of a down conv, or where a down conv's H window is longer
+than its stride, the model enters an H-replicated region, as the JAX
+conv5 asks XLA to replicate H where it does not divide: every space rank
+then holds the whole H axis of that level (:meth:`Mesh.whole`,
+:func:`h_levels`), and the region leaves again through
+:meth:`Mesh.keep_h` where the up path reaches a level that divides.
 """
 
 import contextlib
@@ -55,13 +60,33 @@ class Mesh:
 
     def __init__(self, data: int, space: int = 1, rank: int = 0,
                  backend: Optional[str] = None, space_group=None,
-                 data_group=None):
+                 data_group=None, whole_h: bool = False):
         self.data, self.space, self.rank = int(data), int(space), int(rank)
         self.world = self.data * self.space
         self.d, self.s = divmod(self.rank, self.space)
         self.backend = backend
         self.space_group = space_group
         self.data_group = data_group
+        # True in an H-replicated region: every space rank holds the whole
+        # H axis (no halos; the world sums count each voxel space times)
+        self.whole_h = bool(whole_h)
+        self._whole = None
+
+    @property
+    def splits_h(self) -> bool:
+        """True where each space rank holds an H block of the tensors."""
+        return self.space > 1 and not self.whole_h
+
+    def whole(self) -> "Mesh":
+        """This mesh for an H-replicated region (the same ranks and
+        groups, :attr:`whole_h` set)."""
+        if self.whole_h:
+            return self
+        if self._whole is None:
+            self._whole = Mesh(self.data, self.space, self.rank,
+                               self.backend, self.space_group,
+                               self.data_group, whole_h=True)
+        return self._whole
 
     @property
     def shape(self):
@@ -79,17 +104,39 @@ class Mesh:
     def keep_h(self, x, axis: int = 2):
         """The rank's H block ``[s * H / space, (s + 1) * H / space)`` of
         ``x`` along ``axis`` (a view); ``x`` itself when ``space`` is 1.
-        Raises with the shape when H does not divide."""
+        It also leaves an H-replicated region: its backward fills the
+        other ranks' rows with zeros, so that each rank back-propagates
+        only its own rows' share. Raises with the shape when H does not
+        divide."""
         if self.space == 1:
             return x
         h = x.shape[axis]
         if h % self.space:
             raise ValueError(
-                "H = {} of shape {} does not divide over space = {}; the "
-                "fallback that replicates H for uneven shards is not "
-                "ported".format(h, tuple(x.shape), self.space))
+                "H = {} of shape {} does not divide over space = {}".format(
+                    h, tuple(x.shape), self.space))
         per = h // self.space
         return x.narrow(axis, self.s * per, per)
+
+
+def h_levels(mesh: Optional[Mesh], h: int, windows):
+    """The mesh each level of an encoder-decoder runs under, for an input
+    H block of ``h`` rows and the ``(kh, sh)`` H windows and strides of
+    the down convs between the levels: ``len(windows) + 1`` entries, the
+    first ``mesh`` itself. A level stays H-sharded while the block above
+    holds whole strides (``h % sh == 0``) and the window stays inside its
+    stride (``kh <= sh``): its block is then ``h / sh`` rows and its H
+    divides over space. From the first level where either fails on, every
+    level runs under ``mesh.whole()`` (H replicated). Without a space
+    axis every level runs under ``mesh``."""
+    if mesh is None or not mesh.splits_h:
+        return [mesh] * (len(windows) + 1)
+    views, whole = [mesh], False
+    for kh, sh in windows:
+        whole = whole or kh > sh or h % sh != 0
+        h //= sh
+        views.append(mesh.whole() if whole else mesh)
+    return views
 
 
 def build_mesh(data: Optional[int] = None, space: int = 1) -> Mesh:

@@ -6,10 +6,15 @@ nothing of the JAX package), capability parity with the reference's
 medicalseg/transforms/transform.py (27-396), around two concerns:
 
   * **Sampling contract** — module-level ``_draw_*`` functions hold
-    every RNG interaction (python ``random`` and numpy's global RNG).
-    Their call *order and distribution* define the augmentation stream
-    the reference recipes were tuned under, and are the JAX package's
-    bit for bit; do not reorder them.
+    every RNG interaction. Their call *order and distributions* are the
+    reference recipes' (and the JAX package's); do not reorder them. They
+    draw from a ``numpy.random.Generator`` handed to them (``rng``), not
+    from python's ``random`` or numpy's global generator, so that the
+    loader can seed each sample's draws from (seed, batch number, row) and the
+    draws do not depend on thread order or on the process (a rank of a
+    process mesh makes its rows of the global batch as one process
+    would). Without one they take a generator seeded from numpy's global
+    generator (``utils.seed`` makes that reproducible).
   * **Paired application** — :class:`_PairedOp` samples parameters once
     and applies them to image and label with per-role interpolation
     orders.
@@ -20,7 +25,6 @@ transform objects' parameters.
 """
 
 import numbers
-import random
 from collections import namedtuple
 from collections.abc import Iterable
 
@@ -37,43 +41,50 @@ from . import functional as F
 CropBox = namedtuple("CropBox", ["i", "j", "k", "d", "h", "w"])
 
 
-def _draw_crop_box(shape, scale, ratio):
+def _generator(rng=None):
+    """``rng``, or a generator seeded from numpy's global generator."""
+    if rng is None:
+        return np.random.default_rng(np.random.randint(1 << 31))
+    return rng
+
+
+def _draw_crop_box(shape, scale, ratio, rng):
     """Rejection-sample a crop box: up to 10 proposals of a random
     volume fraction x aspect ratio, optionally axis-permuted, accepted
     when it fits; falls back to the centered short-side cube.
 
     Draws per attempt: uniform(scale), uniform(ratio), random() gate,
-    [sample(k=3)], then randint x3 on acceptance.
+    [a permutation of 3], then three integers on acceptance.
     """
     D, H, W = int(shape[0]), int(shape[1]), int(shape[2])
     for _ in range(10):
-        frac = random.uniform(*scale)
-        aspect = random.uniform(*ratio)
+        frac = rng.uniform(*scale)
+        aspect = rng.uniform(*ratio)
         vol = frac * D * H * W
         dims = [int(round((vol * aspect) ** (1. / 3))),
                 int(round((vol / aspect) ** (1. / 3))),
                 W]
-        if random.random() < 0.5:
-            dims = random.sample(dims, k=3)
+        if rng.random() < 0.5:
+            dims = [dims[i] for i in rng.permutation(3)]
         d, h, w = dims
         if d <= D and h <= H and w <= W:
-            return CropBox(random.randint(0, D - d),
-                           random.randint(0, H - h),
-                           random.randint(0, W - w),
+            return CropBox(int(rng.integers(0, D - d, endpoint=True)),
+                           int(rng.integers(0, H - h, endpoint=True)),
+                           int(rng.integers(0, W - w, endpoint=True)),
                            d, h, w)
     side = min(D, H, W)
     return CropBox((D - side) // 2, (H - side) // 2, (W - side) // 2,
                    side, side, side)
 
 
-def _draw_precrop_box(shape, scale, size, bbox=None):
+def _draw_precrop_box(shape, scale, size, rng, bbox=None):
     """Sample the pre-crop window: target extents = size scaled by one
     uniform(low, high, 3) draw, clamped to the (bbox-restricted) volume;
-    origin = one randint per axis in z, y, x order.
+    origin = one integer per axis in z, y, x order.
 
     Returns (starts[3], extents[3]) numpy int arrays.
     """
-    want = (np.random.uniform(scale[0], scale[1], size=3)
+    want = (rng.uniform(scale[0], scale[1], size=3)
             * np.asarray(size)).round().astype("int")
     lo = np.zeros(3, dtype=np.int64)
     full = np.asarray(shape[:3], dtype=np.int64)
@@ -82,27 +93,26 @@ def _draw_precrop_box(shape, scale, size, bbox=None):
         full = hi - lo
     take = np.minimum(full, want)
     room = full - take + 1
-    starts = np.array([np.random.randint(room[0]),
-                       np.random.randint(room[1]),
-                       np.random.randint(room[2])]) + lo
+    starts = np.array([rng.integers(room[0]), rng.integers(room[1]),
+                       rng.integers(room[2])]) + lo
     return starts, take
 
 
-def _draw_rotation(degrees, planes):
+def _draw_rotation(degrees, planes, rng):
     """angle ~ uniform(degrees), plane ~ one of ``planes``."""
-    angle = random.uniform(degrees[0], degrees[1])
-    plane = planes[random.randint(0, len(planes) - 1)]
+    angle = rng.uniform(degrees[0], degrees[1])
+    plane = planes[int(rng.integers(len(planes)))]
     return angle, plane
 
 
-def _draw_flip(axes, prob):
+def _draw_flip(axes, prob, rng):
     """Axis is drawn *before* the probability gate (reference
     transform.py:185-190 order); returns the axis or None to skip."""
     if isinstance(axes, (tuple, list)):
-        axis = axes[random.randint(0, len(axes) - 1)]
+        axis = axes[int(rng.integers(len(axes)))]
     else:
         axis = axes
-    return axis if random.random() < prob else None
+    return axis if rng.random() < prob else None
 
 
 # ---------------------------------------------------------------------
@@ -133,24 +143,26 @@ def _label_bbox(label):
 class _PairedOp:
     """Sample-once / apply-twice template for (image, label) pairs.
 
-    Subclasses implement ``_params(img, label)`` (all RNG happens here,
-    via the module sampling functions) and ``_apply(arr, params,
-    is_label)``; an optional ``_pre`` hook runs before sampling (used by
-    the pre-crop stage, whose own draws precede the main ones).
+    Subclasses implement ``_params(img, label, rng)`` (all RNG happens
+    here, via the module sampling functions, from the generator ``rng``)
+    and ``_apply(arr, params, is_label)``; an optional ``_pre`` hook runs
+    before sampling (used by the pre-crop stage, whose own draws precede
+    the main ones).
     """
 
-    def _pre(self, img, label):
+    def _pre(self, img, label, rng):
         return img, label
 
-    def _params(self, img, label):
+    def _params(self, img, label, rng):
         return None
 
     def _apply(self, arr, params, is_label):
         raise NotImplementedError
 
-    def __call__(self, img, label=None):
-        img, label = self._pre(img, label)
-        params = self._params(img, label)
+    def __call__(self, img, label=None, rng=None):
+        rng = _generator(rng)
+        img, label = self._pre(img, label, rng)
+        params = self._params(img, label, rng)
         img = self._apply(img, params, is_label=False)
         if label is not None:
             label = self._apply(label, params, is_label=True)
@@ -165,7 +177,8 @@ class _PairedOp:
 class Compose:
     """Thread (im, label) through an op list, then add the channel axis
     and normalize by the per-volume max (reference transform.py:27-71).
-    Accepts ``.npy`` paths or in-memory arrays.
+    Accepts ``.npy`` paths or in-memory arrays; the random ops draw from
+    ``rng`` (a ``numpy.random.Generator``; module docstring).
     """
 
     def __init__(self, transforms):
@@ -179,13 +192,14 @@ class Compose:
     def _materialize(x):
         return np.load(x) if isinstance(x, str) else x
 
-    def __call__(self, im, label=None):
+    def __call__(self, im, label=None, rng=None):
         im = self._materialize(im)
         label = self._materialize(label)
         if im is None:
             raise ValueError("Compose got an unreadable image")
+        rng = _generator(rng)
         for op in self.transforms:
-            out = op(im, label)
+            out = op(im, label, rng)
             im = out[0]
             if len(out) > 1:
                 label = out[1]
@@ -232,11 +246,11 @@ class RandomRotation3D(_PairedOp):
         self.degrees = tuple(degrees)
         self.rotate_planes = rotate_planes or [[0, 1], [0, 2], [1, 2]]
 
-    def get_params(self, degrees):
-        return _draw_rotation(degrees, self.rotate_planes)
+    def get_params(self, degrees, rng=None):
+        return _draw_rotation(degrees, self.rotate_planes, _generator(rng))
 
-    def _params(self, img, label):
-        return self.get_params(self.degrees)
+    def _params(self, img, label, rng):
+        return self.get_params(self.degrees, rng)
 
     def _apply(self, arr, params, is_label):
         angle, plane = params
@@ -252,8 +266,8 @@ class RandomFlip3D(_PairedOp):
         self.prob = prob
         self.flip_axis = [0, 1, 2] if flip_axis is None else flip_axis
 
-    def _params(self, img, label):
-        return _draw_flip(self.flip_axis, self.prob)
+    def _params(self, img, label, rng):
+        return _draw_flip(self.flip_axis, self.prob, rng)
 
     def _apply(self, arr, axis, is_label):
         return arr if axis is None else F.flip_3d(arr, axis=axis)
@@ -276,26 +290,26 @@ class RandomResizedCrop3D(_PairedOp):
         self.pre_crop = pre_crop
         self.nonzero_mask = nonzero_mask
 
-    def get_params(self, img, scale, ratio):
-        return _draw_crop_box(img.shape, scale, ratio)
+    def get_params(self, img, scale, ratio, rng=None):
+        return _draw_crop_box(img.shape, scale, ratio, _generator(rng))
 
-    def pre_crop_util(self, img, label=None):
+    def pre_crop_util(self, img, label=None, rng=None):
         if not self.pre_crop:
             return img, label
         bbox = _label_bbox(label) if self.nonzero_mask else None
         (z, y, x), (dz, dy, dx) = _draw_precrop_box(
-            img.shape, self.scale, self.size, bbox=bbox)
+            img.shape, self.scale, self.size, _generator(rng), bbox=bbox)
         window = (slice(z, z + dz), slice(y, y + dy), slice(x, x + dx))
         img = img[window]
         if label is not None:
             label = label[window]
         return img, label
 
-    def _pre(self, img, label):
-        return self.pre_crop_util(img, label)
+    def _pre(self, img, label, rng):
+        return self.pre_crop_util(img, label, rng)
 
-    def _params(self, img, label):
-        return self.get_params(img, self.scale, self.ratio)
+    def _params(self, img, label, rng):
+        return self.get_params(img, self.scale, self.ratio, rng)
 
     def _apply(self, arr, box, is_label):
         order = 0 if is_label else self.interpolation
@@ -336,7 +350,7 @@ class TopkLargestConnectComponent(_ComponentOp):
     def __init__(self, k=1):
         self.k = k
 
-    def __call__(self, pred, label=None):
+    def __call__(self, pred, label=None, rng=None):
         pred = self._apply(pred, None, is_label=False)
         pred[pred > self.k] = 0
         return pred, label

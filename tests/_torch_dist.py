@@ -1,5 +1,6 @@
 # Copyright 2026. Apache License 2.0.
-"""Multi-process workers for tests/test_torch_parallel.py.
+"""Multi-process workers for tests/test_torch_parallel.py and
+tests/test_torch_parallel_shapes.py.
 
 This module imports only torch, numpy and medicalseg_torch: a worker is a
 fresh ``python`` process running this file, so it never imports JAX (a
@@ -14,6 +15,7 @@ torch on one thread each.
 returns each rank's results.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -31,6 +33,12 @@ def launch(tmp, jobs, world=4, timeout=240, env=None):
     a data x ``space`` mesh of the world. Raises with the ranks' output if
     any rank fails or the run outlasts ``timeout`` seconds; no rank
     outlives the call."""
+    return finish(start(tmp, jobs, world, env), timeout)
+
+
+def start(tmp, jobs, world=4, env=None):
+    """:func:`launch`'s first half: start the ranks and return a handle
+    for :func:`finish`, so that the caller can work meanwhile."""
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     torch.save(jobs, os.path.join(tmp, "jobs.pt"))
@@ -45,7 +53,14 @@ def launch(tmp, jobs, world=4, timeout=240, env=None):
         [sys.executable, os.path.abspath(__file__), str(r), str(world), tmp],
         env=env, cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
-    deadline = time.time() + timeout
+    return tmp, world, procs, logs, time.time()
+
+
+def finish(handle, timeout=240):
+    """Wait for the ranks of :func:`start` (``timeout`` seconds from their
+    start) and return their results as :func:`launch` does."""
+    tmp, world, procs, logs, started = handle
+    deadline = started + timeout
     try:
         while any(p.poll() is None for p in procs):
             if time.time() > deadline or any(p.returncode not in (None, 0)
@@ -117,15 +132,93 @@ def _losses(n_heads):
     return {"types": mixed, "coef": [1.0 / n_heads] * n_heads}
 
 
+def bce_value_and_grad(mesh, p):
+    """``BCELoss(**p["kw"])`` of the logits ``p["logits"]`` [N, D, H, W,
+    C] against ``p["labels"]``, and its gradient in the logits. With a
+    mesh, the rank's rows and H block under it: the global loss, and the
+    rank's block of its gradient (each rank back-propagates the loss over
+    the world size, as the train step does)."""
+    from medicalseg_torch.models.losses import BCELoss
+    from medicalseg_torch.parallel import shard_batch, use_mesh
+    logits, labels = p["logits"], p["labels"]
+    if mesh is not None:
+        logits, labels = shard_batch(mesh, logits, labels)
+    logits = logits.clone().requires_grad_(True)
+    with use_mesh(mesh):
+        loss = BCELoss(**p["kw"])(logits, labels)
+        (loss / (1 if mesh is None else mesh.world)).backward()
+    return {"loss": loss.item(), "grad": logits.grad}
+
+
+def host_batches(mesh, p):
+    """``p["n"]`` host-mode batches of a loader over ``p["phase0"]`` at the
+    global batch ``p["batch"]``: the rank's rows with a mesh, all of them
+    without."""
+    from medicalseg_torch.core.loader import TrainLoader
+    from medicalseg_torch.datasets import MedicalDataset
+    from medicalseg_torch.transforms import (RandomFlip3D,
+                                             RandomResizedCrop3D,
+                                             RandomRotation3D)
+    transforms = [RandomResizedCrop3D(p["size"], scale=(0.8, 1.2)),
+                  RandomRotation3D(20), RandomFlip3D()]
+    dataset = MedicalDataset(p["phase0"], p["phase0"], transforms, 3)
+    rows = None if mesh is None else mesh.rows(p["batch"] // mesh.data)
+    loader = TrainLoader(dataset, p["batch"], num_workers=2, seed=p["seed"],
+                         mode="host", rows=rows)
+    try:
+        return [next(loader) for _ in range(p["n"])]
+    finally:
+        loader.stop()
+
+
+def w_train(mesh, p):
+    """``core.train.train`` of ``p["config"]`` with the host loader over
+    the mesh (``p["batch"]`` a data index); rank 0 returns the final state
+    dict, the others the largest difference of theirs from it."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from medicalseg_torch.core.train import train
+    from medicalseg_torch.cvlibs import Config
+    cfg = Config(p["config"], iters=p["iters"])
+    save_dir = os.path.join(p["out"], str(mesh.rank))
+    state = train(cfg.model, cfg.train_dataset,
+                  optimizer=cfg.build_optimizer,
+                  lr_scheduler=cfg.lr_scheduler, save_dir=save_dir,
+                  iters=p["iters"], batch_size=p["batch"], losses=cfg.loss,
+                  num_workers=2, save_interval=p["iters"], log_iters=1,
+                  mesh=mesh, data_loader_mode="host", device="cpu")
+    shutil.rmtree(save_dir)  # the checkpoints (~360 MB) are not read
+    out = {k: v.clone() for k, v in state.model.state_dict().items()}
+    worst = 0.0
+    for v in out.values():
+        ref = v.clone()
+        dist.broadcast(ref, 0)
+        worst = max(worst, (v.float() - ref.float()).abs().max().item())
+    return out if mesh.rank == 0 else {"diff_to_rank0": worst}
+
+
+_STARTS = {}  # the seeded start of each model a process built
+
+
 def make_state(p, device="cpu"):
-    """The model of payload ``p`` with its state dict, SGD with momentum
-    and weight decay, a polynomial schedule."""
+    """The model of payload ``p`` with its state dict (the seeded start
+    where the payload has none; built once a process, as a V-Net takes
+    seconds to initialise on one thread), SGD with momentum and weight
+    decay, a polynomial schedule."""
     from medicalseg_torch.core.state import TrainState
     from medicalseg_torch.cvlibs import config as tconfig
     from medicalseg_torch.models import VNet, VNetDeepSup
     cls = VNetDeepSup if p["deepsup"] else VNet
-    model = cls(**p["model"])
-    model.load_state_dict(p["state_dict"])
+    if p.get("state_dict") is not None:
+        model = cls(**p["model"])
+        model.load_state_dict(p["state_dict"])
+    else:
+        key = (cls, repr(sorted(p["model"].items())))
+        if key not in _STARTS:
+            _STARTS[key] = cls(**p["model"])
+        model = copy.deepcopy(_STARTS[key])
     return TrainState.create(
         model, lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9,
                                           weight_decay=1e-4),
@@ -188,7 +281,8 @@ def w_evaluate(mesh, p):
 
 
 WORKERS = {"halo": w_halo, "conv5": w_conv5, "step": w_step,
-           "evaluate": w_evaluate}
+           "evaluate": w_evaluate, "bce": bce_value_and_grad,
+           "loader": host_batches, "train": w_train}
 
 
 def main(rank, world, tmp):

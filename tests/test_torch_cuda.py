@@ -1237,3 +1237,108 @@ def test_loader_reads_device_batches_into_pinned_memory(dev, tmp_path):
         prefetcher.close()
         loader.stop()
         check.stop()
+
+
+# --------------------------------------------------------------------------
+# the graphed sharded step over NCCL (a card a rank)
+# --------------------------------------------------------------------------
+def _nccl_steps(mesh, device, edge):
+    """Four cached steps eager and four through the graph (the warm-up and
+    three replays) over ``mesh`` at ``edge``^3: whether each step's loss,
+    parameters, statistics and momentum were the eager step's bit for bit,
+    the replays and the launches of a replay."""
+    from medicalseg_torch.core.state import make_cached_train_step
+    from medicalseg_torch.transforms.device import step_seed
+    rng = np.random.RandomState(7)
+    shape = (4, edge, edge, edge)
+    cache = (torch.from_numpy(rng.rand(*shape, 1).astype(
+        np.float32)).to(device), torch.from_numpy(rng.randint(
+            0, 3, shape).astype(np.uint8)).to(device))
+    stream = rng.randint(0, 4, (4, 2)).astype(np.int32)
+
+    def written(state):
+        out = [v.clone() for v in state.model.state_dict().values()]
+        return out + [state.optimizer.state[p]["momentum_buffer"].clone()
+                      for p in state.model.parameters()]
+
+    eager, after, losses = _graph_trainer(), [], []
+    step = make_train_step(_graph_losses(), mesh=mesh)
+    for idx in stream:
+        eager.generator.manual_seed(step_seed(3, eager.step))
+        i = torch.from_numpy(idx).long().to(device)
+        _, m = step(eager, cache[0][i], cache[1][i])
+        losses.append(m["loss"].item())
+        after.append(written(eager))
+    graphed = _graph_trainer()
+    cached = make_cached_train_step(_graph_losses(), mesh=mesh)
+    same = []
+    for k, idx in enumerate(stream):
+        _, m = cached(graphed, *cache, idx, seed=3)
+        same.append(m["loss"].item() == losses[k] and all(
+            torch.equal(a, b) for a, b in zip(written(graphed), after[k])))
+    return {"same": same, "replays": cached.graphed.replays,
+            "launches": cached.graphed.launches}
+
+
+def _nccl_rank(rank, world, tmp, edge):
+    """One rank of :func:`test_graphed_sharded_step_is_the_eager_one`
+    (:func:`_nccl_steps` over a space ``world`` mesh); writes its result.
+    The graph holds the process group's communicators: it is freed, and the
+    ranks meet, before the group is destroyed (destroying it under a live
+    graph hung on an H100 pair). A rank still running after 200 s prints
+    its threads' stacks."""
+    import faulthandler
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from medicalseg_torch.parallel import build_mesh, init_process_group
+    faulthandler.dump_traceback_later(200, exit=False)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    device, backend = init_process_group(rank, world, "cuda", rank, world,
+                                         store=store)
+    try:
+        out = _nccl_steps(build_mesh(space=world), device, edge)
+        out["backend"] = backend
+        torch.save(out, os.path.join(tmp, "rank{}.pt".format(rank)))
+        gc.collect()
+        torch.cuda.synchronize(device)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("edge", [64, 32])
+def test_graphed_sharded_step_is_the_eager_one(dev, tmp_path, edge):
+    """Over NCCL with a card a rank (space 2; at 32^3 the H blocks run 16
+    -> 1 rows, so the shortest take their halo through a gather, at 64^3
+    every halo is an exchange), the cached step's replays of one CUDA
+    graph a rank are the eager sharded step bit for bit on every rank,
+    and every rank's replay launches the same kernels. The ranks are
+    killed after 240 s."""
+    import time
+
+    import torch.multiprocessing as mp
+    world = 2
+    if torch.cuda.device_count() < world:
+        pytest.skip("needs a card a rank: {} cards".format(
+            torch.cuda.device_count()))
+    ctx = mp.spawn(_nccl_rank, args=(world, str(tmp_path), edge),
+                   nprocs=world, join=False)
+    deadline = time.time() + 240
+    try:
+        while not ctx.join(timeout=1):
+            assert time.time() < deadline, "the ranks ran past 240 s"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    got = [torch.load(tmp_path / "rank{}.pt".format(r)) for r in range(world)]
+    for r in got:
+        assert r["backend"] == "nccl" and r["replays"] == 3
+        assert r["same"] == [True] * 4
+        assert r["launches"] == got[0]["launches"]
+        assert sum(r["launches"].values()) > 0

@@ -466,28 +466,6 @@ def test_loader_rows_are_the_jax_loaders_global_batches(tmp_path):
             loader.stop()
 
 
-@pytest.mark.parametrize("data,space", [(1, 2), (2, 1)])
-def test_train_refuses_the_host_loader_over_a_mesh(tmp_path, data, space):
-    """Host mode transforms draw from numpy's global generator in each
-    rank, in thread order, so the ranks' rows would not be one global
-    batch: ``train`` raises before it takes a step and leaves no loader
-    thread behind."""
-    import threading
-
-    from medicalseg_torch.core.train import train
-    phase0 = _write_dataset(str(tmp_path / "data"), (8, 32, 32), 2, 20)
-    cfg = tconfig.Config(_spine_yaml(tmp_path, phase0), iters=1)
-    before = threading.active_count()
-    with pytest.raises(NotImplementedError, match="module item 9"):
-        train(cfg.model, cfg.train_dataset, optimizer=cfg.build_optimizer,
-              lr_scheduler=cfg.lr_scheduler, save_dir=str(tmp_path / "out"),
-              iters=1, batch_size=1, losses=cfg.loss, num_workers=2,
-              mesh=tmesh.Mesh(data, space, 0), data_loader_mode="host",
-              device="cpu")
-    assert threading.active_count() == before
-    assert not os.path.exists(tmp_path / "out")
-
-
 # --------------------------------------------------------------------------
 # (g) evaluate
 # --------------------------------------------------------------------------
