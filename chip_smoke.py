@@ -191,7 +191,18 @@ JSON line; any failure raises and the script exits non-zero:
    --profiler_options "batch_range=[2,4];..."``) and its resume from
    ``iter_3``: the launches as nine steps imply (counted as in
    train_graph), five and two replays, finite losses, loadable
-   checkpoints, the trace file written.
+   checkpoints, the trace file written. The CLI's checkpoints are written
+   asynchronously (the loop's default); ``core.train`` with
+   ``async_checkpoint=False`` on the same seed and data writes
+   ``iter_3`` and ``iter_6`` with the same bytes, and the phase prints the
+   host ms each save call holds the loop both ways beside the ms per
+   iteration of the three iterations after the save. The CLI's ``Model
+   forward cost`` line equals the port's count (``utils/flops.py``) for
+   the flagship at batch 3. ``python -m medicalseg_torch.tools.trace_ops``
+   reads the trace (three iterations, one a replay): its hand-kernel
+   launches a step equal the graph's launches a replay, and its busy ms a
+   step the profiler's own device time of the window (``key_averages``)
+   within 5%; its table goes to stderr.
 13. eval: the cube config (VNet, bf16) pointed at three seeded 128^3
    volumes (labels in [0, 3)) with a dataset.json under ``build/``, seeded
    weights saved as ``model.msgpack``, through the val CLI
@@ -343,6 +354,8 @@ from medicalseg_torch.transforms import (DeviceAugmentor,  # noqa: E402
                                          RandomResizedCrop3D, RandomFlip3D)
 from medicalseg_torch.utils import checkpoint as ckpt  # noqa: E402
 from medicalseg_torch.utils import train_profiler  # noqa: E402
+from medicalseg_torch.utils.flops import forward_flops  # noqa: E402
+from medicalseg_torch.tools import trace_ops  # noqa: E402
 from medicalseg_torch.models.layers import ChannelDropout  # noqa: E402
 from medicalseg_torch.transforms.device import step_seed  # noqa: E402
 
@@ -1055,9 +1068,10 @@ def profile_call(fn):
     return profile_stats(prof, wall_ms)
 
 
-def profile_stats(prof, wall_ms):
-    """:func:`profile_call`'s figures from a finished profiler over a
-    window of ``wall_ms`` on the host clock."""
+def device_groups(prof):
+    """({kernel group: device ms}, NCCL ms) of a finished profiler: its
+    device events (``key_averages``), the hand kernels grouped by
+    :data:`KERNEL_TAGS`, NCCL's apart."""
     groups, nccl_ms = {}, 0.0
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -1071,6 +1085,13 @@ def profile_stats(prof, wall_ms):
             if tag in name:
                 name = tag
         groups[name] = groups.get(name, 0.0) + ms
+    return groups, nccl_ms
+
+
+def profile_stats(prof, wall_ms):
+    """:func:`profile_call`'s figures from a finished profiler over a
+    window of ``wall_ms`` on the host clock."""
+    groups, nccl_ms = device_groups(prof)
     busy_ms = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
     ops = [(ev.key, ev.self_device_time_total / 1e3)
@@ -2015,6 +2036,70 @@ class TrainLog(logging.Handler):
         return float(line.split(name + ": ")[1].split(",")[0].split()[0])
 
 
+class SaveCalls:
+    """Wraps the train loop's two checkpoint writers as ``core.train``
+    calls them (``save_checkpoint``, ``save_checkpoint_async``) and keeps
+    the host ms each call held the loop."""
+
+    NAMES = ("save_checkpoint", "save_checkpoint_async")
+
+    def __init__(self):
+        self.ms = []
+        self._real = {n: getattr(_core_train_module(), n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, real in self._real.items():
+            def timed(*args, _real=real, **kwargs):
+                t0 = time.perf_counter()
+                out = _real(*args, **kwargs)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(_core_train_module(), name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(_core_train_module(), name, real)
+
+
+def _digests(out, iters):
+    """{"iter_N/file": sha256} of the checkpoints under ``out``."""
+    import hashlib
+    found = {}
+    for it in iters:
+        for name in (ckpt.MODEL_FILE, ckpt.OPT_FILE):
+            with open(os.path.join(out, "iter_{}".format(it), name),
+                      "rb") as f:
+                found["iter_{}/{}".format(it, name)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return found
+
+
+def sync_checkpoint_run(yml, out):
+    """``core.train`` as the CLI calls it for the phase's first run (same
+    YAML, seed and loader mode, six iterations, saves at 3 and 6), with
+    ``async_checkpoint=False``: (the save calls' host ms, the logged
+    windows' batch cost in ms)."""
+    from medicalseg_torch.utils import seed_all
+    seed_all(TRAIN_SEED)
+    cfg = Config(yml, iters=6)
+    with TrainLog() as log, SaveCalls() as saves:
+        state = _core_train_module().train(
+            cfg.model, cfg.train_dataset, optimizer=cfg.build_optimizer,
+            lr_scheduler=cfg.lr_scheduler, save_dir=out, iters=6,
+            batch_size=cfg.batch_size, save_interval=3, log_iters=3,
+            losses=cfg.loss, seed=TRAIN_SEED, data_loader_mode="device",
+            async_checkpoint=False, device="cuda")
+        torch.cuda.synchronize()
+    check(state.step == 6 and len(log.lines) == 2 and len(saves.ms) == 2,
+          "the synchronous run: step {}, {} windows, {} saves".format(
+              state.step, len(log.lines), len(saves.ms)))
+    del state
+    torch.cuda.empty_cache()
+    return saves.ms, [TrainLog.field(ln, "batch_cost") * 1e3
+                      for ln in log.lines]
+
+
 def phase_train_cli():
     """The port's train CLI (``python -m medicalseg_torch.train``, called
     in this process through ``medicalseg_torch.train.main``) on the
@@ -2024,10 +2109,13 @@ def phase_train_cli():
     first run and read after the second: every flagship kernel launched,
     exactly as nine steps imply. Both checkpoints load into a new model
     (steps 3 and 6, finite values), every logged loss is finite, and the
-    resumed run logs iteration 6 only. Prints the logged losses, batch cost
-    (ms per iteration over each window of three) and reader cost, and one
-    profiled iteration (the second) of the first run: device time and idle
-    share."""
+    resumed run logs iteration 6 only. The first run's checkpoints,
+    written asynchronously, have the bytes of :func:`sync_checkpoint_run`'s,
+    and its ``Model forward cost`` line the port's count. Prints the logged
+    losses, batch cost (ms per iteration over each window of three) and
+    reader cost, one profiled iteration (the second) of the first run:
+    device time and idle share, the save calls' host ms both ways beside
+    the next window's ms per iteration, and the forward's GFLOPs."""
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         write_spine_phase0(wd)
         cfg = Config(SPINE).dic
@@ -2045,8 +2133,9 @@ def phase_train_cli():
                 str(TRAIN_SEED), "--loader_mode", "device"]
 
         reset_counts()
-        with TrainLog("[TRAIN]", "TrainLoader mode") as log, \
-                IterationProfile(at=2) as prof:
+        with TrainLog("[TRAIN]", "TrainLoader mode",
+                      "Model forward cost") as log, \
+                IterationProfile(at=2) as prof, SaveCalls() as saves:
             t0 = time.perf_counter()
             first = train_cli.main(train_cli.parse_args(argv))
             torch.cuda.synchronize()
@@ -2059,7 +2148,17 @@ def phase_train_cli():
         check(first.step == 6 and sorted(os.listdir(out)) ==
               ["iter_3", "iter_6"], "the CLI left {} at step {}".format(
                   sorted(os.listdir(out)), first.step))
+        # the forward's cost as the loop logged it, against the count
+        gflops = forward_flops(first.model, FLAGSHIP_STEM[1:],
+                               FLAGSHIP_STEM[0]) / 1e9
+        cost = [ln for ln in log.lines if "Model forward cost" in ln]
+        want = "Model forward cost: {:.3f} GFLOPs (batch {})".format(
+            gflops, FLAGSHIP_STEM[0])
+        check(cost == [want], "forward cost logged {}, counted {}".format(
+            cost, want))
         del first
+        async_files = _digests(out, (3, 6))  # before the resume rewrites 6
+        check(len(saves.ms) == 2, "{} save calls".format(len(saves.ms)))
         with TrainLog() as log:
             t0 = time.perf_counter()
             resumed = train_cli.main(train_cli.parse_args(
@@ -2089,10 +2188,20 @@ def phase_train_cli():
             check(step == it and all(bool(torch.isfinite(v).all()) for v in
                                      model.state_dict().values()),
                   "iter_{} did not load (step {})".format(it, step))
+        sync_out = os.path.join(wd, "out_sync")
+        sync_ms, sync_windows = sync_checkpoint_run(yml, sync_out)
+        sync_files = _digests(sync_out, (3, 6))
+        check(async_files == sync_files, "asynchronous and synchronous "
+              "checkpoints differ: {} / {}".format(async_files, sync_files))
         cached = cli_cached(wd, yml)
     windows = [{k: TrainLog.field(ln, k) for k in ("loss", "batch_cost",
                                                     "reader_cost", "ips")}
                for ln in first_lines + resumed_lines]
+    checkpoints = {
+        "bytes_equal_async_sync": True,
+        "save_call_ms": {"async": saves.ms, "sync": sync_ms},
+        "next_3_iters_ms_per_iter": {"async": windows[1]["batch_cost"] * 1e3,
+                                     "sync": sync_windows[1]}}
     emit({"phase": "train_cli", "config": os.path.relpath(SPINE, ROOT),
           "volumes": 4, "shape": list(FLAGSHIP_STEM[1:]),
           "iters": [6, "resumed 3 -> 6"],
@@ -2105,6 +2214,9 @@ def phase_train_cli():
           "profiled_iteration": 2,
           "iteration_profile": prof.stats,
           "launches_per_step": {k: v / 9 for k, v in launches.items()},
+          "checkpoints": checkpoints,
+          "forward_gflops": {"batch": FLAGSHIP_STEM[0], "gflops": gflops,
+                             "logged": cost[0]},
           "cached": cached})
     return launches
 
@@ -2130,6 +2242,31 @@ class CachedSteps:
         _core_train_module().make_cached_train_step = self._real
 
 
+class KeptProfilers:
+    """Keeps every ``torch.profiler.profile`` made while it is entered (the
+    one ``utils/train_profiler.py`` makes for a trace window), so that its
+    events can be read after the trace is written."""
+
+    def __enter__(self):
+        self.kept, self._real = [], torch.profiler.profile
+        kept = self.kept
+
+        class Kept(self._real):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                kept.append(self)
+
+        torch.profiler.profile = Kept
+        return self
+
+    def __exit__(self, *exc):
+        torch.profiler.profile = self._real
+
+
+TRACE_STEPS = 3  # the cached run's trace window: iterations 4-6, a dispatch
+TRACE_BUSY_REL = 5e-2  # the reader's busy ms against key_averages'
+
+
 def cli_cached(wd, yml):
     """The train CLI on the same data with the dataset held on the card,
     three steps a dispatch and a trace of iterations 2-4: six iterations,
@@ -2152,7 +2289,8 @@ def cli_cached(wd, yml):
     with TrainLog("[TRAIN]", "TrainLoader mode") as log, \
             CachedSteps() as built:
         t0 = time.perf_counter()
-        first = train_cli.main(train_cli.parse_args(profiled))
+        with KeptProfilers() as profilers:
+            first = train_cli.main(train_cli.parse_args(profiled))
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         check(first.step == 6, "the cached CLI run ended at step {}".format(
@@ -2198,11 +2336,36 @@ def cli_cached(wd, yml):
     trace = train_profiler.trace_path({"profile_path": trace_dir})
     check(os.path.isfile(trace) and os.path.getsize(trace) > 0,
           "no trace at " + trace)
+    # the port's trace reader on that trace, against the graph's launches
+    # and the profiler's own device time of the window
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = trace_ops.main([trace, str(TRACE_STEPS), "15"])
+    read = trace_ops.summarize(trace, TRACE_STEPS)
+    per_replay = built.steps[0].graphed.launches
+    hand = sum(v for k, v in per_replay.items()
+               if k != "conv5_fused_epilogue")
+    check(rc == 0 and read["hand_launches"] == hand, "trace_ops: exit {}, "
+          "{} hand-kernel launches a step against {} a replay".format(
+              rc, read["hand_launches"], hand))
+    check(len(profilers.kept) == 1, "{} profilers in the cached run".format(
+        len(profilers.kept)))
+    groups, _ = device_groups(profilers.kept[0])
+    own_ms = sum(groups.values()) / TRACE_STEPS
+    check(abs(read["busy_ms"] - own_ms) <= TRACE_BUSY_REL * own_ms,
+          "trace_ops busy {:.3f} ms a step against the profiler's {:.3f}"
+          .format(read["busy_ms"], own_ms))
     return {"losses": losses, "windows_ms_per_iter": [
         TrainLog.field(ln, "batch_cost") * 1e3 for ln in lines],
         "run_s": first_s, "replays": replays,
-        "launches_per_replay": built.steps[0].graphed.launches,
-        "trace_mb": os.path.getsize(trace) / 1e6}
+        "launches_per_replay": per_replay,
+        "trace_mb": os.path.getsize(trace) / 1e6,
+        "trace_ops": {"steps": TRACE_STEPS, "busy_ms": read["busy_ms"],
+                      "profiler_busy_ms": own_ms,
+                      "nccl_ms": read["nccl_ms"],
+                      "hand_launches": read["hand_launches"],
+                      "categories": read["categories"],
+                      "top_kernels": [[k[:80]] + v for k, v in list(
+                          read["kernels"].items())[:10]]}}
 
 
 class EvalCalls:

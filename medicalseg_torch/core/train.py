@@ -34,8 +34,19 @@ augmentation's draws, so a resumed run repeats the unbroken run's masks
 and draws. ``profiler_options`` traces a window of iterations
 (:mod:`..utils.train_profiler`, called once an iteration).
 
-Checkpoints are written synchronously, and there is no end-of-training
-FLOPs report (the JAX package's comes from XLA's cost analysis).
+With ``async_checkpoint`` (the default, as in the JAX loop) a save point
+takes only the checkpoint's snapshot on the loop's thread: the encode and
+the writes, the ``keep_checkpoint_max`` eviction and the best model (a
+copy of the save point's model file) with its ``best.json`` run on one
+writer thread in that order (:mod:`..utils.checkpoint`), and ``train``
+waits for them before it returns or raises, raising a write that failed;
+the jobs queued behind a failed write do not run, so a failed save evicts
+nothing. Without it each save is written in place. Both leave the same
+files, byte for byte. After the last iteration the loop logs the
+forward's cost, ``Model forward cost: X GFLOPs (batch B)`` for the global
+batch at the augmented sample shape, as the JAX loop does; the count
+comes from the model's layer shapes (:mod:`..utils.flops`), where the JAX
+package asks XLA's cost analysis.
 
 Over a process mesh (``mesh``, or ``space`` with the process group that
 ``torchrun`` starts: ``parallel.init_from_env``) ``batch_size`` is per
@@ -47,10 +58,12 @@ rank keeps its H block after the augmentation, or on the card in
 batch (``core.state``): eagerly, or as replays of one CUDA graph a rank
 in the cached and multi-step forms over NCCL. Every rank resumes from
 the same file; rank 0 alone logs, writes checkpoints and ``best.json``
-and runs VisualDL, while the others wait at a barrier. The evaluation runs over
+(and waits for its writer) and runs VisualDL, while the others wait at a
+barrier at each save point. The evaluation runs over
 the same mesh (``core.val.evaluate``).
 """
 
+import functools
 import json
 import os
 import shutil
@@ -61,12 +74,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models import VNet
 from ..transforms import DeviceAugmentor
 from ..transforms.device import step_seed
 from ..utils import (TimeAverager, calculate_eta, logger, resume,
-                     save_checkpoint, train_profiler)
+                     save_checkpoint, save_checkpoint_async, train_profiler,
+                     wait_pending_checkpoints)
 from ..parallel import mesh as mesh_lib
-from ..utils.checkpoint import _atomic_write
+from ..utils import checkpoint as ckpt
+from ..utils.flops import forward_flops
 from ..utils.utils import resolve_device
 from .loader import TrainLoader
 from .prefetch import DevicePrefetcher
@@ -99,14 +115,16 @@ def train(model,
           mesh=None,
           space=1,
           data_loader_mode="auto",
+          async_checkpoint=True,
           steps_per_dispatch=1,
           wire_dtype="bfloat16",
           device="cuda"):
     """Train ``model`` on ``train_dataset``; returns the final
     :class:`~.state.TrainState`.
 
-    The surface is the JAX function's without ``async_checkpoint``:
-    ``optimizer`` builds the optimizer over the parameters
+    The surface is the JAX function's: ``async_checkpoint`` writes the
+    checkpoints on a writer thread (module docstring), ``optimizer``
+    builds the optimizer over the parameters
     (``Config.build_optimizer``), ``lr_scheduler`` is the schedule
     (``Config.lr_scheduler``), ``losses`` the loss config
     (``Config.loss``), ``mesh`` a ``parallel.Mesh`` (else one is built
@@ -172,6 +190,9 @@ def train(model,
     else:
         step_fn = make_train_step(losses, augment_fn=augment, mesh=mesh)
         prefetcher = DevicePrefetcher(loader, device)
+    # the writes and evictions: on the writer thread, or in place
+    save = save_checkpoint_async if async_checkpoint else save_checkpoint
+    run = ckpt.submit if async_checkpoint else _call
     reader_cost = TimeAverager()
     batch_cost = TimeAverager()
     save_models = deque()
@@ -179,6 +200,7 @@ def train(model,
     iters_per_epoch = loader.iters_per_epoch
     it = state.step
     batch_start = time.time()
+    finished = False
     try:
         while it < iters:
             # the iterations this dispatch may take without crossing a log
@@ -251,19 +273,18 @@ def train(model,
                                       mesh=mesh)
                 current = os.path.join(save_dir, "iter_{}".format(it))
                 if mesh.primary:
-                    save_checkpoint(current, state.model, state.optimizer,
-                                    it)
+                    save(current, state.model, state.optimizer, it)
                 save_models.append(current)
                 if len(save_models) > keep_checkpoint_max > 0:
                     old = save_models.popleft()
-                    if mesh.primary:
-                        shutil.rmtree(old, ignore_errors=True)
+                    if mesh.primary:  # behind the pending writes
+                        run(shutil.rmtree, old, ignore_errors=True)
                 if result is not None:
                     if result["mdice"] > best_mean_dice:
                         best_mean_dice, best_model_iter = result["mdice"], it
-                        if mesh.primary:
-                            _save_best(save_dir, state.model,
-                                       best_mean_dice, best_model_iter)
+                        if mesh.primary:  # behind the write of current
+                            run(_write_best, save_dir, current,
+                                best_mean_dice, best_model_iter)
                     logger.info(
                         "[EVAL] The model with the best validation mDice "
                         "({:.4f}) was saved at iter {}.".format(
@@ -274,17 +295,69 @@ def train(model,
                         if "auc_roc" in result:
                             log_writer.add_scalar("Evaluate/auc_roc",
                                                   result["auc_roc"], it)
-                if sharded:  # the others wait for rank 0's files
-                    dist.barrier()
+                if sharded:  # the ranks meet at each save point (rank 0's
+                    dist.barrier()  # files are complete after its wait)
             # eval and checkpoint time stays out of the next batch cost
             batch_start = time.time()
+        finished = True
     finally:
         loader.stop()
         if prefetcher is not None:
             prefetcher.close()
         if log_writer is not None:
             log_writer.close()
+        if async_checkpoint and mesh.primary:
+            _wait_writer(raise_failure=finished)
+    if mesh.primary:
+        _flops_report(state.model, train_dataset, loader.mode,
+                      batch_size * mesh.data)
     return state
+
+
+def _call(fn, *args, **kwargs):
+    return fn(*args, **kwargs)
+
+
+def _wait_writer(raise_failure):
+    """Wait for the checkpoint writer. A failed write is raised only after
+    a loop that finished: while the loop's own error unwinds, it is logged
+    and that error goes on."""
+    if raise_failure:
+        wait_pending_checkpoints()
+        return
+    try:
+        wait_pending_checkpoints()
+    except Exception as e:
+        logger.error("A checkpoint write failed as well: {!r}".format(e))
+
+
+def _augmented_dhw(dataset):
+    """(D, H, W) after the dataset's transforms, from the last transform
+    that has a ``size``; None if none has."""
+    size = None
+    for t in (getattr(dataset, "raw_transforms", None) or []):
+        if hasattr(t, "size"):
+            s = t.size
+            size = tuple(s) if isinstance(s, (tuple, list)) else (s,) * 3
+    return size
+
+
+def _flops_report(model, dataset, mode, batch):
+    """Log the forward's FLOPs (:func:`..utils.flops.forward_flops`) for
+    ``batch`` samples of the shape the step trains on, found as the JAX
+    loop finds it: the augmented (D, H, W) where the card augments (else
+    the raw volume's), the transformed item's in ``host`` mode."""
+    if not isinstance(model, VNet):
+        logger.info("Model forward cost: not counted for {} (the count "
+                    "knows VNet and VNetDeepSup)".format(type(model).__name__))
+        return
+    if mode in ("device", "device_cache"):
+        dhw = _augmented_dhw(dataset) or dataset.raw_item(0)[0].shape[:3]
+    else:
+        dhw = np.moveaxis(np.asarray(dataset[0][0]), 0, -1).shape[:3]
+    flops = forward_flops(model, dhw, batch)
+    logger.info("Model forward cost: {:.3f} GFLOPs (batch {})".format(
+        flops / 1e9, batch))
 
 
 def _record(averager, seconds, iterations, batch_size=0):
@@ -311,14 +384,19 @@ def _read_best(path):
         return -1.0, -1
 
 
-def _save_best(save_dir, model, mdice, it):
-    """``best_model/model.msgpack``, then ``best.json`` {"mdice", "iter"}
-    written atomically after the weights: a tracker never names weights
-    that are not on disk."""
+def _write_best(save_dir, current, mdice, it):
+    """``best_model/model.msgpack`` as a copy of the save point's
+    ``current/model.msgpack`` (the same state, so the same bytes; no second
+    snapshot), then ``best.json`` {"mdice", "iter"} written atomically
+    after the weights: a tracker never names weights that are not on
+    disk."""
     best_dir = os.path.join(save_dir, BEST_DIR)
-    save_checkpoint(best_dir, model)
-    _atomic_write(os.path.join(best_dir, BEST_JSON),
-                  json.dumps({"mdice": mdice, "iter": it}).encode())
+    os.makedirs(best_dir, exist_ok=True)
+    with open(os.path.join(current, ckpt.MODEL_FILE), "rb") as f:
+        ckpt._atomic_write(os.path.join(best_dir, ckpt.MODEL_FILE),
+                           iter(functools.partial(f.read, 1 << 24), b""))
+    ckpt._atomic_write(os.path.join(best_dir, BEST_JSON),
+                       json.dumps({"mdice": mdice, "iter": it}).encode())
 
 
 def _write_train(writer, it, loss, loss_list, mdice, lr, batch_cost,

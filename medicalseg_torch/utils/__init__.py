@@ -1,7 +1,9 @@
 # Copyright 2026. Apache License 2.0.
 from . import env, logger, loss_utils, metric, quant, transplant, visualize
-from .checkpoint import (load_checkpoint, load_entire_model,
-                         load_pretrained_model, resume, save_checkpoint)
+from .checkpoint import (is_valid_checkpoint, load_checkpoint,
+                         load_entire_model, load_pretrained_model, resume,
+                         save_checkpoint, save_checkpoint_async,
+                         wait_pending_checkpoints)
 from .config_check import config_check
 from .progbar import Progbar
 from .timer import TimeAverager, calculate_eta
@@ -14,7 +16,9 @@ __all__ = ["logger", "loss_utils", "metric", "quant", "transplant",
            "get_image_list", "resolve_device", "strtobool", "seed_all",
            "get_sys_env", "save_array", "Progbar", "TimeAverager",
            "calculate_eta", "config_check", "save_checkpoint",
-           "load_checkpoint", "load_pretrained_model", "load_entire_model",
+           "save_checkpoint_async", "wait_pending_checkpoints",
+           "is_valid_checkpoint", "load_checkpoint",
+           "load_pretrained_model", "load_entire_model",
            "resume", *env.__all__]
 
 

@@ -19,29 +19,107 @@ loading; resume that returns the iteration.
   ``{'torch': <torch.save of the optimizer's state_dict>}``, which only the
   port reads.
 
-Files are encoded by the port's own :mod:`.msgpack_codec`. Writing reads
-the model back from the card once (a host sync at each save point only).
+Files are encoded by the port's own :mod:`.msgpack_codec`. A save is two
+parts: a snapshot on the caller's thread (the model's variables and the
+optimizer's state read back from the card into host numpy copies, a host
+sync at each save point only), then the encode and the two atomic writes.
+:func:`save_checkpoint` does both in turn; :func:`save_checkpoint_async`
+returns once the snapshot is taken and leaves the rest to one writer thread,
+which runs its jobs (writes, and whatever else :func:`submit` queues, such
+as evictions) in the order they were queued, so both write the same bytes.
+A failed job is not lost: the next :func:`submit` (and so the next
+asynchronous save) or :func:`wait_pending_checkpoints` raises the first
+failure, and the jobs queued behind it do not run, as a synchronous save
+that raises stops what would follow it.
 """
 
 import io
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from . import logger, transplant
-from .msgpack_codec import packb, unpackb
+from .msgpack_codec import pack_chunks, unpackb
 
 MODEL_FILE = "model.msgpack"
 OPT_FILE = "opt.msgpack"
 
 
+_executor = None
+_failure = None  # the first exception of a queued job, not yet raised
+_failures = 0  # the number of queued jobs that have failed
+_lock = threading.Lock()  # guards the three
+
+
+def _get_executor():
+    """The one worker thread that runs the queued checkpoint jobs."""
+    global _executor
+    with _lock:
+        if _executor is None:
+            _executor = ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="ckpt")
+        return _executor
+
+
+def _take_failure():
+    """Raise the first failure of a queued job since the last raise; else
+    return the number of jobs that have failed."""
+    global _failure
+    with _lock:
+        failure, _failure = _failure, None
+        failures = _failures
+    if failure is not None:
+        raise failure
+    return failures
+
+
+def _guarded(fn, failures, args, kwargs):
+    """Run ``fn`` unless a job queued before it failed after it was queued
+    (``failures`` is the count it was queued at): an eviction or a best
+    model behind a failed write does not run."""
+    global _failure, _failures
+    with _lock:
+        if _failures > failures:
+            raise RuntimeError("not run: a checkpoint job queued before it "
+                               "failed")
+    try:
+        return fn(*args, **kwargs)
+    except BaseException as e:
+        with _lock:
+            _failures += 1
+            if _failure is None:
+                _failure = e
+        raise
+
+
+def submit(fn, *args, **kwargs):
+    """Queue ``fn(*args, **kwargs)`` on the writer thread, behind every job
+    queued before it; returns its ``Future``. Raises first the failure of
+    an earlier job, if one failed. A job queued behind one that fails is
+    not run (its ``Future`` raises ``RuntimeError``)."""
+    failures = _take_failure()
+    return _get_executor().submit(_guarded, fn, failures, args, kwargs)
+
+
+def wait_pending_checkpoints():
+    """Block until every queued write and eviction has finished; then raise
+    the first of them that failed, if one did."""
+    if _executor is not None:
+        _get_executor().submit(lambda: None).result()
+    _take_failure()
+
+
 def _atomic_write(path, data):
-    """Write to a temporary file and rename, so that an interrupted save
-    never leaves a truncated file: a file is absent or complete."""
+    """Write ``data`` (bytes, or a list of bytes-like pieces) to a
+    temporary file and rename, so that an interrupted save never leaves a
+    truncated file: a file is absent or complete."""
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(data)
+        for piece in [data] if isinstance(data, bytes) else data:
+            f.write(piece)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -83,17 +161,60 @@ def _find_trace(tree):
     return None
 
 
+def _sorted(tree):
+    """``tree`` with every dict's keys in sorted order, as a JAX pytree map
+    leaves them (the JAX package writes its trees so)."""
+    if not isinstance(tree, dict):
+        return tree
+    return {key: _sorted(tree[key]) for key in sorted(tree)}
+
+
+def snapshot(model, optimizer=None, step=None):
+    """What a checkpoint of ``model`` (and ``optimizer`` at ``step``)
+    holds, as host copies: (flax variables, ``opt.msgpack``'s payload or
+    None), keys sorted. Every leaf is a copy, so the model may change once
+    it returns; reading it back from the card waits for the work queued
+    there."""
+    variables = _sorted(transplant.flax_from_state_dict(model.state_dict()))
+    if optimizer is None:
+        return variables, None
+    step = 0 if step is None else int(step)
+    return variables, {"opt_state": _sorted(_opt_state(model, optimizer,
+                                                       step)),
+                       "step": np.asarray(step)}
+
+
+def write_snapshot(save_dir, variables, payload=None):
+    """Encode a :func:`snapshot` and write ``model.msgpack``, then (with a
+    payload) ``opt.msgpack``, under ``save_dir``."""
+    os.makedirs(save_dir, exist_ok=True)
+    _atomic_write(os.path.join(save_dir, MODEL_FILE), pack_chunks(variables))
+    if payload is not None:
+        _atomic_write(os.path.join(save_dir, OPT_FILE), pack_chunks(payload))
+
+
 def save_checkpoint(save_dir, model, optimizer=None, step=None):
     """Write ``model.msgpack`` (and, with ``optimizer``, ``opt.msgpack``
     with ``step``) under ``save_dir``."""
-    os.makedirs(save_dir, exist_ok=True)
-    variables = transplant.flax_from_state_dict(model.state_dict())
-    _atomic_write(os.path.join(save_dir, MODEL_FILE), packb(variables))
-    if optimizer is not None:
-        step = 0 if step is None else int(step)
-        payload = {"opt_state": _opt_state(model, optimizer, step),
-                   "step": np.asarray(step)}
-        _atomic_write(os.path.join(save_dir, OPT_FILE), packb(payload))
+    write_snapshot(save_dir, *snapshot(model, optimizer, step))
+
+
+def save_checkpoint_async(save_dir, model, optimizer=None, step=None):
+    """:func:`save_checkpoint` with the encode and the writes on the writer
+    thread: returns the write's ``Future`` once the snapshot is taken."""
+    return submit(write_snapshot, save_dir,
+                  *snapshot(model, optimizer, step))
+
+
+def is_valid_checkpoint(path, require_opt=True):
+    """True when ``path`` is a directory holding a complete checkpoint:
+    ``model.msgpack``, and with ``require_opt`` also ``opt.msgpack`` (the
+    file written last, so its presence marks a resumable checkpoint)."""
+    if not os.path.isdir(path):
+        return False
+    if not os.path.exists(os.path.join(path, MODEL_FILE)):
+        return False
+    return not require_opt or os.path.exists(os.path.join(path, OPT_FILE))
 
 
 def load_checkpoint(path, model, optimizer=None):

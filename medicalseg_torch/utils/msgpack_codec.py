@@ -8,10 +8,12 @@ raw bytes]`` (type 3 holds a numpy scalar as ``[dtype name, raw bytes]``).
 The port reads and writes that format itself, as the card's machine is
 not known to have the ``msgpack`` package.
 
-:func:`packb` encodes None, booleans, integers, floats, strings, bytes,
-lists and tuples (as arrays), dicts and numpy arrays or scalars (as type-1
-extensions, C order); :func:`unpackb` decodes the whole format, extensions
-of types 1 and 3 into numpy arrays, and raises on other extensions.
+:func:`pack_chunks` (and :func:`packb`, the same bytes joined) encodes
+None, booleans, integers (in msgpack's smallest form), floats, strings,
+bytes, lists and tuples (as arrays), dicts and numpy arrays or scalars (as
+type-1 extensions, C order); :func:`unpackb` decodes the whole format,
+extensions of types 1 and 3 into numpy arrays, and raises on other
+extensions.
 """
 
 import struct
@@ -19,10 +21,16 @@ import struct
 import numpy as np
 
 _ND_ARRAY, _NP_SCALAR = 1, 3
+# (code, struct format, low, high) of msgpack's integer forms, smallest
+# first: the unsigned ones for values >= 0, the signed ones below
+_INTS = ((0xCC, "B", 0, 1 << 8), (0xCD, "H", 0, 1 << 16),
+         (0xCE, "I", 0, 1 << 32), (0xCF, "Q", 0, 1 << 64),
+         (0xD0, "b", -(1 << 7), 0), (0xD1, "h", -(1 << 15), 0),
+         (0xD2, "i", -(1 << 31), 0), (0xD3, "q", -(1 << 63), 0))
 
 
-def _pack_ext(out, code, data):
-    n = len(data)
+def _ext_header(out, code, n):
+    """The header of an extension of type ``code`` holding ``n`` bytes."""
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixed:
         out += bytes((fixed[n], code & 0xFF))
@@ -32,32 +40,52 @@ def _pack_ext(out, code, data):
         out += struct.pack(">BHb", 0xC8, n, code)
     else:
         out += struct.pack(">BIb", 0xC9, n, code)
-    out += data
 
 
-def _pack(obj, out):
+def _bin_header(out, n):
+    if n < 1 << 8:
+        out += struct.pack(">BB", 0xC4, n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", 0xC5, n)
+    else:
+        out += struct.pack(">BI", 0xC6, n)
+
+
+def _pack(obj, out, chunks):
+    """Append ``obj``'s encoding to the bytearray ``out``; an array's data
+    goes to the list ``chunks`` as a piece of its own (``out`` is moved
+    there first and emptied), not copied."""
     if obj is None:
         out.append(0xC0)
     elif obj is True or obj is False:
         out.append(0xC3 if obj else 0xC2)
     elif isinstance(obj, (np.ndarray, np.generic)):
+        # type 1: the msgpack array [shape, dtype name, raw bytes]
         arr = np.asarray(obj)
-        payload = bytearray()
-        _pack([list(arr.shape), arr.dtype.name,
-               np.ascontiguousarray(arr).tobytes()], payload)
-        _pack_ext(out, _ND_ARRAY, bytes(payload))
-    elif isinstance(obj, int):
+        raw = memoryview(np.ascontiguousarray(arr).reshape(-1).view(
+            np.uint8))
+        inner = bytearray([0x93])
+        _pack(list(arr.shape), inner, chunks)  # no arrays: all in inner
+        _pack(arr.dtype.name, inner, chunks)
+        _bin_header(inner, raw.nbytes)
+        _ext_header(out, _ND_ARRAY, len(inner) + raw.nbytes)
+        out += inner
+        chunks.append(bytes(out))
+        del out[:]
+        chunks.append(raw)
+    elif isinstance(obj, int):  # the smallest form, as msgpack packs it
         if 0 <= obj < 0x80:
             out.append(obj)
         elif -32 <= obj < 0:
             out += struct.pack(">b", obj)
-        elif 0 <= obj < 1 << 64:
-            out += struct.pack(">BQ", 0xCF, obj)
-        elif -(1 << 63) <= obj < 0:
-            out += struct.pack(">Bq", 0xD3, obj)
         else:
-            raise OverflowError("integer out of msgpack's range: {}".format(
-                obj))
+            for code, fmt, lo, hi in _INTS:
+                if lo <= obj < hi:
+                    out += struct.pack(">B" + fmt, code, obj)
+                    break
+            else:
+                raise OverflowError("integer out of msgpack's range: "
+                                    "{}".format(obj))
     elif isinstance(obj, float):
         out += struct.pack(">Bd", 0xCB, obj)
     elif isinstance(obj, str):
@@ -74,13 +102,7 @@ def _pack(obj, out):
         out += data
     elif isinstance(obj, (bytes, bytearray, memoryview)):
         data = bytes(obj)
-        n = len(data)
-        if n < 1 << 8:
-            out += struct.pack(">BB", 0xC4, n)
-        elif n < 1 << 16:
-            out += struct.pack(">BH", 0xC5, n)
-        else:
-            out += struct.pack(">BI", 0xC6, n)
+        _bin_header(out, len(data))
         out += data
     elif isinstance(obj, (list, tuple)):
         n = len(obj)
@@ -91,7 +113,7 @@ def _pack(obj, out):
         else:
             out += struct.pack(">BI", 0xDD, n)
         for item in obj:
-            _pack(item, out)
+            _pack(item, out, chunks)
     elif isinstance(obj, dict):
         n = len(obj)
         if n < 16:
@@ -101,17 +123,26 @@ def _pack(obj, out):
         else:
             out += struct.pack(">BI", 0xDF, n)
         for key, value in obj.items():
-            _pack(key, out)
-            _pack(value, out)
+            _pack(key, out, chunks)
+            _pack(value, out, chunks)
     else:
         raise TypeError("cannot pack {!r}".format(type(obj)))
 
 
 def packb(obj) -> bytes:
-    """``obj`` as msgpack bytes."""
-    out = bytearray()
-    _pack(obj, out)
-    return bytes(out)
+    """``obj`` as msgpack bytes: :func:`pack_chunks` joined."""
+    return b"".join(pack_chunks(obj))
+
+
+def pack_chunks(obj) -> list:
+    """``obj``'s msgpack bytes as a list of bytes-like pieces in order, the
+    arrays' data as views of the (C-contiguous) arrays: written one after
+    the other they make the file without a copy of the data in Python
+    (a large ``write`` runs without the GIL)."""
+    out, chunks = bytearray(), []
+    _pack(obj, out, chunks)
+    chunks.append(bytes(out))
+    return chunks
 
 
 class _Reader:

@@ -124,14 +124,16 @@ def _kernel_to_torch(sd, name, kernel, perm, flip=False):
 def _kernel_to_flax(state_dict, name, perm, flip=False):
     """The inverse of :func:`_kernel_to_torch`: an array, or a quantized
     leaf of numpy arrays."""
-    def move(t):
-        a = np.transpose(t.detach().cpu().numpy(), perm)
-        return np.ascontiguousarray(a[::-1, ::-1, ::-1] if flip else a)
+    def move(t):  # permuted where it lies, then a contiguous copy
+        a = t.detach().permute(*perm)
+        if flip:
+            a = a.flip(0, 1, 2)
+        return a.clone(memory_format=torch.contiguous_format).cpu().numpy()
 
     if name + QUANT_SUFFIX in state_dict:
         return {_FLAX_QUANT: move(state_dict[name + QUANT_SUFFIX]),
                 "scale": state_dict[name + SCALE_SUFFIX].detach().cpu()
-                .float().numpy()}
+                .float().numpy().copy()}
     return move(state_dict[name].detach().float())
 
 

@@ -295,8 +295,9 @@ def cube_data(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _torch_checkpoints(monkeypatch):
-    """The loop's checkpoints as ``torch.save`` files: the msgpack layout
-    names V-Net's layers, and these tests train the small encoder-decoder
+    """The loop's checkpoints, written in place or asynchronously, as
+    ``torch.save`` files: the msgpack layout names V-Net's layers, and
+    these tests train the small encoder-decoder
     (tests/test_torch_train_loop.py drives the msgpack checkpoints)."""
     module = __import__("medicalseg_torch.core.train",
                         fromlist=["train"])
@@ -316,6 +317,7 @@ def _torch_checkpoints(monkeypatch):
         return saved["step"]
 
     monkeypatch.setattr(module, "save_checkpoint", save)
+    monkeypatch.setattr(module, "save_checkpoint_async", save)
     monkeypatch.setattr(module, "resume", resume)
 
 

@@ -1342,3 +1342,60 @@ def test_graphed_sharded_step_is_the_eager_one(dev, tmp_path, edge):
         assert r["same"] == [True] * 4
         assert r["launches"] == got[0]["launches"]
         assert sum(r["launches"].values()) > 0
+
+
+# --------------------------------------------------------------------------
+# asynchronous checkpoint writes in a graphed run
+# --------------------------------------------------------------------------
+def test_async_save_in_a_graphed_run_is_the_sync_save(dev, tmp_path):
+    """``core.train`` with the dataset on the card and two steps a
+    dispatch (replays of one CUDA graph, which change the parameters in
+    place) on the flagship YAML at (8, 32, 32): the checkpoint written
+    asynchronously at iteration 2, with the next dispatch right behind its
+    snapshot, and the one at 4 hold the bytes of the synchronous run's."""
+    import os
+
+    from medicalseg_torch.core.train import train
+    from medicalseg_torch.cvlibs import Config
+    phase0 = tmp_path / "phase0"
+    rng = np.random.RandomState(4)
+    lines = []
+    for i in range(3):
+        for sub, vol in (("images", rng.rand(8, 32, 32).astype(np.float32)),
+                         ("labels", rng.randint(0, 20, (8, 32, 32))
+                          .astype(np.uint8))):
+            (phase0 / sub).mkdir(parents=True, exist_ok=True)
+            np.save(phase0 / sub / "v{}.npy".format(i), vol)
+        lines.append("images/v{0}.npy labels/v{0}.npy\n".format(i))
+    (phase0 / "train_list.txt").write_text("".join(lines))
+    (phase0 / "val_list.txt").write_text("".join(lines))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "synthetic",
+                           "vnetdeepsup_synspine_15k.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data_root"] = str(tmp_path)
+    for key in ("train_dataset", "val_dataset"):
+        cfg[key]["dataset_root"] = "phase0"
+        cfg[key]["result_dir"] = "phase1"
+    cfg["batch_size"] = 1
+    path = tmp_path / "spine.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    files = []
+    for async_checkpoint in (True, False):
+        config = Config(str(path), iters=4)
+        out = tmp_path / "out_{}".format(async_checkpoint)
+        state = train(config.model, config.train_dataset,
+                      optimizer=config.build_optimizer,
+                      lr_scheduler=config.lr_scheduler, save_dir=str(out),
+                      iters=4, batch_size=1, save_interval=2, log_iters=2,
+                      losses=config.loss, seed=0,
+                      data_loader_mode="device_cache", steps_per_dispatch=2,
+                      async_checkpoint=async_checkpoint, device="cuda")
+        assert state.step == 4
+        files.append({"{}/{}".format(it, name): (out / it / name).read_bytes()
+                      for it in ("iter_2", "iter_4")
+                      for name in ("model.msgpack", "opt.msgpack")})
+    assert files[0].keys() == files[1].keys()
+    for name in files[0]:
+        assert files[0][name] == files[1][name], name
+    assert files[0]["iter_2/model.msgpack"] != files[0]["iter_4/model.msgpack"]

@@ -252,24 +252,34 @@ def _state_numbers(state):
             state.step)
 
 
+@pytest.mark.parametrize("async_checkpoint", [False, True],
+                         ids=["sync", "async"])
 def test_train_saves_evicts_and_resumes_exactly(tmp_path, spine_data,
-                                               monkeypatch):
+                                               monkeypatch, async_checkpoint):
     """Four iterations, a checkpoint every two, one kept: only ``iter_4``
     is left. Each save is also copied aside with the numbers of the state
     it saved, and a run resumed from the copy of ``iter_2`` (taking no
     step) holds those numbers exactly: parameters, BatchNorm statistics,
-    momentum and step."""
+    momentum and step. With ``async_checkpoint`` the saves are written on
+    the writer thread, and the copy is queued behind the write (and ahead
+    of the eviction)."""
     path = _spine_yaml(tmp_path, spine_data)
     saved = {}
 
     def spy(save_dir, model, optimizer, step):
-        tckpt.save_checkpoint(save_dir, model, optimizer, step)
-        shutil.copytree(save_dir, tmp_path / "copies" / str(step))
+        copy = tmp_path / "copies" / str(step)
+        if async_checkpoint:
+            tckpt.save_checkpoint_async(save_dir, model, optimizer, step)
+            tckpt.submit(shutil.copytree, save_dir, copy)
+        else:
+            tckpt.save_checkpoint(save_dir, model, optimizer, step)
+            shutil.copytree(save_dir, copy)
         state = TrainState(model, optimizer, None, None, step)
         saved[step] = _state_numbers(state)
 
     monkeypatch.setattr(sys.modules["medicalseg_torch.core.train"],
-                        "save_checkpoint", spy)
+                        "save_checkpoint_async" if async_checkpoint
+                        else "save_checkpoint", spy)
 
     def run(iters, save_dir, **kw):
         cfg = tconfig.Config(path, iters=iters)
@@ -277,7 +287,8 @@ def test_train_saves_evicts_and_resumes_exactly(tmp_path, spine_data,
                      optimizer=cfg.build_optimizer,
                      lr_scheduler=cfg.lr_scheduler, save_dir=save_dir,
                      iters=iters, batch_size=cfg.batch_size, losses=cfg.loss,
-                     log_iters=2, seed=0, device="cpu", **kw)
+                     log_iters=2, seed=0, device="cpu",
+                     async_checkpoint=async_checkpoint, **kw)
 
     final = run(4, str(tmp_path / "a"), save_interval=2,
                 keep_checkpoint_max=1)
