@@ -38,6 +38,14 @@ JSON line; any failure raises and the script exits non-zero:
    time of the kernel and of ``contiguous()`` with the host's dispatch
    taken out (ten calls replayed from one CUDA graph): at the small views
    a host-timed call measures the wrapper's Python, not the copy.
+   Per conv also the f32 columns (``f32_*``): the routed kernel (the head
+   convs' split-TF32 ``conv5_tf32_kernel``, the stem's ``conv5_kernel``)
+   unfused and fused, ``conv5_kernel`` forced in the same process
+   (``ms_old``), the plain version timed once, ``F.conv3d`` in strict f32
+   (TF32 off: the library column) and with TF32 on (``library_tf32_ms``, a
+   side column: cuDNN's default, a less exact function), the bound in
+   split TF32 (three TF32 products a term at 495 TF/s, or the bytes at 4
+   bytes an element), a fatal bit-for-bit repeat and the geometry.
 4. serve: four seeded 128^3 volumes through
    ``medicalseg_torch.deploy.infer.Predictor`` (the lung ``_tpu`` config's
    model section, a seeded init with non-trivial BN statistics, bf16,
@@ -92,7 +100,14 @@ JSON line; any failure raises and the script exits non-zero:
    Times as in phase 3 (the plain weight gradient once), with
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` as the library
    yardstick, and for the input gradient the same packing, geometry,
-   ratio and repeat columns as the forward's.
+   ratio and repeat columns as the forward's. The f32 columns as in phase
+   3 (``wgrad_f32_*``, ``dgrad_f32_*``): ``wgrad_tf32_kernel`` beside
+   ``wgrad_kernel`` forced, the input gradient's ``conv5_tf32_kernel``
+   beside ``conv5_kernel`` forced. Then the bf16 weight gradients on views
+   a tensor copy cannot describe (``ragged``: ``wgrad_mma_kernel<4>`` at
+   the 12^3 and 6^3 levels of a 96^3 V-Net, ``<1>`` / ``<2>`` at narrow
+   heads of W = 12) against their plain versions, with time, plain,
+   ``conv3d_weight``, bound and a fatal repeat.
 9. train: the lung ``_tpu`` config's model (bf16, per-block remat),
    optimizer, schedule and loss built by ``Config``, seeded init, batch 2
    at 128^3, seeded volumes and labels in {0, 1, 2}, through
@@ -113,6 +128,20 @@ JSON line; any failure raises and the script exits non-zero:
    to 2e-2 and the loss to 1e-5); the loss falls. Prints ms per step (the
    median of the three), patches/s, peak memory with and without remat,
    and the profiler's device time by kernel and idle share of one step.
+9b. train_f32: the upstream f32 lung recipe
+   (``configs/lung_coronavirus/vnet_lung_coronavirus_128_128_128_15k.yml``:
+   VNet, 3 classes, float32, no remat, all widths) built by ``Config``,
+   seeded init, at 2 x 128^3 (the YAML's batch is 6) on the train phase's
+   seeded batch, through ``make_train_step``. Step 1 against the plain
+   path from the same state and masks (loss within 1e-5 relative, every
+   leaf within ``GRAD_REL_L2_F32``); then one untimed and three timed
+   steps with the counts set to 0 just before them: exactly 15 head
+   forwards, 15 input gradients and 15 weight gradients a step on the
+   split-TF32 kernels, the stem's forward and weight gradient on
+   ``conv5_kernel`` / ``wgrad_kernel``, 8 pins, nothing else; the loss
+   falls. Prints the median host ms of the three steps, a profiled step's
+   device ms and idle share, the peak memory, then the same with the old
+   CUDA-core kernels forced in the same process (their counts exact too).
 10. train_flagship: the flagship config
    (``configs/synthetic/vnetdeepsup_synspine_15k.yml``: VNetDeepSup,
    bf16, per-block remat, 20 classes, four MixedLoss heads, SGD with
@@ -311,7 +340,7 @@ JSON line; any failure raises and the script exits non-zero:
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
 phase, of ``hu_resize`` from serve_raw, of the backward kernels from the
-train phase) and, last, the
+train phase, of the f32 kernels from train_f32) and, last, the
 ``{"ok": ...}`` line.
 """
 
@@ -360,10 +389,19 @@ from medicalseg_torch.models.layers import ChannelDropout  # noqa: E402
 from medicalseg_torch.transforms.device import step_seed  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+# H100 SXM dense TF32 tensor-core FLOP/s. An f32 conv at f32 accuracy on the
+# tensor cores takes three TF32 products a term (hi*hi + hi*lo + lo*hi of
+# each operand split into two TF32 halves: "split TF32"), so its bound by
+# operations is 3 * FLOP / PEAK_TF32; one TF32 product alone keeps about 11
+# bits, which the f32 tolerance (1e-4) does not allow.
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LUNG_TPU = os.path.join(ROOT, "configs", "lung_coronavirus",
                         "vnet_lung_coronavirus_128_128_128_15k_tpu.yml")
+# the upstream f32 lung recipe: no dtype, no remat (train_f32)
+LUNG_F32 = os.path.join(ROOT, "configs", "lung_coronavirus",
+                        "vnet_lung_coronavirus_128_128_128_15k.yml")
 SPINE = os.path.join(ROOT, "configs", "synthetic",
                      "vnetdeepsup_synspine_15k.yml")
 BATCH = 2
@@ -401,6 +439,13 @@ FWD_KERNELS = ("conv5_head", "conv5_stem_tc", "conv5_fused_epilogue",
                "pin")
 BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem_tc",
                "conv5_wgrad_head_tma", "conv5_wgrad_tma")
+# the f32 route (the upstream f32 recipes, train_f32): the split-TF32 head
+# kernels and the stem's CUDA-core kernels; each f32 form's stats key by kind
+F32_FWD = {"head": "conv5_head_tf32", "stem": "conv5_stem"}
+F32_DGRAD = "conv5_dgrad_tf32"
+F32_WGRAD = {"head": "conv5_wgrad_tf32", "stem": "conv5_wgrad_stem"}
+F32_KERNELS = tuple(F32_FWD.values()) + (F32_DGRAD,) + tuple(
+    F32_WGRAD.values())
 SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_stem_tc": "medicalseg_torch/csrc/conv5_stem.cu",
            "conv5_fused_epilogue": "medicalseg_torch/csrc/conv5_wg.cu",
@@ -409,7 +454,12 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_stem_tc": "medicalseg_torch/csrc/conv5_stem_wgrad.cu",
            "conv5_wgrad_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
-           "hu_resize": "medicalseg_torch/csrc/hu_resize.cu"}
+           "hu_resize": "medicalseg_torch/csrc/hu_resize.cu",
+           "conv5_head_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
+           "conv5_dgrad_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
+           "conv5_wgrad_tf32": "medicalseg_torch/csrc/conv5_wgrad_tf32.cu",
+           "conv5_stem": "medicalseg_torch/csrc/conv5.cu",
+           "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu"}
 REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:423",
             "conv5_fused_epilogue": "medicalseg_tpu/ops/pallas_conv5.py:1288",
@@ -418,7 +468,12 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_wgrad_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_tma": "medicalseg_tpu/ops/pallas_conv5.py:832",
             "conv5_wgrad_head_tma": "medicalseg_tpu/ops/pallas_conv5.py:912",
-            "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86"}
+            "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86",
+            "conv5_head_tf32": "medicalseg_tpu/ops/pallas_conv5.py:309",
+            "conv5_dgrad_tf32": "medicalseg_tpu/ops/pallas_conv5.py:1383",
+            "conv5_wgrad_tf32": "medicalseg_tpu/ops/pallas_conv5.py:832",
+            "conv5_stem": "medicalseg_tpu/ops/pallas_conv5.py:423",
+            "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912"}
 TRAIN_SEED = 0
 # kernel path vs plain path, relative L2 error per leaf. bf16 at 128^3:
 # the two paths round at other places, and the random-init net amplifies
@@ -537,10 +592,14 @@ def conv_bound_ms(ci, co, vox, itemsize):
     """The least time of one conv of ``vox`` voxels, forward or backward:
     the same 2 * 125 * Ci * Co FLOP per voxel, and both activations (x and
     y, g and dx, or x and g) moved once beside the f32 weights (read, or dW
-    written)."""
+    written). bf16 (``itemsize`` 2) at the bf16 tensor-core rate, f32
+    (``itemsize`` 4) as split TF32: three TF32 products a term
+    (:data:`PEAK_TF32`)."""
     flops = 2.0 * vox * 125 * ci * co
     nbytes = vox * (ci + co) * itemsize + 4 * (125 * ci * co + co)
-    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    ops_ms = (flops / PEAK_BF16 if itemsize == 2 else
+              3 * flops / PEAK_TF32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
@@ -609,6 +668,56 @@ def stem_columns(x, w, b, ep):
 
 
 # ----------------------------------------------------------------------
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's own default for f32 convolutions, TF32 on, for one timing:
+    a side column only (it computes a less exact function than the f32
+    kernels and the strict-f32 library call, which ``phase_device``
+    sets)."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def f32_columns(prefix, call, old_call, plain_ms, lib_call):
+    """The f32 columns of a conv, forward or backward: ``ms`` the routed
+    kernel, ``ms_old`` the CUDA-core kernel forced in the same process, the
+    plain version's time (``plain_ms``, the caller's single timing: it
+    takes up to seconds), the library call in strict f32 (``library_ms``)
+    and, as a side column, with TF32 on (``library_tf32_ms``)."""
+    cols = {"ms": time_ms(call), "ms_old": time_ms(old_call),
+            "plain_ms": plain_ms, "library_ms": time_ms(lib_call)}
+    with cudnn_tf32():
+        cols["library_tf32_ms"] = time_ms(lib_call)
+    cols["vs_library"] = cols["ms"] / cols["library_ms"]
+    cols["old_vs_library"] = cols["ms_old"] / cols["library_ms"]
+    return {prefix + k: v for k, v in cols.items()}
+
+
+def tf32_geometry(n, d, h, w, ci, co, wgrad=False):
+    """The launch geometry of ``conv5_tf32_kernel`` (``wgrad``:
+    ``wgrad_tf32_kernel``) at this conv, as the chip lines print it."""
+    if wgrad:
+        q = c5.conv5_wgrad_tf32_geometry(n, d, h, w, ci, co)
+        keys = ("nf", "th", "tw", "splits", "chan_blocks", "smem")
+    else:
+        q = c5.conv5_tf32_geometry(n, d, h, w, ci, co)
+        keys = ("nf", "td", "th", "tw", "splits", "smem")
+    return dict({k: q[k] for k in keys}, grid=list(q["grid"]))
+
+
+def bit_repeat(call, what):
+    """Two launches of ``call`` give the same bits (fatal if not): the
+    split sums are added in a fixed order."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    check(same, "two launches of the {} disagree".format(what))
+    return same
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -830,7 +939,7 @@ def phase_native():
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
-    stats = new_stats(FWD_KERNELS)
+    stats = new_stats(FWD_KERNELS + tuple(F32_FWD.values()))
 
     def add(*args):
         add_stats(stats, *args)
@@ -867,6 +976,9 @@ def phase_kernels():
                     stats[key]["err"] = max(stats[key]["err"], err)
                     if fused and kind == "stem":
                         stats[form]["err"] = max(stats[form]["err"], err)
+                else:
+                    key = F32_FWD[kind]
+                    stats[key]["err"] = max(stats[key]["err"], err)
                 del got, ref
         xb = x.to(torch.bfloat16)
         ms = time_ms(lambda: c5.conv5_kl(xb, w, b, kind))
@@ -885,10 +997,33 @@ def phase_kernels():
             line.update(wg_columns(xb, w, b, ep, ci, co, False, ms_f, lib))
         else:
             line.update(stem_columns(xb, w, b, ep))
+        # float32: the routed kernel beside the CUDA-core conv5_kernel
+        # forced, cuDNN in strict f32 (TF32 on as a side column)
+        x_nc32 = x.transpose(1, 2).contiguous()
+        w_o32 = w.permute(4, 3, 0, 1, 2).contiguous()
+        _, plain32 = timed_once(lambda: c5.conv5_kl_plain(x, w, b))
+        cols = f32_columns(
+            "f32_", lambda: c5.conv5_kl(x, w, b, kind),
+            lambda: c5._conv5_cuda(x, w, b, kind, None, form=kind), plain32,
+            lambda: F.conv3d(x_nc32, w_o32, b, padding=2))
+        bound32, by32 = conv_bound_ms(ci, co, BATCH * e ** 3, 4)
+        cols.update(f32_ms_fused=time_ms(
+            lambda: c5.conv5_kl_fused(x, w, b, ep, kind)),
+            f32_ms_old_fused=time_ms(
+                lambda: c5._conv5_cuda(x, w, b, kind, ep, form=kind)),
+            f32_bound_ms=bound32, f32_bound_by=by32,
+            f32_form=F32_FWD[kind])
+        cols["f32_repeat_bit_identical"] = bit_repeat(
+            lambda: c5.conv5_kl(x, w, b, kind), name + " f32 forward")
+        if kind == "head":
+            cols["f32_geometry"] = tf32_geometry(BATCH, e, e, e, ci, co)
+        line.update(cols)
         emit(line)
         add(form, count, ms, plain, bound, by, lib)
         add("conv5_fused_epilogue", count, ms_f, plain_f, bound, by, None)
-        del x, xb, x_ncdhw
+        add(F32_FWD[kind], count, cols["f32_ms"], cols["f32_plain_ms"],
+            bound32, by32, cols["f32_library_ms"])
+        del x, xb, x_ncdhw, x_nc32
 
     for c, e in PINS:
         src = torch.randn((BATCH, c, e, e, e), generator=gen,
@@ -927,7 +1062,7 @@ def scaled_err(got, ref):
 def phase_kernels_bwd():
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = torch.device("cuda")
-    stats = new_stats(BWD_KERNELS)
+    stats = new_stats(BWD_KERNELS + (F32_DGRAD,) + tuple(F32_WGRAD.values()))
     # the convs of one cube backward, and the flagship's stem (counted
     # apart: the kernels line sums one cube backward)
     shapes = [(name, kind, ci, co, (BATCH, e, e, e), count)
@@ -942,15 +1077,14 @@ def phase_kernels_bwd():
             x.to(torch.bfloat16), g.to(torch.bfloat16), kind)
         line = {"phase": "kernels_bwd", "conv": name, "kind": kind, "ci": ci,
                 "co": co, "shape": [n, d, ci, h, ww], "wgrad_form": form}
-        plain_w = plain_d = None
+        plain_w, plain_d = {}, {}  # the plain versions, timed once a dtype
         for dtype in (torch.bfloat16, torch.float32):
             tag = str(dtype)[6:]
             xd, gd = x.to(dtype), g.to(dtype)
             got = c5.conv5_wgrad_kl(xd, gd, kind)
             torch.cuda.synchronize()
-            ref, ms = timed_once(lambda: c5.conv5_wgrad_kl_plain(xd, gd))
-            if dtype == torch.bfloat16:  # the plain version is timed once
-                plain_w = ms
+            ref, plain_w[dtype] = timed_once(
+                lambda: c5.conv5_wgrad_kl_plain(xd, gd))
             check(tuple(got.shape) == (5, 5, 5, ci, co) and
                   got.dtype == torch.float32, name + " dW shape/dtype")
             rel = scaled_err(got, ref)
@@ -959,28 +1093,26 @@ def phase_kernels_bwd():
             check(bool(torch.isfinite(got).all()) and rel <= TOL[dtype],
                   "{} wgrad {} disagrees with its plain version: scaled "
                   "error {}".format(name, tag, rel))
-            if dtype == torch.bfloat16:
-                stats[form]["err"] = max(stats[form]["err"],
-                                         (got - ref).abs().max().item())
+            key = form if dtype == torch.bfloat16 else F32_WGRAD[kind]
+            stats[key]["err"] = max(stats[key]["err"],
+                                    (got - ref).abs().max().item())
             del got, ref
             if kind != "stem":
                 got = c5.conv5_dgrad_kl(gd, w)
-                ref, ms = timed_once(lambda: c5.conv5_dgrad_kl_plain(gd, w))
-                if dtype == torch.bfloat16:
-                    plain_d = ms
+                ref, plain_d[dtype] = timed_once(
+                    lambda: c5.conv5_dgrad_kl_plain(gd, w))
                 err = (got.float() - ref.float()).abs().max().item()
                 line["dgrad_err_" + tag] = err
                 check(torch.allclose(got.float(), ref.float(),
                                      atol=TOL[dtype], rtol=TOL[dtype]),
                       "{} dgrad {} disagrees with its plain version: max "
                       "|d| {}".format(name, tag, err))
-                if dtype == torch.bfloat16:
-                    stats["conv5_dgrad"]["err"] = max(
-                        stats["conv5_dgrad"]["err"], err)
+                key = ("conv5_dgrad" if dtype == torch.bfloat16 else
+                       F32_DGRAD)
+                stats[key]["err"] = max(stats[key]["err"], err)
                 del got, ref
             del xd, gd
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
-        del x, g
         bound, by = conv_bound_ms(ci, co, n * d * h * ww, 2)
         x_ncdhw = xb.transpose(1, 2).contiguous()
         g_ncdhw = gb.transpose(1, 2).contiguous()
@@ -988,7 +1120,7 @@ def phase_kernels_bwd():
         ms_w = time_ms(lambda: c5.conv5_wgrad_kl(xb, gb, kind))
         lib_w = time_ms(lambda: torch.nn.grad.conv3d_weight(
             x_ncdhw, w_oidhw.shape, g_ncdhw, padding=2))
-        line.update(wgrad_ms=ms_w, wgrad_plain_ms=plain_w,
+        line.update(wgrad_ms=ms_w, wgrad_plain_ms=plain_w[torch.bfloat16],
                     wgrad_library_ms=lib_w, bound_ms=bound, bound_by=by,
                     per_step=count)
         if form in ("conv5_wgrad_tma", "conv5_wgrad_head_tma",
@@ -1026,23 +1158,126 @@ def phase_kernels_bwd():
                 wgrad_device_ms_old=graph_ms(old_call),
                 wgrad_old_scaled_err=scaled_err(old_call(), c5.conv5_wgrad_kl(
                     xb, gb, kind)))
-        add_stats(stats, form, count, ms_w, plain_w, bound, by, lib_w)
+        add_stats(stats, form, count, ms_w, plain_w[torch.bfloat16], bound,
+                  by, lib_w)
         if kind != "stem":
             ms_d = time_ms(lambda: c5.conv5_dgrad_kl(gb, w))
             lib_d = time_ms(lambda: torch.nn.grad.conv3d_input(
                 x_ncdhw.shape, w_oidhw, g_ncdhw, padding=2))
-            line.update(dgrad_ms=ms_d, dgrad_plain_ms=plain_d,
+            line.update(dgrad_ms=ms_d,
+                        dgrad_plain_ms=plain_d[torch.bfloat16],
                         dgrad_library_ms=lib_d)
             line.update(wg_columns(gb, w, None, None, ci, co, True, ms_d,
                                    lib_d, prefix="dgrad_"))
-            add_stats(stats, "conv5_dgrad", count, ms_d, plain_d, bound, by,
-                      lib_d)
-        emit(line)
+            add_stats(stats, "conv5_dgrad", count, ms_d,
+                      plain_d[torch.bfloat16], bound, by, lib_d)
         del xb, gb, x_ncdhw, g_ncdhw
+        line.update(f32_bwd_columns(stats, name, kind, x, g, w, count,
+                                    plain_w[torch.float32],
+                                    plain_d.get(torch.float32)))
+        emit(line)
+        del x, g
+    phase_ragged_wgrad()
     return stats
 
 
+def f32_bwd_columns(stats, name, kind, x, g, w, count, plain_w, plain_d):
+    """The f32 weight gradient (and, but for the stem, input gradient) of
+    one conv: the routed kernel beside the CUDA-core kernel forced
+    (``wgrad_kernel``, ``conv5_kernel``), cuDNN's in strict f32 (TF32 on as
+    a side column), the split-TF32 bound, a fatal bit-for-bit repeat;
+    added to ``stats``."""
+    n, d, ci, h, ww = x.shape
+    co = g.shape[2]
+    bound, by = conv_bound_ms(ci, co, n * d * h * ww, 4)
+    x_nc = x.transpose(1, 2).contiguous()
+    g_nc = g.transpose(1, 2).contiguous()
+    w_o = w.permute(4, 3, 0, 1, 2).contiguous()
+    old = "stem" if kind == "stem" else "head" if co <= 16 else "mid"
+    cols = f32_columns(
+        "wgrad_f32_", lambda: c5.conv5_wgrad_kl(x, g, kind),
+        lambda: c5._conv5_wgrad_cuda(x, g, kind, form=old), plain_w,
+        lambda: torch.nn.grad.conv3d_weight(x_nc, w_o.shape, g_nc,
+                                            padding=2))
+    if kind != "stem":
+        cols["wgrad_f32_geometry"] = tf32_geometry(n, d, h, ww, ci, co, True)
+        cols["dgrad_f32_geometry"] = tf32_geometry(n, d, h, ww, co, ci)
+    cols.update(wgrad_f32_bound_ms=bound, wgrad_f32_bound_by=by,
+                wgrad_f32_form=F32_WGRAD[kind],
+                wgrad_f32_repeat_bit_identical=bit_repeat(
+                    lambda: c5.conv5_wgrad_kl(x, g, kind),
+                    name + " f32 weight gradient"))
+    add_stats(stats, F32_WGRAD[kind], count, cols["wgrad_f32_ms"], plain_w,
+              bound, by, cols["wgrad_f32_library_ms"])
+    if kind != "stem":
+        cols.update(f32_columns(
+            "dgrad_f32_", lambda: c5.conv5_dgrad_kl(g, w),
+            lambda: c5._conv5_cuda(g, w, None, "head", None, dgrad=True,
+                                   form="head"), plain_d,
+            lambda: torch.nn.grad.conv3d_input(x_nc.shape, w_o, g_nc,
+                                               padding=2)))
+        cols.update(dgrad_f32_bound_ms=bound, dgrad_f32_bound_by=by,
+                    dgrad_f32_repeat_bit_identical=bit_repeat(
+                        lambda: c5.conv5_dgrad_kl(g, w),
+                        name + " f32 input gradient"))
+        add_stats(stats, F32_DGRAD, count, cols["dgrad_f32_ms"], plain_d,
+                  bound, by, cols["dgrad_f32_library_ms"])
+    return cols
+
+
+# bf16 weight gradients on views a tensor copy cannot describe (a W row of
+# 12 or 6 elements is 24 or 12 bytes): wgrad_mma_kernel<4> at the deep
+# levels of a 96^3 V-Net (down_tr128 and up_tr256 at 12^3, down_tr256 at
+# 6^3, batch 2), and <1> / <2> at narrow heads of the same W (no V-Net
+# conv of the cube or the flagship takes them): (name, Ci, Co, edge)
+RAGGED_WGRAD = [("down_tr128_96", 128, 128, 12), ("up_tr256_96", 256, 256, 12),
+                ("down_tr256_96", 256, 256, 6), ("head3_w12", 32, 3, 12),
+                ("head16_w12", 32, 16, 12)]
+
+
+def phase_ragged_wgrad():
+    """Each :data:`RAGGED_WGRAD` weight gradient in bf16 against its plain
+    version (scaled as kernels_bwd), with its time, the plain version's
+    (once), ``conv3d_weight``'s, the bound and a fatal bit-for-bit
+    repeat."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, ci, co, e in RAGGED_WGRAD:
+        shape = (BATCH, e, e, e)
+        x = torch.randn((BATCH, e, ci, e, e), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        g = torch.randn((BATCH, e, co, e, e), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        form = c5.conv5_wgrad_form(x, g, "head")
+        check(form in ("mid", "head"), name + " took " + form)
+        got = c5.conv5_wgrad_kl(x, g)
+        ref, plain = timed_once(lambda: c5.conv5_wgrad_kl_plain(x, g))
+        rel = scaled_err(got, ref)
+        check(rel <= TOL[torch.bfloat16], "{} ragged wgrad disagrees with "
+              "its plain version: scaled error {}".format(name, rel))
+        x_nc, g_nc = x.transpose(1, 2).contiguous(), g.transpose(
+            1, 2).contiguous()
+        bound, by = conv_bound_ms(ci, co, BATCH * e ** 3, 2)
+        q = c5.conv5_wgrad_mma_geometry(*shape, ci, co)
+        emit({"phase": "kernels_bwd", "ragged": name, "ci": ci, "co": co,
+              "shape": [BATCH, e, ci, e, e], "wgrad_form": "conv5_wgrad_" +
+              form, "kernel": "wgrad_mma_kernel<{}>".format(q["nf"]),
+              "wgrad_rel_err_bfloat16": rel,
+              "wgrad_ms": time_ms(lambda: c5.conv5_wgrad_kl(x, g)),
+              "wgrad_plain_ms": plain,
+              "wgrad_library_ms": time_ms(
+                  lambda: torch.nn.grad.conv3d_weight(
+                      x_nc, (co, ci, 5, 5, 5), g_nc, padding=2)),
+              "bound_ms": bound, "bound_by": by,
+              "repeat_bit_identical": bit_repeat(
+                  lambda: c5.conv5_wgrad_kl(x, g), name + " weight gradient"),
+              "geometry": {k: q[k] for k in ("nf", "th", "tw", "splits",
+                                             "smem")}})
+        del x, g, x_nc, g_nc, got, ref
+
+
 KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
+               "conv5_tf32_kernel", "conv5_tf32_reduce_kernel",
+               "wgrad_tf32_kernel", "wgrad_tf32_reduce_kernel",
                "wgrad_kernel", "wgrad_reduce_kernel", "wgrad_tma_kernel",
                "wgrad_tma_reduce_kernel", "wgrad_head_tma_kernel",
                "stem_tc_kernel", "stem_wgrad_tc_kernel",
@@ -1829,6 +2064,140 @@ def phase_train():
           "peak_mem_gb_remat": peak_remat,
           "peak_mem_gb_no_remat": peak_no_remat,
           "launches": launches, "profile": profile})
+    return launches
+
+
+@contextlib.contextmanager
+def old_f32_kernels():
+    """Route every f32 head conv to the CUDA-core kernels the split-TF32
+    kernels replaced (``conv5_kernel`` forward and input gradient,
+    ``wgrad_kernel``), to time both in one process."""
+    form, wform = c5.conv5_form, c5.conv5_wgrad_form
+
+    def old_form(xk, co, kind):
+        f = form(xk, co, kind)
+        return "head" if f == "head_tf32" else f
+
+    def old_wform(xk, gk, kind):
+        f = wform(xk, gk, kind)
+        return ("head" if gk.shape[2] <= 16 else "mid") if f == "tf32" else f
+
+    c5.conv5_form, c5.conv5_wgrad_form = old_form, old_wform
+    try:
+        yield
+    finally:
+        c5.conv5_form, c5.conv5_wgrad_form = form, wform
+
+
+def f32_step_counts(steps, old=False):
+    """The launch counts ``steps`` steps of the f32 lung V-Net imply (no
+    remat): 15 head convs, their 15 input gradients and 15 weight
+    gradients on the split-TF32 kernels (``old``: the CUDA-core kernels,
+    out_tr's weight gradient as the narrow head), the stem's forward and
+    weight gradient on the CUDA cores, 8 pins a forward, nothing else."""
+    expect = {k: 0 for k in c5.LAUNCHES}
+    per = ({"conv5_head": 15, "conv5_dgrad": 15, "conv5_wgrad_mid": 14,
+            "conv5_wgrad_head": 1} if old else
+           {"conv5_head_tf32": 15, "conv5_dgrad_tf32": 15,
+            "conv5_wgrad_tf32": 15})
+    per.update(conv5_stem=1, conv5_wgrad_stem=1, pin=8)
+    expect.update({k: steps * v for k, v in per.items()})
+    return expect
+
+
+def phase_train_f32():
+    """The upstream f32 lung recipe at 2 x 128^3 (module docstring)."""
+    cfg = Config(LUNG_F32)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(TRAIN_SEED)
+    images = torch.from_numpy(
+        rng.rand(BATCH, EDGE, EDGE, EDGE, 1).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(
+        rng.randint(0, 3, (BATCH, EDGE, EDGE, EDGE)).astype(np.uint8)).to(dev)
+    step = make_train_step(cfg.loss)
+
+    def new_state(weights=None):
+        model = build_model(cfg.dic["model"], generator=torch.Generator(
+        ).manual_seed(TRAIN_SEED))
+        if weights is not None:
+            model.load_state_dict(weights)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED)
+
+    def run(state):
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    state = new_state()
+    model = state.model
+    check(type(model).__name__ == "VNet" and model.dtype == torch.float32
+          and not model.remat and cfg.dic["model"]["num_classes"] == 3,
+          "the f32 lung recipe's model is not VNet, float32, no remat, 3 "
+          "classes")
+    start = copy.deepcopy(model.state_dict())
+
+    # step 1 against the plain path from the same state and masks
+    loss1, _ = run(state)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    ref = new_state(start)
+    with plain_ops():
+        c5.reset_launches()
+        loss1_plain, plain_ms = run(ref)
+        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    rels = grad_rel_l2(grads, {n: p.grad for n, p in
+                               ref.model.named_parameters()})
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    check(abs(loss1 - loss1_plain) <= 1e-5 * abs(loss1_plain),
+          "f32 step-1 loss {} vs plain path {}".format(loss1, loss1_plain))
+    check(worst[1] <= GRAD_REL_L2_F32, "f32 gradient of {} differs from the "
+          "plain path's by {} relative L2".format(*worst))
+    del ref, grads
+
+    def timed(old):
+        """One untimed step, then three timed ones with the counts set to 0
+        just before them (exact), their peak memory and one profiled
+        step."""
+        with (old_f32_kernels() if old else contextlib.nullcontext()):
+            loss_w, _ = run(state)
+            torch.cuda.reset_peak_memory_stats()
+            c5.reset_launches()
+            steps = [run(state) for _ in range(3)]
+            launches = dict(c5.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(launches == f32_step_counts(3, old), "f32 step launch "
+                  "counts{} {} != expected {}".format(
+                      " (old kernels)" if old else "", launches,
+                      f32_step_counts(3, old)))
+            profile = profile_call(lambda: run(state))
+        return launches, {"losses": [loss_w] + [l for l, _ in steps],
+                "ms_per_step": float(np.median([ms for _, ms in steps])),
+                "ms_per_step_each": [ms for _, ms in steps],
+                "device_ms": profile["device_busy_ms"],
+                "idle_share": profile["idle_share"], "peak_mem_gb": peak,
+                "launches_per_step": {k: v // 3 for k, v in launches.items()
+                                      if v},
+                "device_ms_by_kernel": profile["device_ms_by_kernel"]}
+
+    launches, new = timed(False)
+    losses = [loss1] + new["losses"]
+    check(all(np.isfinite(losses)), "non-finite f32 loss: {}".format(losses))
+    check(losses[-1] < losses[0], "the f32 loss did not fall: {}".format(
+        losses))
+    _, old = timed(True)
+    check(all(np.isfinite(old["losses"])), "non-finite f32 loss on the old "
+          "kernels: {}".format(old["losses"]))
+    emit({"phase": "train_f32", "config": os.path.relpath(LUNG_F32, ROOT),
+          "batch": BATCH, "edge": EDGE, "dtype": "float32", "remat": False,
+          "losses": losses, "loss_step1_plain_path": loss1_plain,
+          "worst_grad_rel_l2_vs_plain": list(worst),
+          "plain_path_step_ms": plain_ms, "new": new, "old": old,
+          "old_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
+          "nvidia_smi": smi_line()})
     return launches
 
 
@@ -3716,6 +4085,8 @@ def main():
     stats.update(phase_kernels_bwd())
     train_launches = phase_train()
     launches.update({k: train_launches[k] for k in BWD_KERNELS})
+    f32_launches = phase_train_f32()
+    launches.update({k: f32_launches[k] for k in F32_KERNELS})
     phase_augment()
     flagship = phase_train_flagship()
     phase_train_graph()

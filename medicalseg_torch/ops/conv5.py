@@ -1,8 +1,9 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
 hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5_stem.cu``,
-``csrc/conv5.cu``, ``csrc/conv5_stem_wgrad.cu``, ``csrc/conv5_wgrad.cu``,
-``csrc/conv5_wgrad_tma.cu`` and ``csrc/pin.cu``.
+``csrc/conv5_tf32.cu``, ``csrc/conv5.cu``, ``csrc/conv5_stem_wgrad.cu``,
+``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu``,
+``csrc/conv5_wgrad_tf32.cu`` and ``csrc/pin.cu``.
 
 Counterpart of ``medicalseg_tpu/ops/pallas_conv5.py``, forward and
 backward. The public functions keep the JAX package's layouts at their
@@ -21,7 +22,8 @@ dx is the same conv of the cotangent with the flipped, io-transposed
 weight through the forward kernel, dw comes from the weight-gradient
 kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
 convs on views a tensor copy can describe: :func:`conv5_wgrad_form`),
-``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16) and
+``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16),
+``csrc/conv5_wgrad_tf32.cu`` (f32 convs but the stem) and
 ``csrc/conv5_wgrad.cu`` (the rest), db is a plain f32 sum.
 :func:`conv5_kl_fused` is inference-only. It and the no-grad pin of
 :func:`pin_kl` call the ``torch.library`` ops ``medicalseg::conv5_fused``
@@ -36,12 +38,15 @@ tensor cores through the warpgroup kernel (``conv5_wg_kernel`` of
 where the grid is short of blocks; :func:`conv5_wg_geometry`); the bf16
 ``kind="stem"`` (Ci = 1) form with Co <= 16 runs on the tensor cores
 through ``stem_tc_kernel`` of ``csrc/conv5_stem.cu``
-(:func:`conv5_stem_tc_geometry`); f32 convs and wider stems run on the
-CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``). The choice is by
-dtype, kind and Co alone (:func:`conv5_form`): the TPU's lane and VMEM
-eligibility rules do not apply here. The packed bf16 weights of the
-warpgroup and stem kernels are kept while their parameter is unchanged
-(:func:`_packed_weight`).
+(:func:`conv5_stem_tc_geometry`); every f32 head conv, forward and input
+gradient, runs on the tensor cores in split TF32 at f32 accuracy
+(``conv5_tf32_kernel`` of ``csrc/conv5_tf32.cu``: three TF32 products a
+term, :func:`split_tf32`, :func:`conv5_tf32_geometry`); f32 stems and wider
+bf16 stems run on the CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``).
+The choice is by dtype, kind and Co alone (:func:`conv5_form`): the TPU's
+lane and VMEM eligibility rules do not apply here. The packed weights of
+the warpgroup, stem and split-TF32 kernels are kept while their parameter
+is unchanged (:func:`_packed_weight`).
 
 Every wrapper has a plain PyTorch version beside it (``*_plain``). A
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
@@ -81,21 +86,23 @@ K = 5  # kernel edge
 P = K // 2  # halo
 
 # Launches of each kernel since the last reset_launches(). A forward conv
-# launch counts under its form (:func:`conv5_form`): "conv5_head",
-# "conv5_stem_tc" (bf16 stems) or "conv5_stem" (other stems), and also
-# under "conv5_fused_epilogue" when it applies the BN + PReLU epilogue; the
-# same kernel launched for a backward counts under "conv5_dgrad" only. A
-# weight gradient counts under its form (:func:`conv5_wgrad_form`):
-# "stem_tc" (bf16 stems, Co <= 16), "stem" (other stems), "head_tma" (bf16
-# narrow heads, Co <= 16, on views a tensor copy can describe), "head"
-# (every other narrow head), "tma" (bf16 wider convs on such views) or
-# "mid" (every other wider conv).
-LAUNCHES = {"conv5_head": 0, "conv5_stem": 0, "conv5_stem_tc": 0,
-            "conv5_fused_epilogue": 0,
-            "pin": 0, "conv5_dgrad": 0, "conv5_wgrad_stem": 0,
-            "conv5_wgrad_stem_tc": 0, "conv5_wgrad_head": 0,
-            "conv5_wgrad_head_tma": 0, "conv5_wgrad_mid": 0,
-            "conv5_wgrad_tma": 0}
+# launch counts under its form (:func:`conv5_form`): "conv5_head" (bf16),
+# "conv5_head_tf32" (f32), "conv5_stem_tc" (bf16 stems) or "conv5_stem"
+# (other stems), and also under "conv5_fused_epilogue" when it applies the
+# BN + PReLU epilogue; the same kernel launched for a backward counts under
+# "conv5_dgrad" (f32: "conv5_dgrad_tf32") only. A weight gradient counts
+# under its form (:func:`conv5_wgrad_form`): "stem_tc" (bf16 stems, Co <=
+# 16), "stem" (other stems), "tf32" (every other f32 conv), "head_tma"
+# (bf16 narrow heads, Co <= 16, on views a tensor copy can describe),
+# "head" (every other bf16 narrow head), "tma" (bf16 wider convs on such
+# views) or "mid" (every other bf16 wider conv).
+LAUNCHES = {"conv5_head": 0, "conv5_head_tf32": 0, "conv5_stem": 0,
+            "conv5_stem_tc": 0, "conv5_fused_epilogue": 0,
+            "pin": 0, "conv5_dgrad": 0, "conv5_dgrad_tf32": 0,
+            "conv5_wgrad_stem": 0, "conv5_wgrad_stem_tc": 0,
+            "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
+            "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0,
+            "conv5_wgrad_tf32": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MIN_BLOCKS = 1056  # 8 blocks per SM of an H100 before tiles shrink
@@ -110,6 +117,9 @@ _TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
 _STEM_BLOCKS = 1056  # stem_tc_kernel: depth chunks until 8 blocks per SM
 _STEM_CO = 16  # stem_tc_kernel: most output channels (N of its GEMM)
 _STEM_WG_RESIDENT = 2 * _SMS  # stem_wgrad_tc_kernel: 2 blocks an SM
+_TF32_VOX = 256  # conv5_tf32_kernel: output voxels of a block (8 warps x 32)
+_TF32_CK = 8  # conv5_tf32_kernel: input channels a stage (one k8 step)
+_TF32_CIB = 16  # wgrad_tf32_kernel: input channels of a block (m16)
 
 
 def reset_launches():
@@ -274,6 +284,25 @@ def _wgrad_tma_lib():
     for fn in (lib.conv5_wgrad_tma_launch, lib.conv5_wgrad_head_tma_launch):
         fn.argtypes = [vp] * 4 + [i] * 14 + [ll] * 8 + [vp]
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _conv5_tf32_lib():
+    lib = _build.library("conv5_tf32")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_tf32_launch.argtypes = [vp] * 6 + [i] * 14 + [ll] * 4 + [vp]
+    lib.conv5_tf32_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_tf32_lib():
+    lib = _build.library("conv5_wgrad_tf32")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_wgrad_tf32_launch.argtypes = ([vp] * 4 + [i] * 13 + [ll] * 8 +
+                                            [vp])
+    lib.conv5_wgrad_tf32_launch.restype = ctypes.c_int
     return lib
 
 
@@ -447,7 +476,8 @@ _PACKED = {}
 
 def _packed_weight(w, nt, dgrad=False):
     """:func:`_pack_weights_wg` of ``w`` (``nt='stem'``:
-    :func:`_pack_weights_stem`), kept while the tensor ``w`` views
+    :func:`_pack_weights_stem`; ``nt=('tf32', nf)``:
+    :func:`_pack_weights_tf32`), kept while the tensor ``w`` views
     (a layer passes a permuted view of its parameter) is alive and
     unchanged: an in-place update (an optimizer step, ``load_state_dict``)
     moves its ``_version`` and the weights are packed again. Entries belong
@@ -457,8 +487,11 @@ def _packed_weight(w, nt, dgrad=False):
     replay packs the weights the parameters hold at that time (a cached
     packing would replay the weights of the capture)."""
     def pack(w):
-        return (_pack_weights_stem(w) if nt == "stem" else
-                _pack_weights_wg(w, nt, dgrad))
+        if nt == "stem":
+            return _pack_weights_stem(w)
+        if isinstance(nt, tuple):  # ("tf32", nf)
+            return _pack_weights_tf32(w, nt[1], dgrad)
+        return _pack_weights_wg(w, nt, dgrad)
 
     if w.is_inference() or (w.is_cuda and
                             torch.cuda.is_current_stream_capturing()):
@@ -494,12 +527,178 @@ def conv5_form(xk, co, kind):
     """The forward kernel that takes a conv of ``xk`` into ``co`` output
     channels, named by its :data:`LAUNCHES` entry (``'conv5_' + form``):
     'stem_tc' (bf16, ``kind='stem'``, Co <= 16: ``stem_tc_kernel``),
-    'stem' (every other stem: ``conv5_kernel``) or 'head' (bf16:
-    ``conv5_wg_kernel``, f32: ``conv5_kernel``)."""
+    'stem' (every other stem: ``conv5_kernel``), 'head' (bf16:
+    ``conv5_wg_kernel``) or 'head_tf32' (f32: ``conv5_tf32_kernel``, any
+    W-contiguous view). Its input gradient counts under 'dgrad' or, in
+    f32, 'dgrad_tf32'."""
     if kind != "stem":
-        return "head"
+        return "head_tf32" if xk.dtype == torch.float32 else "head"
     return ("stem_tc" if xk.dtype == torch.bfloat16 and co <= _STEM_CO
             else "stem")
+
+
+def split_tf32(a):
+    """(hi, lo) of the float32 tensor ``a``: ``hi`` rounds ``a`` to TF32
+    (10 mantissa bits; to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``; the 13 low bits zero) and ``lo`` rounds ``a - hi``
+    (exact in f32) the same way. hi*hi + hi*lo + lo*hi is the product of
+    two such pairs to about 2^-22 relative: the split-TF32 kernels' terms.
+    The integer form ``(bits + 0x1000) & ~0x1fff`` is the kernels' own."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+            torch.float32)
+
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def conv5_tf32_geometry(n, d, h, w, ci, co):
+    """Launch geometry of ``conv5_tf32_kernel`` (``csrc/conv5_tf32.cu``), a
+    dict (a fresh copy of a cached one):
+
+    * ``nf``: n8 tiles of a block (1..4), ``nt`` = 8 * nf output channels
+      (Co 3 pads to 8, Co 20 to 24), ``co_tiles`` of them;
+    * ``td`` x ``th`` x ``tw`` = 256: the block's output tile (tw 8, 16 or
+      32 by W; th up to 256 / tw by H, at least 256 / (4 tw), so that at
+      most 4 depths stack);
+    * ``pitch`` = tw + 8 and ``plane``: the raw input box's row pitch (from
+      4 columns left of the tile: 16-byte copies) and channel plane in
+      floats, the plane padded to 4 mod 8 (the split pass's reads of 4
+      channels hit distinct banks); ``voxels``: the halo box's voxels,
+      split into (hi, lo) planes of 48 bytes a voxel (8 channels and a
+      pad: the 8 rows of an ldmatrix hit distinct banks);
+    * ``chunks`` of 8 input channels, ``stages`` = 5 * chunks (depth tap,
+      chunk) steps of K, ``splits``: blocks along them where the grid alone
+      leaves SMs idle (:func:`_wg_splits`), each a range as
+      :func:`conv5_wg_split_ranges` gives;
+    * ``x_stage``, ``w_stage``: bytes of a stage's input box (raw and
+      split) and packed weights (25 taps x nf x 32 lanes x 16 bytes);
+      ``smem``: their sum; ``blocks_per_sm``: 2 where two blocks fit (the
+      kernel's ``__launch_bounds__``), else 1; ``grid``: (tiles, n *
+      co_tiles, splits); ``threads``: 256."""
+    return dict(_tf32_geometry(n, d, h, w, ci, co))
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_geometry(n, d, h, w, ci, co):
+    nf = min(4, -(-co // 8))
+    tw = 8 if w <= 8 else 16 if w <= 16 else 32
+    th = min(_TF32_VOX // tw, max(_pow2ceil(h), _TF32_VOX // (4 * tw)))
+    td = _TF32_VOX // (tw * th)
+    pitch = tw + 8
+    plane = (th + 2 * P) * pitch
+    plane += (4 - plane) % 8
+    voxels = td * (th + 2 * P) * (tw + 2 * P)
+    x_stage = 4 * td * _TF32_CK * plane + 2 * 48 * voxels
+    w_stage = 16 * K * K * nf * 32
+    smem = x_stage + w_stage
+    blocks_per_sm = 2 if smem <= _SMEM_MAX // 2 else 1
+    co_tiles, chunks = -(-co // (8 * nf)), -(-ci // _TF32_CK)
+    stages = K * chunks
+    tiles = -(-d // td) * -(-h // th) * -(-w // tw)
+    splits = _wg_splits(tiles * n * co_tiles, stages, blocks_per_sm * _SMS)
+    return dict(nf=nf, nt=8 * nf, co_tiles=co_tiles, td=td, th=th, tw=tw,
+                pitch=pitch, plane=plane, voxels=voxels, chunks=chunks,
+                stages=stages, splits=splits, x_stage=x_stage,
+                w_stage=w_stage, smem=smem, blocks_per_sm=blocks_per_sm,
+                grid=(tiles, n * co_tiles, splits), threads=256)
+
+
+def _pack_weights_tf32(w, nf, dgrad=False):
+    """[5, 5, 5, Ci, Co] f32 -> ``conv5_tf32_kernel``'s pre-split weights
+    [Co / (8 nf), kd, Ci / 8, kh * 5 + kw, nf, 32 lanes, 4] f32, zero-padded
+    in Ci and Co: lane (g, t) = (lane // 4, lane % 4) of n8 tile f holds
+    the B fragment b0 = W[tap, t, 8 f + g], b1 = W[tap, t + 4, 8 f + g] of
+    its 8-channel chunk as (hi(b0), hi(b1), lo(b0), lo(b1))
+    (:func:`split_tf32`), one 16-byte load; per (channel tile, depth tap,
+    chunk) one contiguous block, the weights of one stage of the kernel.
+    ``dgrad``: the weight of the input gradient's conv, spatially flipped
+    and io-transposed."""
+    src = w.flip(0, 1, 2).transpose(3, 4) if dgrad else w
+    ci, co = src.shape[3], src.shape[4]
+    tiles, chunks = -(-co // (8 * nf)), -(-ci // _TF32_CK)
+    src = F.pad(src.float(), (0, tiles * 8 * nf - co,
+                              0, chunks * _TF32_CK - ci))
+    # [kd, tap, chunk, k half, t, tile, f, g]
+    hi, lo = split_tf32(src.reshape(K, K * K, chunks, 2, 4, tiles, nf, 8))
+    # [hl, kd, tap, chunk, khalf, t, tile, f, g] ->
+    # [tile, kd, chunk, tap, f, g, t, hl, khalf]
+    return torch.stack((hi, lo)).permute(6, 1, 3, 2, 7, 8, 5, 0,
+                                         4).contiguous()
+
+
+def conv5_wgrad_tf32_geometry(n, d, h, w, ci, co):
+    """Launch geometry of ``wgrad_tf32_kernel``
+    (``csrc/conv5_wgrad_tf32.cu``), a dict (a fresh copy of a cached one):
+
+    * ``nf``: n8 tiles of a block (1, 2 or 4: 8 * nf output channels, Co 3
+      padded to 8), beside 16 input channels (one m16 tile);
+    * ``th`` x ``tw``: the voxel tile (tw 8, 16 or 32 by W, th up to 8
+      rows, halved until two blocks fit an SM);
+    * ``xplane`` ((th + 4) rows of tw + 8, from 4 columns left of the
+      tile: 16-byte copies) and ``gplane`` (th x tw): the channel planes of
+      x and g in floats, padded to 4 mod 8 (the 8 channels x 4 voxels of a
+      fragment load hit 32 banks); ``smem``: the raw tile and its hi and lo
+      halves in the same layout; ``blocks_per_sm``: 2 where two fit (the
+      kernel's ``__launch_bounds__``), else 1;
+    * ``chan_blocks``: 5 depth taps x (Ci / 16) x (Co / 8 nf) blocks;
+      ``tiles``: (n, d, h, w) voxel tiles; ``splits``: blocks along them
+      (:func:`_wgrad_tf32_splits`), each a contiguous range, the partials
+      summed in split order by a second pass; ``grid``: (chan_blocks,
+      splits);
+    * ``threads``: a warp a (kh, half of the n8 tiles), 5 warps where nf
+      is 1."""
+    return dict(_wgrad_tf32_geometry(n, d, h, w, ci, co))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_tf32_geometry(n, d, h, w, ci, co):
+    nf = 1 if co <= 8 else 2 if co <= 16 else 4
+    tw = 8 if w <= 8 else 16 if w <= 16 else 32
+    th = min(8, _pow2ceil(h))
+
+    def planes(th):
+        xplane, gplane = (th + 2 * P) * (tw + 8), th * tw
+        return xplane + (4 - xplane) % 8, gplane + (4 - gplane) % 8
+
+    def smem(th):  # the raw tile and its hi and lo halves
+        xplane, gplane = planes(th)
+        return 3 * 4 * (_TF32_CIB * xplane + 8 * nf * gplane)
+
+    while smem(th) > _SMEM_MAX // 2 and th > 1:  # two blocks an SM
+        th //= 2
+    xplane, gplane = planes(th)
+    tiles = n * d * -(-h // th) * -(-w // tw)
+    chan_blocks = K * -(-ci // _TF32_CIB) * -(-co // (8 * nf))
+    blocks_per_sm = 2 if smem(th) <= _SMEM_MAX // 2 else 1
+    splits = _wgrad_tf32_splits(tiles, th * tw, chan_blocks, ci, co, nf,
+                                blocks_per_sm)
+    return dict(nf=nf, th=th, tw=tw, xplane=xplane, gplane=gplane,
+                smem=smem(th), blocks_per_sm=blocks_per_sm, tiles=tiles,
+                chan_blocks=chan_blocks, splits=splits,
+                grid=(chan_blocks, splits),
+                threads=32 * K * (2 if nf > 1 else 1))
+
+
+def _wgrad_tf32_splits(tiles, tile_vox, chan_blocks, ci, co, nf,
+                       blocks_per_sm):
+    """Blocks along the voxel tiles for ``chan_blocks`` channel blocks,
+    ``blocks_per_sm`` at once on an SM: the count that makes the launch
+    shortest by a model in microseconds. A block takes its tiles' three
+    TF32 passes at 1.5 TF/s an SM shared by the SM's blocks (about 40% of an
+    SM's share of 495 TF/s, what ``mma.sync`` reaches) plus 3 us of set-up
+    and stores; a split launch adds the second pass, which reads the
+    partials and writes dW (2.5 TB/s). Every split gets a tile at least;
+    the smallest count wins a tie."""
+    flop_tile = 3 * 2.0 * K * K * _TF32_CIB * 8 * nf * tile_vox
+
+    def cost(s):
+        waves = -(-chan_blocks * s // (blocks_per_sm * _SMS))
+        block = -(-tiles // s) * flop_tile * blocks_per_sm / 1.5e6 + 3.0
+        return waves * block + (s > 1) * (s + 1) * 500.0 * ci * co / 2.5e6
+
+    splits = min(range(1, min(tiles, 65535) + 1), key=lambda s: (cost(s), s))
+    return -(-tiles // -(-tiles // splits))
 
 
 def conv5_stem_tc_geometry(n, d, h, w):
@@ -585,13 +784,46 @@ def _stem_tc_launch(xk, w, b, epk, y):
                            "{}".format(rc))
 
 
+def _tf32_launch(xk, w, b, epk, y, dgrad):
+    """``conv5_tf32_kernel`` of the f32 ``xk`` [N, D, Ci, H, W] into the
+    contiguous f32 ``y`` [N, D, Co, H, W]: the conv with ``w``, bias ``b``
+    (or None) and the packed epilogue ``epk`` (or None), or with ``dgrad``
+    the input gradient's conv of the cotangent ``xk``."""
+    n, d, ci, h, ww = xk.shape
+    co = y.shape[2]
+    q = _tf32_geometry(n, d, h, ww, ci, co)
+    if (q["smem"] > _SMEM_MAX or max(q["grid"][1:]) > 65535
+            or q["grid"][0] >= 2 ** 31):
+        raise ValueError("conv5 tf32 launch too large for {}: {}".format(
+            tuple(xk.shape), q))
+    wpk = _packed_weight(w, ("tf32", q["nf"]), dgrad)
+    bias = None if b is None else b.float().contiguous()
+    part = (torch.empty((q["splits"], y.numel()), dtype=torch.float32,
+                        device=xk.device) if q["splits"] > 1 else None)
+    xs = xk.stride()
+    vec = int(xk.data_ptr() % 16 == 0 and all(v % 4 == 0 for v in xs[:4]))
+    with _on_device(xk.device) as stream:
+        rc = _conv5_tf32_lib().conv5_tf32_launch(
+            xk.data_ptr(), wpk.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if epk is None else epk.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), q["nf"], q["td"],
+            q["th"], q["tw"], q["pitch"], q["plane"], q["splits"], vec, n, d,
+            ci, h, ww, co, xs[0], xs[2], xs[1], xs[3], stream)
+    if rc != 0:
+        raise RuntimeError("conv5 tf32 kernel launch failed: CUDA error "
+                           "{}".format(rc))
+
+
 def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     """Launch the forward kernel on ``xk``: the conv with ``w`` and bias
     ``b``, or with ``dgrad`` the input gradient of that conv (``xk`` is
-    the cotangent, ``b`` is None), which counts under ``conv5_dgrad`` in
-    :data:`LAUNCHES` where a forward counts under its form
-    (:func:`conv5_form`); ``form='stem'`` takes ``conv5_kernel`` where
-    ``stem_tc_kernel`` would run, to time the two side by side."""
+    the cotangent, ``b`` is None), which counts under ``conv5_dgrad`` (f32:
+    ``conv5_dgrad_tf32``) in :data:`LAUNCHES` where a forward counts under
+    its form (:func:`conv5_form`); ``form='stem'`` takes ``conv5_kernel``
+    where ``stem_tc_kernel`` would run, and ``form='head'`` takes it where
+    ``conv5_tf32_kernel`` would (an f32 head conv, forward or input
+    gradient), to time the two side by side."""
     if xk.device.type != "cuda":
         raise RuntimeError("conv5 kernel needs a CUDA tensor, got device "
                            + str(xk.device))
@@ -607,16 +839,23 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     epk = (None if ep is None else
            torch.cat([v.float().reshape(-1) for v in ep]).contiguous())
     y = torch.empty((n, d, co, h, ww), dtype=xk.dtype, device=xk.device)
-    form = "dgrad" if dgrad else form or conv5_form(xk, co, kind)
-    if form == "stem_tc":
-        _stem_tc_launch(xk, w, b, epk, y)
-        LAUNCHES["conv5_stem_tc"] += 1
+    form = form or conv5_form(xk, co, kind)
+    key = form
+    if dgrad:
+        key = "dgrad_tf32" if form == "head_tf32" else "dgrad"
+    if form in ("stem_tc", "head_tf32"):
+        if form == "stem_tc":
+            _stem_tc_launch(xk, w, b, epk, y)
+        else:
+            _tf32_launch(xk, w, b, epk, y, dgrad)
+        LAUNCHES["conv5_" + key] += 1
         if ep is not None:
             LAUNCHES["conv5_fused_epilogue"] += 1
         return y
     part = None
-    # bf16 head convs run on the tensor cores; f32 (exact f32 sums) and
-    # stems wider than stem_tc_kernel's 16 channels on the CUDA cores
+    # bf16 head convs run on the tensor cores; stems wider than
+    # stem_tc_kernel's 16 channels (and f32 stems, and any conv forced to
+    # form 'head' / 'stem' in f32) on the CUDA cores
     if xk.dtype == torch.bfloat16 and kind == "head":
         q = _wg_geometry(n, d, h, ww, ci, co)
         if (q["smem"] > _SMEM_MAX // q["blocks_per_sm"]
@@ -655,7 +894,7 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     if rc != 0:
         raise RuntimeError("conv5 kernel launch failed: CUDA error {}".format(
             rc))
-    LAUNCHES["conv5_" + form] += 1
+    LAUNCHES["conv5_" + key] += 1
     if ep is not None:
         LAUNCHES["conv5_fused_epilogue"] += 1
     return y
@@ -672,8 +911,9 @@ def conv5_dgrad_kl(gk, w):
     contiguous) and the forward weight ``w`` [5, 5, 5, Ci, Co] ->
     [N, D, Ci, H, W] in g's dtype. On the card it is the forward kernel
     (head form) on the spatially flipped, io-transposed weight with no
-    bias, counted under ``conv5_dgrad``: in bf16 the packed weight is
-    io-transposed by index and the kernel walks the taps backwards."""
+    bias, counted under ``conv5_dgrad`` (f32: ``conv5_dgrad_tf32``): in
+    bf16 the packed weight is io-transposed by index and the kernel walks
+    the taps backwards; in f32 the packing flips and transposes it."""
     if gk.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (K, K, K) \
             or w.shape[4] != gk.shape[2]:
         raise ValueError("dgrad of g {} with weight {}".format(
@@ -781,17 +1021,21 @@ def conv5_wgrad_form(xk, gk, kind):
     :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): for stems (``kind
     = 'stem'``, Ci = 1) 'stem_tc' (bf16, Co <= 16:
     ``stem_wgrad_tc_kernel``, any W-contiguous view) or 'stem'
-    (``wgrad_kernel``); for narrow heads (Co <= 16) 'head_tma' (bf16, both
-    views describable by a tensor copy: ``wgrad_head_tma_kernel``) or
-    'head' (``wgrad_mma_kernel<1|2>`` in bf16, ``wgrad_kernel`` in f32);
-    for wider convs 'tma' (bf16, both views describable:
-    ``wgrad_tma_kernel``) or 'mid' (``wgrad_mma_kernel<4>`` in bf16,
-    ``wgrad_kernel`` in f32). Every view of the main path is contiguous
-    after :func:`pin_kl`, so the stem of a bf16 train step is 'stem_tc',
-    the narrow head 'head_tma' and every square and wide conv 'tma'."""
+    (``wgrad_kernel``); for every other f32 conv 'tf32'
+    (``wgrad_tf32_kernel``, any W-contiguous views); for bf16 narrow heads
+    (Co <= 16) 'head_tma' (both views describable by a tensor copy:
+    ``wgrad_head_tma_kernel``) or 'head' (``wgrad_mma_kernel<1|2>``); for
+    wider bf16 convs 'tma' (both views describable: ``wgrad_tma_kernel``)
+    or 'mid' (``wgrad_mma_kernel<4>``). Forced, 'head' and 'mid' take
+    ``wgrad_kernel`` in f32. Every view of the main path is contiguous after
+    :func:`pin_kl`, so the stem of a bf16 train step is 'stem_tc', the
+    narrow head 'head_tma' and every square and wide conv 'tma'; in f32 the
+    stem is 'stem' and every other conv 'tf32'."""
     if kind == "stem":
         return ("stem_tc" if xk.dtype == torch.bfloat16 and
                 gk.shape[2] <= _STEM_CO else "stem")
+    if xk.dtype == torch.float32:
+        return "tf32"
     copyable = (xk.dtype == torch.bfloat16 and _tma_view(xk)
                 and _tma_view(gk))
     if gk.shape[2] <= 16:
@@ -985,12 +1229,42 @@ def _stem_wgrad_tc_launch(xk, gk):
     return out
 
 
+def _wgrad_tf32_launch(xk, gk):
+    """``wgrad_tf32_kernel`` of the f32 ``xk`` [N, D, Ci, H, W] and ``gk``
+    [N, D, Co, H, W] -> f32 [5, 5, 5, Ci, Co]."""
+    n, d, ci, h, ww = xk.shape
+    co = gk.shape[2]
+    q = _wgrad_tf32_geometry(n, d, h, ww, ci, co)
+    if q["smem"] > _SMEM_MAX or q["splits"] > 65535:
+        raise ValueError("wgrad tf32 launch too large for {}: {}".format(
+            tuple(xk.shape), q))
+    out = torch.empty((K, K, K, ci, co), dtype=torch.float32,
+                      device=xk.device)
+    part = (torch.empty((q["splits"], out.numel()), dtype=torch.float32,
+                        device=xk.device) if q["splits"] > 1 else None)
+    xs, gs = xk.stride(), gk.stride()
+    vec = int(all(t.data_ptr() % 16 == 0 and all(v % 4 == 0 for v in
+                                                   t.stride()[:4])
+                  for t in (xk, gk)))
+    with _on_device(xk.device) as stream:
+        rc = _wgrad_tf32_lib().conv5_wgrad_tf32_launch(
+            xk.data_ptr(), gk.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            q["nf"], q["th"], q["tw"], q["xplane"], q["gplane"], vec,
+            q["splits"], n, d, ci, h, ww, co, xs[0], xs[2], xs[1], xs[3],
+            gs[0], gs[2], gs[1], gs[3], stream)
+    if rc != 0:
+        raise RuntimeError("wgrad tf32 kernel launch failed: CUDA error "
+                           "{}".format(rc))
+    return out
+
+
 def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     """Launch the weight-gradient kernel that :func:`conv5_wgrad_form`
     names; ``form='mid'`` / ``'head'`` takes ``wgrad_mma_kernel`` (bf16)
-    where a tensor-copy kernel would run, and ``form='stem'`` takes
-    ``wgrad_kernel`` where ``stem_wgrad_tc_kernel`` would, to time the two
-    side by side."""
+    where a tensor-copy kernel would run and ``wgrad_kernel`` (f32) where
+    ``wgrad_tf32_kernel`` would, and ``form='stem'`` takes ``wgrad_kernel``
+    where ``stem_wgrad_tc_kernel`` would, to time the two side by side."""
     if xk.device.type != "cuda" or gk.device != xk.device:
         raise RuntimeError("wgrad kernel needs CUDA tensors on one device, "
                            "got {} and {}".format(xk.device, gk.device))
@@ -1000,9 +1274,10 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     n, d, ci, h, ww = xk.shape
     co = gk.shape[2]
     form = form or conv5_wgrad_form(xk, gk, kind)
-    if form == "stem_tc":
-        out = _stem_wgrad_tc_launch(xk, gk)
-        LAUNCHES["conv5_wgrad_stem_tc"] += 1
+    if form in ("stem_tc", "tf32"):
+        out = (_stem_wgrad_tc_launch(xk, gk) if form == "stem_tc" else
+               _wgrad_tf32_launch(xk, gk))
+        LAUNCHES["conv5_wgrad_" + form] += 1
         return out
     # bf16 on the tensor cores; f32, and the stem where forced, on the CUDA
     # cores (f32 keeps exact f32 products and sums)
@@ -1067,9 +1342,10 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     through ``wgrad_head_tma_kernel`` (tensor-copy rings) where
     :func:`conv5_wgrad_form` says 'tma' / 'head_tma', else
     ``wgrad_mma_kernel``, and the stem (Ci = 1, Co <= 16) through
-    ``stem_wgrad_tc_kernel``; f32 and wider stems run on the CUDA cores
-    (``wgrad_kernel``); the voxel axis is reduced deterministically
-    (partials and a second pass, no atomics).
+    ``stem_wgrad_tc_kernel``; f32 convs but the stem run on the tensor
+    cores in split TF32 (``wgrad_tf32_kernel``); f32 and wider bf16 stems
+    run on the CUDA cores (``wgrad_kernel``); the voxel axis is reduced
+    deterministically (partials and a second pass, no atomics).
 
     Rounding: the f32 sums are rounded to x's dtype and widened again.
     The JAX layer casts its f32 kernel to the activation dtype before the

@@ -7,8 +7,11 @@
 Each argument is the standard output of one run (on one card: compare runs
 of one machine only). Prints, per file in the order given, the per-shape
 forward and input-gradient times of the bf16 head convs (ms, packing
-apart where the run reports it, bound, library), the pin views, the
-``kernels`` line, and the serving and training numbers (the cube step, the
+apart where the run reports it, bound, library), the f32 forward, input
+and weight gradients beside the CUDA-core kernels they replaced and
+strict-f32 cuDNN, the bf16 weight gradients on ragged views, the pin
+views, the ``kernels`` line, and the serving and training numbers (the
+cube step and the f32 lung recipe's, old against new kernels, the
 flagship's with and without its augmentation, the augmentation of each
 recipe alone and the train CLI's iterations), and the native reader's
 batch, device-cache and inflate times beside numpy's. To compare two
@@ -21,7 +24,8 @@ import sys
 
 
 def load(path):
-    run = {"convs": {}, "bwd": {}, "pins": [], "kernels": {}, "card": None}
+    run = {"convs": {}, "bwd": {}, "ragged": [], "pins": [], "kernels": {},
+           "card": None}
     with open(path) as f:
         for line in f:
             line = line.strip()
@@ -38,10 +42,12 @@ def load(path):
                 run["convs"][d["conv"]] = d
             elif phase == "kernels" and "pin" in d:
                 run["pins"].append(d)
-            elif phase == "kernels_bwd":
+            elif phase == "kernels_bwd" and "conv" in d:
                 run["bwd"][d["conv"]] = d
+            elif phase == "kernels_bwd":
+                run["ragged"].append(d)
             elif phase in ("build", "serve", "serve_raw", "serve_swl",
-                           "train", "train_flagship", "augment",
+                           "train", "train_f32", "train_flagship", "augment",
                            "train_cli", "native"):
                 run[phase] = d
             elif "kernels" in d:
@@ -76,6 +82,39 @@ def main(paths):
                       fmt(b.get("dgrad_library_ms")),
                       geo.get("splits", "-")))
         print()
+        print("| f32 conv | Ci->Co @edge | fwd ms | fwd+epilogue ms | old "
+              "fwd ms | library ms (TF32 on) | dgrad ms | old dgrad ms | "
+              "dgrad library ms | wgrad ms | old wgrad ms | wgrad library "
+              "ms | bound ms |")
+        print("|---|---|---|---|---|---|---|---|---|---|---|---|---|")
+        for name, d in run["convs"].items():
+            if "f32_ms" not in d:
+                continue
+            b = run["bwd"].get(name, {})
+            print("| {} | {}->{} @{} | {} | {} | {} | {} ({}) | {} | {} | {} "
+                  "| {} | {} | {} | {} |".format(
+                      name, d["ci"], d["co"], d["shape"][1],
+                      fmt(d["f32_ms"]), fmt(d["f32_ms_fused"]),
+                      fmt(d["f32_ms_old"]), fmt(d["f32_library_ms"]),
+                      fmt(d["f32_library_tf32_ms"]),
+                      fmt(b.get("dgrad_f32_ms")),
+                      fmt(b.get("dgrad_f32_ms_old")),
+                      fmt(b.get("dgrad_f32_library_ms")),
+                      fmt(b.get("wgrad_f32_ms")),
+                      fmt(b.get("wgrad_f32_ms_old")),
+                      fmt(b.get("wgrad_f32_library_ms")),
+                      fmt(d["f32_bound_ms"])))
+        print()
+        if run["ragged"]:
+            print("| bf16 ragged-view wgrad | kernel | ms | plain ms | "
+                  "library ms | bound ms |")
+            print("|---|---|---|---|---|---|")
+            for d in run["ragged"]:
+                print("| {} {} | {} | {} | {} | {} | {} |".format(
+                    d["ragged"], d["shape"], d["kernel"], fmt(d["wgrad_ms"]),
+                    fmt(d["wgrad_plain_ms"], 1), fmt(d["wgrad_library_ms"]),
+                    fmt(d["bound_ms"], 4)))
+            print()
         print("| pin view | ms | contiguous() ms | device ms | contiguous() "
               "device ms | bound ms | path |")
         print("|---|---|---|---|---|---|---|")
@@ -108,6 +147,15 @@ def main(paths):
                   [round(v, 2) for v in t.get("ms_per_step_each", [])],
                   fmt(t.get("ms_per_step_no_remat"), 2),
                   json.dumps(t.get("profile"))))
+        f32 = run.get("train_f32", {})
+        for form in ("new", "old"):
+            r = f32.get(form)
+            if r:
+                print("train_f32 ({} kernels) ms/step {} device ms {} idle {} "
+                      "peak GB {}".format(form, fmt(r["ms_per_step"], 2),
+                                          fmt(r["device_ms"], 2),
+                                          fmt(r["idle_share"]),
+                                          fmt(r["peak_mem_gb"], 2)))
         f = run.get("train_flagship", {})
         print("flagship ms/step {} {} patches/s {} peak GB {} profile "
               "{}".format(fmt(f.get("ms_per_step"), 2),

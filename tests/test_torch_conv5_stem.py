@@ -85,7 +85,7 @@ def test_geometry_odd_shapes(n, d, h, w):
     (torch.bfloat16, "stem", 17, "stem"),
     (torch.float32, "stem", 16, "stem"),
     (torch.bfloat16, "head", 16, "head"),
-    (torch.float32, "head", 3, "head")])
+    (torch.float32, "head", 3, "head_tf32")])
 def test_gate_forms(dtype, kind, co, form):
     x = torch.empty((2, 4, 1, 8, 16), dtype=dtype, device="meta")
     assert c5.conv5_form(x, co, kind) == form

@@ -129,7 +129,7 @@ def _meta(shape, dtype=torch.bfloat16):
     ("vnet-head", (2, 128, 32, 128, 128), 3, torch.bfloat16, "head_tma"),
     ("co16", (1, 4, 8, 6, 16), 16, torch.bfloat16, "head_tma"),
     ("co1", (1, 4, 5, 6, 8), 1, torch.bfloat16, "head_tma"),
-    ("f32", (2, 8, 32, 8, 16), 3, torch.float32, "head"),
+    ("f32", (2, 8, 32, 8, 16), 3, torch.float32, "tf32"),
     ("w-not-16-byte-rows", (1, 3, 24, 7, 100), 3, torch.bfloat16, "head"),
     ("co17", (1, 4, 5, 6, 8), 17, torch.bfloat16, "tma")])
 def test_gate_forms(what, x_shape, co, dtype, form):

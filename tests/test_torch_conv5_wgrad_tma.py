@@ -123,11 +123,11 @@ def test_gate_sends_every_main_path_view_to_the_tma_kernel(ci, edge):
 @pytest.mark.parametrize("what,x_shape,co,dtype,kind,form", [
     ("ragged-w100", (1, 3, 24, 7, 100), 33, torch.bfloat16, "head", "mid"),
     ("ragged-w10", (1, 5, 3, 9, 10), 40, torch.bfloat16, "head", "mid"),
-    ("f32", (2, 8, 64, 8, 16), 64, torch.float32, "head", "mid"),
+    ("f32", (2, 8, 64, 8, 16), 64, torch.float32, "head", "tf32"),
     ("narrow-head", (2, 8, 32, 8, 16), 3, torch.bfloat16, "head",
      "head_tma"),
     ("co16", (2, 8, 32, 8, 16), 16, torch.bfloat16, "head", "head_tma"),
-    ("narrow-head-f32", (2, 8, 32, 8, 16), 3, torch.float32, "head", "head"),
+    ("narrow-head-f32", (2, 8, 32, 8, 16), 3, torch.float32, "head", "tf32"),
     ("narrow-head-w12", (2, 8, 32, 8, 12), 3, torch.bfloat16, "head",
      "head"),
     ("stem", (2, 8, 1, 8, 16), 16, torch.bfloat16, "stem", "stem_tc"),

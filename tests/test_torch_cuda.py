@@ -308,9 +308,11 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     # ragged views (W = 100, W = 10) keep wgrad_mma_kernel
     copyable = (dtype == torch.bfloat16 and kind == "head" and
                 shape[4] % 8 == 0)
-    # bf16 stems take the tensor-core stem kernel, f32 stems wgrad_kernel
+    # bf16 stems take the tensor-core stem kernel, f32 stems wgrad_kernel;
+    # every other f32 conv the split-TF32 kernel (any W-contiguous view)
     assert form == (("stem_tc" if dtype == torch.bfloat16 else "stem")
                     if kind == "stem" else
+                    "tf32" if dtype == torch.float32 else
                     ("head_tma" if copyable else "head") if co <= 16 else
                     ("tma" if copyable else "mid"))
     assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
@@ -505,9 +507,71 @@ def test_conv5_dgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     c5.reset_launches()
     got = c5.conv5_dgrad_kl(g, w)
     torch.cuda.synchronize()
-    assert c5.LAUNCHES["conv5_dgrad"] == 1 and c5.LAUNCHES["conv5_head"] == 0
+    key = "conv5_dgrad" if dtype == torch.bfloat16 else "conv5_dgrad_tf32"
+    assert c5.LAUNCHES[key] == 1 and c5.LAUNCHES["conv5_head"] == 0
     assert got.shape == shape and got.dtype == dtype
     _close(got, c5.conv5_dgrad_kl_plain(g, w), dtype)
+
+
+# The split-TF32 f32 kernels (conv5_tf32_kernel, wgrad_tf32_kernel): (what,
+# [N, D, Ci, H, W], Co) at two cube shapes (the deep level, whose forward
+# splits K, and up_tr128 at 32^3) and an odd shape with ragged H and W (not
+# multiples of the tiles), Ci not a multiple of 8 and Co 20 (24 columns)
+TF32_CASES = [("cube-256-8", (2, 8, 256, 8, 8), 256),
+              ("cube-128-32", (2, 32, 128, 32, 32), 128),
+              ("odd-h13-w45", (1, 5, 12, 13, 45), 20)]
+
+
+@pytest.mark.parametrize("what,shape,co", TF32_CASES,
+                         ids=[c[0] for c in TF32_CASES])
+def test_tf32_kernels_match_plain_and_repeat(dev, what, shape, co):
+    """The forward, the fused forward, the input gradient and the weight
+    gradient of an f32 head conv against their plain versions (f32 1e-4;
+    dW relative to its magnitude), each counted under its own key, and
+    bit for bit on a second launch."""
+    x, w, b, ep = _conv_inputs(shape, co, dev, seed=12)
+    g = torch.from_numpy(np.random.RandomState(13).randn(
+        *shape[:2], co, *shape[3:]).astype(np.float32)).to(dev)
+    calls = {"conv5_head_tf32": lambda: c5.conv5_kl(x, w, b),
+             "conv5_fused_epilogue": lambda: c5.conv5_kl_fused(x, w, b, ep),
+             "conv5_dgrad_tf32": lambda: c5.conv5_dgrad_kl(g, w),
+             "conv5_wgrad_tf32": lambda: c5.conv5_wgrad_kl(x, g)}
+    refs = {"conv5_head_tf32": lambda: c5.conv5_kl_plain(x, w, b),
+            "conv5_fused_epilogue": lambda: c5.conv5_kl_plain(x, w, b, ep),
+            "conv5_dgrad_tf32": lambda: c5.conv5_dgrad_kl_plain(g, w),
+            "conv5_wgrad_tf32": lambda: c5.conv5_wgrad_kl_plain(x, g)}
+    for key, call in calls.items():
+        c5.reset_launches()
+        got = call()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in c5.LAUNCHES.items() if v}
+        if key == "conv5_fused_epilogue":
+            assert launched == {"conv5_head_tf32": 1, key: 1}
+        else:
+            assert launched == {key: 1}
+        ref = refs[key]()
+        if key == "conv5_wgrad_tf32":
+            _scaled_close(got, ref, torch.float32)
+        else:
+            _close(got, ref, torch.float32)
+        assert torch.equal(got, call())
+
+
+def test_tf32_kernels_take_ragged_views(dev):
+    """Views the 16-byte paths of the bf16 kernels cannot take (a base 4
+    bytes into an allocation, W = 13 rows, a channel slice) through the
+    4-byte staging of the split-TF32 kernels."""
+    x, w, b, _ = _conv_inputs((1, 4, 8, 9, 13), 8, dev, seed=14)
+    flat = torch.zeros(x.numel() + 1, device=dev)
+    flat[1:].copy_(x.reshape(-1))
+    xv = flat[1:].view(x.shape)
+    wide = torch.randn((1, 4, 12, 9, 13), device=dev)
+    g = wide[:, :, 2:10]
+    _close(c5.conv5_kl(xv, w, b), c5.conv5_kl_plain(x, w, b), torch.float32)
+    _close(c5.conv5_dgrad_kl(g, w), c5.conv5_dgrad_kl_plain(g, w),
+           torch.float32)
+    _scaled_close(c5.conv5_wgrad_kl(xv, g), c5.conv5_wgrad_kl_plain(x, g),
+                  torch.float32)
 
 
 def test_conv5_function_backward_on_the_card(dev):
@@ -519,8 +583,8 @@ def test_conv5_function_backward_on_the_card(dev):
     xa, wa, ba = (t.clone().requires_grad_(True) for t in (x, w, b))
     c5.reset_launches()
     c5.conv5_kl(xa, wa, ba).backward(g)
-    assert c5.LAUNCHES["conv5_dgrad"] == 1 and c5.LAUNCHES["pin"] == 1
-    assert c5.LAUNCHES["conv5_wgrad_head"] == 1
+    assert c5.LAUNCHES["conv5_dgrad_tf32"] == 1 and c5.LAUNCHES["pin"] == 1
+    assert c5.LAUNCHES["conv5_wgrad_tf32"] == 1
     xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
     torch.nn.functional.conv3d(
         xr.transpose(1, 2), wr.permute(4, 3, 0, 1, 2), br,
@@ -553,8 +617,9 @@ def test_launch_counts_one_per_kernel_launch(dev):
     xb, gb = x.bfloat16(), torch.randn((1, 4, 3, 8, 16), device=dev).bfloat16()
     c5.conv5_wgrad_kl(xb, gb)
     assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
-        "conv5_head": 2, "conv5_stem": 1, "conv5_stem_tc": 2,
-        "conv5_fused_epilogue": 3, "pin": 1, "conv5_wgrad_head_tma": 1}
+        "conv5_head": 1, "conv5_head_tf32": 1, "conv5_stem": 1,
+        "conv5_stem_tc": 2, "conv5_fused_epilogue": 3, "pin": 1,
+        "conv5_wgrad_head_tma": 1}
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -639,7 +704,7 @@ def test_vnet_kernel_path_matches_plain_path(dev, monkeypatch):
             _plain_path(m)
             ref = model(x)[0]
     assert {k: v for k, v in launches.items() if v} == {
-        "conv5_head": 15, "conv5_stem": 1, "conv5_fused_epilogue": 16,
+        "conv5_head_tf32": 15, "conv5_stem": 1, "conv5_fused_epilogue": 16,
         "pin": 8}
     assert got.shape == (2, 32, 32, 32, 3) and got.dtype == torch.float32
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-3)
@@ -678,28 +743,30 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     assert metrics["loss"].device.type == "cuda"
     assert torch.isfinite(metrics["loss"]) and state.step == 1
     fwd = 2 if remat else 1
-    assert c5.LAUNCHES["conv5_head"] == 15 * fwd
+    f32 = dtype == torch.float32
+    assert c5.LAUNCHES["conv5_head_tf32" if f32 else "conv5_head"] == \
+        15 * fwd
     # the stem: stem_tc_kernel in bf16, conv5_kernel in f32
     stem = "conv5_stem_tc" if dtype == torch.bfloat16 else "conv5_stem"
     assert (c5.LAUNCHES[stem], c5.LAUNCHES["conv5_stem"] +
             c5.LAUNCHES["conv5_stem_tc"]) == (fwd, fwd)
-    assert c5.LAUNCHES["conv5_dgrad"] == 15
+    assert c5.LAUNCHES["conv5_dgrad_tf32" if f32 else "conv5_dgrad"] == 15
     # the 14 square and wide weight gradients: in bf16 the tensor-copy
     # kernel where W is a multiple of 8 (7 convs at 32, 16 and 8 at this
     # input; all 14 at 128^3) and wgrad_mma_kernel<4> at W = 4 and 2; in
-    # f32 the CUDA-core kernel
-    # the narrow head: its tensor-copy kernel in bf16 (W = 32), the
-    # CUDA-core kernel in f32
+    # f32, with the narrow head, the split-TF32 kernel
+    # the narrow head: its tensor-copy kernel in bf16 (W = 32)
     # the stem: stem_wgrad_tc_kernel in bf16, the CUDA-core kernel in f32
-    wide = (7, 7) if dtype == torch.bfloat16 else (14, 0)
-    head = (0, 1) if dtype == torch.bfloat16 else (1, 0)
-    stem = (0, 1) if dtype == torch.bfloat16 else (1, 0)
+    wide = (0, 0) if f32 else (7, 7)
+    head = (0, 0) if f32 else (0, 1)
+    stem = (1, 0) if f32 else (0, 1)
     assert (c5.LAUNCHES["conv5_wgrad_stem"],
             c5.LAUNCHES["conv5_wgrad_stem_tc"],
             c5.LAUNCHES["conv5_wgrad_head"],
             c5.LAUNCHES["conv5_wgrad_head_tma"],
             c5.LAUNCHES["conv5_wgrad_mid"],
             c5.LAUNCHES["conv5_wgrad_tma"]) == stem + head + wide
+    assert c5.LAUNCHES["conv5_wgrad_tf32"] == (15 if f32 else 0)
     assert c5.LAUNCHES["conv5_fused_epilogue"] == 0
     for name, p in state.model.named_parameters():
         assert p.grad is not None, name
@@ -757,7 +824,7 @@ def test_library_ops_and_an_exported_program_on_the_card(dev, tmp_path):
         got = module(vol)
         launches = {k: v for k, v in c5.LAUNCHES.items() if v}
         ref = model(vol)[0]
-    assert launches == {"conv5_head": 15, "conv5_stem": 1,
+    assert launches == {"conv5_head_tf32": 15, "conv5_stem": 1,
                         "conv5_fused_epilogue": 16, "pin": 8}
     assert torch.equal(got, ref)
 
