@@ -104,10 +104,22 @@ JSON line; any failure raises and the script exits non-zero:
    3 (``wgrad_f32_*``, ``dgrad_f32_*``): ``wgrad_tf32_kernel`` beside
    ``wgrad_kernel`` forced, the input gradient's ``conv5_tf32_kernel``
    beside ``conv5_kernel`` forced. Then the bf16 weight gradients on views
-   a tensor copy cannot describe (``ragged``: ``wgrad_mma_kernel<4>`` at
-   the 12^3 and 6^3 levels of a 96^3 V-Net, ``<1>`` / ``<2>`` at narrow
-   heads of W = 12) against their plain versions, with time, plain,
-   ``conv3d_weight``, bound and a fatal repeat.
+   a tensor copy cannot describe (``ragged``: the tensor-copy kernels fed
+   by their software producer, 'ragged' / 'head_ragged', at the 12^3 and
+   6^3 levels of a 96^3 V-Net and at narrow heads of W = 12) against their
+   plain versions, with time, plain, ``conv3d_weight``, bound, a fatal
+   repeat, ``wgrad_mma_kernel`` forced (``wgrad_old_ms``, the kernel they
+   replaced), the pad route (``wgrad_pad_ms``: x and g copied into buffers
+   whose W is a multiple of 8, then the tensor copy's kernel; the kernel
+   alone ``wgrad_pad_kernel_ms``) and a fatal check that the route gives
+   the pad route's bits. Then (``spine``) the nine head convs of the spine
+   recipe (``SPINE_CONVS``: batch 3, W = 9, 8, 4, 2, 12; 32 -> 20 at
+   out_tr) at full size, forward, input gradient and weight gradient: the
+   routed kernel against its plain version, its time, the plain version's
+   (once), ``F.conv3d`` / ``conv3d_input`` / ``conv3d_weight``, the bound,
+   the geometry, and at the ragged weight gradients the side columns
+   above; their sum over a step is the ``conv5_wgrad_ragged`` entry of the
+   kernels line.
 9. train: the lung ``_tpu`` config's model (bf16, per-block remat),
    optimizer, schedule and loss built by ``Config``, seeded init, batch 2
    at 128^3, seeded volumes and labels in {0, 1, 2}, through
@@ -142,6 +154,22 @@ JSON line; any failure raises and the script exits non-zero:
    falls. Prints the median host ms of the three steps, a profiled step's
    device ms and idle share, the peak memory, then the same with the old
    CUDA-core kernels forced in the same process (their counts exact too).
+9c. train_spine: the repo's bf16 spine recipe
+   (``configs/mri_spine_seg/vnet_mri_spine_seg_512_512_12_15k_tpu.yml``:
+   VNet, 20 classes, bf16, remat, VALID down convs, so W runs 12 -> 9 -> 8
+   -> 4 -> 2) built by ``Config`` at its batch of 3 on a seeded [3, 512,
+   512, 12, 1] batch with labels in [0, 20), the step only. Step 1 against
+   the plain path from the same state and masks (loss within 1e-2, every
+   leaf within 0.35 relative L2); then one untimed and three timed steps
+   with the counts set to 0 just before them: exactly 30 head forwards and
+   2 stem forwards (remat), 15 input gradients, the stem's weight gradient
+   on ``stem_wgrad_tc_kernel``, 4 on the tensor copy (W = 8) and 11 on its
+   software producer (``conv5_wgrad_ragged``), at least 16 pins a step;
+   the loss falls. Prints the median host ms of the three, a profiled
+   step's device ms, idle share and device time by category and kernel
+   (``medicalseg_torch.tools.trace_ops`` on the step's Chrome trace), the
+   peak memory; then the same with ``wgrad_mma_kernel`` forced in the
+   same process (its counts exact too).
 10. train_flagship: the flagship config
    (``configs/synthetic/vnetdeepsup_synspine_15k.yml``: VNetDeepSup,
    bf16, per-block remat, 20 classes, four MixedLoss heads, SGD with
@@ -340,8 +368,9 @@ JSON line; any failure raises and the script exits non-zero:
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
 phase, of ``hu_resize`` from serve_raw, of the backward kernels from the
-train phase, of the f32 kernels from train_f32) and, last, the
-``{"ok": ...}`` line.
+train phase, of the f32 kernels from train_f32, of ``conv5_wgrad_ragged``
+from train_spine, its times summed over the spine step's eleven ragged
+weight gradients) and, last, the ``{"ok": ...}`` line.
 """
 
 import contextlib
@@ -385,6 +414,7 @@ from medicalseg_torch.utils import checkpoint as ckpt  # noqa: E402
 from medicalseg_torch.utils import train_profiler  # noqa: E402
 from medicalseg_torch.utils.flops import forward_flops  # noqa: E402
 from medicalseg_torch.tools import trace_ops  # noqa: E402
+from medicalseg_torch.tools.conv5_times import padded  # noqa: E402
 from medicalseg_torch.models.layers import ChannelDropout  # noqa: E402
 from medicalseg_torch.transforms.device import step_seed  # noqa: E402
 
@@ -404,6 +434,23 @@ LUNG_F32 = os.path.join(ROOT, "configs", "lung_coronavirus",
                         "vnet_lung_coronavirus_128_128_128_15k.yml")
 SPINE = os.path.join(ROOT, "configs", "synthetic",
                      "vnetdeepsup_synspine_15k.yml")
+# the repo's bf16 spine recipe (VNet, 20 classes, remat, batch 3): its down
+# convs are VALID over W, so W runs 12 -> 9 -> 8 -> 4 -> 2 (train_spine)
+SPINE_TPU = os.path.join(ROOT, "configs", "mri_spine_seg",
+                         "vnet_mri_spine_seg_512_512_12_15k_tpu.yml")
+SPINE_VOLUME = (512, 512, 12)  # D, H, W of its volumes as the model sees them
+# The 5^3 head convs of one spine forward at batch 3: (name, Ci, Co, [N, D,
+# H, W], convs a step). W of 9, 4, 2 and 12 gives rows a tensor copy cannot
+# describe; the two levels at W = 8 are the describable ones, for contrast.
+SPINE_CONVS = [("down_tr32", 32, 32, (3, 256, 256, 9), 1),
+               ("down_tr64", 64, 64, (3, 128, 128, 8), 2),
+               ("down_tr128", 128, 128, (3, 64, 64, 4), 3),
+               ("down_tr256", 256, 256, (3, 32, 32, 2), 2),
+               ("up_tr256", 256, 256, (3, 64, 64, 4), 2),
+               ("up_tr128", 128, 128, (3, 128, 128, 8), 2),
+               ("up_tr64", 64, 64, (3, 256, 256, 9), 1),
+               ("up_tr32", 32, 32, (3, 512, 512, 12), 1),
+               ("out_tr", 32, 20, (3, 512, 512, 12), 1)]
 BATCH = 2
 EDGE = 128  # served volume edge
 # the flagship's stem input as the weight gradient sees it: [N, D, 1, H, W]
@@ -439,6 +486,9 @@ FWD_KERNELS = ("conv5_head", "conv5_stem_tc", "conv5_fused_epilogue",
                "pin")
 BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem_tc",
                "conv5_wgrad_head_tma", "conv5_wgrad_tma")
+# the spine recipe's ragged weight gradients (train_spine): the tensor-copy
+# kernel fed by its software producer
+SPINE_KERNELS = ("conv5_wgrad_ragged",)
 # the f32 route (the upstream f32 recipes, train_f32): the split-TF32 head
 # kernels and the stem's CUDA-core kernels; each f32 form's stats key by kind
 F32_FWD = {"head": "conv5_head_tf32", "stem": "conv5_stem"}
@@ -454,6 +504,7 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_wgrad_stem_tc": "medicalseg_torch/csrc/conv5_stem_wgrad.cu",
            "conv5_wgrad_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "conv5_wgrad_head_tma": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
+           "conv5_wgrad_ragged": "medicalseg_torch/csrc/conv5_wgrad_tma.cu",
            "hu_resize": "medicalseg_torch/csrc/hu_resize.cu",
            "conv5_head_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
            "conv5_dgrad_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
@@ -468,6 +519,7 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_wgrad_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:912",
             "conv5_wgrad_tma": "medicalseg_tpu/ops/pallas_conv5.py:832",
             "conv5_wgrad_head_tma": "medicalseg_tpu/ops/pallas_conv5.py:912",
+            "conv5_wgrad_ragged": "medicalseg_tpu/ops/pallas_conv5.py:832",
             "hu_resize": "medicalseg_tpu/ops/pallas_kernels.py:86",
             "conv5_head_tf32": "medicalseg_tpu/ops/pallas_conv5.py:309",
             "conv5_dgrad_tf32": "medicalseg_tpu/ops/pallas_conv5.py:1383",
@@ -1062,7 +1114,8 @@ def scaled_err(got, ref):
 def phase_kernels_bwd():
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = torch.device("cuda")
-    stats = new_stats(BWD_KERNELS + (F32_DGRAD,) + tuple(F32_WGRAD.values()))
+    stats = new_stats(BWD_KERNELS + (F32_DGRAD,) + tuple(F32_WGRAD.values())
+                      + SPINE_KERNELS)
     # the convs of one cube backward, and the flagship's stem (counted
     # apart: the kernels line sums one cube backward)
     shapes = [(name, kind, ci, co, (BATCH, e, e, e), count)
@@ -1178,7 +1231,111 @@ def phase_kernels_bwd():
         emit(line)
         del x, g
     phase_ragged_wgrad()
+    spine_conv_rows(stats)
     return stats
+
+
+def spine_conv_rows(stats):
+    """Each :data:`SPINE_CONVS` conv in bf16 at full size, forward, input
+    gradient and weight gradient: the routed kernel against its plain
+    version (the forward's tolerances; dW scaled as kernels_bwd), its time,
+    the plain version's (once), the library call's (``F.conv3d``,
+    ``conv3d_input``, ``conv3d_weight``), the bound and the geometry; for
+    a ragged weight gradient also ``wgrad_mma_kernel<4>`` forced
+    (``wgrad_old_ms``). The ragged weight gradients of one step are summed
+    into ``stats`` under their form."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, ci, co, (n, d, h, ww), count in SPINE_CONVS:
+        x = torch.randn((n, d, ci, h, ww), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        g = torch.randn((n, d, co, h, ww), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn((5, 5, 5, ci, co), generator=gen,
+                        device="cuda") / (125 * ci) ** 0.5
+        b = torch.randn((co,), generator=gen, device="cuda")
+        x_nc, g_nc = (t.transpose(1, 2).contiguous() for t in (x, g))
+        w_o = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
+        bound, by = conv_bound_ms(ci, co, n * d * h * ww, 2)
+        head = {"ci": ci, "co": co, "shape": [n, d, ci, h, ww],
+                "per_step": count, "bound_ms": bound, "bound_by": by}
+        q = c5.conv5_wg_geometry(n, d, h, ww, ci, co)
+        qd = c5.conv5_wg_geometry(n, d, h, ww, co, ci)
+        wg_keys = ("td", "th", "tw", "nt", "splits", "smem")
+
+        got = c5.conv5_kl(x, w, b)
+        ref, plain = timed_once(lambda: c5.conv5_kl_plain(x, w, b))
+        err = (got.float() - ref.float()).abs().max().item()
+        check(torch.allclose(got.float(), ref.float(), atol=TOL[x.dtype],
+                             rtol=TOL[x.dtype]), "spine {} forward disagrees "
+              "with its plain version: max |d| {}".format(name, err))
+        del got, ref
+        b16 = b.to(torch.bfloat16)
+        emit(dict(head, phase="kernels", spine=name, form="conv5_" +
+                  c5.conv5_form(x, co, "head"), kernel="conv5_wg_kernel",
+                  err=err, ms=time_ms(lambda: c5.conv5_kl(x, w, b), 3),
+                  plain_ms=plain, library_ms=time_ms(
+                      lambda: F.conv3d(x_nc, w_o, b16, padding=2), 3),
+                  geometry={k: q[k] for k in wg_keys}))
+
+        got = c5.conv5_dgrad_kl(g, w)
+        ref, plain = timed_once(lambda: c5.conv5_dgrad_kl_plain(g, w))
+        err = (got.float() - ref.float()).abs().max().item()
+        check(torch.allclose(got.float(), ref.float(), atol=TOL[x.dtype],
+                             rtol=TOL[x.dtype]), "spine {} input gradient "
+              "disagrees with its plain version: max |d| {}".format(
+                  name, err))
+        del got, ref
+        line = dict(head, phase="kernels_bwd", spine=name,
+                    dgrad_err=err, dgrad_ms=time_ms(
+                        lambda: c5.conv5_dgrad_kl(g, w), 3),
+                    dgrad_plain_ms=plain, dgrad_library_ms=time_ms(
+                        lambda: torch.nn.grad.conv3d_input(
+                            x_nc.shape, w_o, g_nc, padding=2), 3),
+                    dgrad_geometry={k: qd[k] for k in wg_keys})
+
+        form = c5.conv5_wgrad_form(x, g, "head")
+        got = c5.conv5_wgrad_kl(x, g)
+        ref, plain = timed_once(lambda: c5.conv5_wgrad_kl_plain(x, g))
+        rel = scaled_err(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= TOL[x.dtype],
+              "spine {} weight gradient ({}) disagrees with its plain "
+              "version: scaled error {}".format(name, form, rel))
+        werr = (got - ref).abs().max().item()
+        del got, ref
+        ms = time_ms(lambda: c5.conv5_wgrad_kl(x, g), 3)
+        lib = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x_nc, w_o.shape, g_nc, padding=2), 3)
+        line.update(wgrad_form="conv5_wgrad_" + form,
+                    wgrad_rel_err=rel, wgrad_ms=ms, wgrad_plain_ms=plain,
+                    wgrad_library_ms=lib, wgrad_geometry=wgrad_geometry(
+                        form, n, d, h, ww, ci, co),
+                    wgrad_repeat_bit_identical=bit_repeat(
+                        lambda: c5.conv5_wgrad_kl(x, g),
+                        "spine {} weight gradient".format(name)))
+        if form in ("ragged", "head_ragged"):
+            line.update(ragged_columns(x, g, 3))
+        key = "conv5_wgrad_" + form
+        if key in SPINE_KERNELS:
+            stats[key]["err"] = max(stats[key]["err"], werr)
+            add_stats(stats, key, count, ms, plain, bound, by, lib)
+        emit(line)
+        del x, g, x_nc, g_nc
+
+
+def wgrad_geometry(form, n, d, h, w, ci, co):
+    """The launch geometry of the weight-gradient kernel of ``form`` at
+    this conv, as the chip lines print it."""
+    if form in ("tma", "ragged"):
+        q = c5.conv5_wgrad_tma_geometry(n, d, h, w, ci, co)
+    elif form in ("head_tma", "head_ragged"):
+        q = c5.conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co)
+    else:
+        q = c5.conv5_wgrad_mma_geometry(n, d, h, w, ci, co)
+    keys = ("th", "tw", "stages", "splits", "chan_blocks", "smem", "nf")
+    if form in ("ragged", "head_ragged"):
+        keys += ("producer_warps", "producer_warps_realigned", "xspan",
+                 "gspan")
+    return {k: q[k] for k in keys if k in q}
 
 
 def f32_bwd_columns(stats, name, kind, x, g, w, count, plain_w, plain_d):
@@ -1226,20 +1383,47 @@ def f32_bwd_columns(stats, name, kind, x, g, w, count, plain_w, plain_d):
 
 
 # bf16 weight gradients on views a tensor copy cannot describe (a W row of
-# 12 or 6 elements is 24 or 12 bytes): wgrad_mma_kernel<4> at the deep
-# levels of a 96^3 V-Net (down_tr128 and up_tr256 at 12^3, down_tr256 at
-# 6^3, batch 2), and <1> / <2> at narrow heads of the same W (no V-Net
-# conv of the cube or the flagship takes them): (name, Ci, Co, edge)
+# 12 or 6 elements is 24 or 12 bytes) at the deep levels of a 96^3 V-Net
+# (down_tr128 and up_tr256 at 12^3, down_tr256 at 6^3, batch 2) and at
+# narrow heads of the same W: (name, Ci, Co, edge)
 RAGGED_WGRAD = [("down_tr128_96", 128, 128, 12), ("up_tr256_96", 256, 256, 12),
                 ("down_tr256_96", 256, 256, 6), ("head3_w12", 32, 3, 12),
                 ("head16_w12", 32, 16, 12)]
 
 
+def ragged_columns(x, g, reps=5):
+    """The side columns of a ragged weight gradient (routed to the
+    software producer): ``wgrad_mma_kernel`` forced (``wgrad_old_ms``,
+    the kernel it replaced); the pad route, x and g copied into buffers
+    whose W is a multiple of 8 and the tensor copy's kernel on them
+    (``wgrad_pad_ms``; the kernel alone ``wgrad_pad_kernel_ms``), whose
+    MMA work is the same; and whether the route gives the pad route's
+    bits (fatal if not: the producer fills the same boxes)."""
+    co = g.shape[2]
+    old = "mid" if co > 16 else "head"
+    xp, gp = padded(x), padded(g)
+    same = torch.equal(c5._conv5_wgrad_cuda(x, g, "head"),
+                       c5._conv5_wgrad_cuda(xp, gp, "head"))
+    check(same and c5.conv5_wgrad_form(xp, gp, "head") in ("tma",
+                                                            "head_tma"),
+          "the software producer's weight gradient of {} differs from the "
+          "tensor copy's on the padded copies".format(tuple(x.shape)))
+    cols = {"wgrad_old_ms": time_ms(lambda: c5._conv5_wgrad_cuda(
+                x, g, "head", form=old), reps),
+            "wgrad_pad_kernel_ms": time_ms(lambda: c5._conv5_wgrad_cuda(
+                xp, gp, "head"), reps),
+            "wgrad_pad_ms": time_ms(lambda: c5._conv5_wgrad_cuda(
+                padded(x), padded(g), "head"), reps),
+            "tensor_copy_bit_identical": same}
+    del xp, gp
+    return cols
+
+
 def phase_ragged_wgrad():
     """Each :data:`RAGGED_WGRAD` weight gradient in bf16 against its plain
     version (scaled as kernels_bwd), with its time, the plain version's
-    (once), ``conv3d_weight``'s, the bound and a fatal bit-for-bit
-    repeat."""
+    (once), ``conv3d_weight``'s, the bound, a fatal bit-for-bit repeat
+    and :func:`ragged_columns`."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name, ci, co, e in RAGGED_WGRAD:
         shape = (BATCH, e, e, e)
@@ -1248,7 +1432,7 @@ def phase_ragged_wgrad():
         g = torch.randn((BATCH, e, co, e, e), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         form = c5.conv5_wgrad_form(x, g, "head")
-        check(form in ("mid", "head"), name + " took " + form)
+        check(form in ("ragged", "head_ragged"), name + " took " + form)
         got = c5.conv5_wgrad_kl(x, g)
         ref, plain = timed_once(lambda: c5.conv5_wgrad_kl_plain(x, g))
         rel = scaled_err(got, ref)
@@ -1257,21 +1441,21 @@ def phase_ragged_wgrad():
         x_nc, g_nc = x.transpose(1, 2).contiguous(), g.transpose(
             1, 2).contiguous()
         bound, by = conv_bound_ms(ci, co, BATCH * e ** 3, 2)
-        q = c5.conv5_wgrad_mma_geometry(*shape, ci, co)
-        emit({"phase": "kernels_bwd", "ragged": name, "ci": ci, "co": co,
-              "shape": [BATCH, e, ci, e, e], "wgrad_form": "conv5_wgrad_" +
-              form, "kernel": "wgrad_mma_kernel<{}>".format(q["nf"]),
-              "wgrad_rel_err_bfloat16": rel,
-              "wgrad_ms": time_ms(lambda: c5.conv5_wgrad_kl(x, g)),
-              "wgrad_plain_ms": plain,
-              "wgrad_library_ms": time_ms(
-                  lambda: torch.nn.grad.conv3d_weight(
-                      x_nc, (co, ci, 5, 5, 5), g_nc, padding=2)),
-              "bound_ms": bound, "bound_by": by,
-              "repeat_bit_identical": bit_repeat(
-                  lambda: c5.conv5_wgrad_kl(x, g), name + " weight gradient"),
-              "geometry": {k: q[k] for k in ("nf", "th", "tw", "splits",
-                                             "smem")}})
+        line = {"phase": "kernels_bwd", "ragged": name, "ci": ci, "co": co,
+                "shape": [BATCH, e, ci, e, e], "wgrad_form": "conv5_wgrad_" +
+                form, "wgrad_rel_err_bfloat16": rel,
+                "wgrad_ms": time_ms(lambda: c5.conv5_wgrad_kl(x, g)),
+                "wgrad_plain_ms": plain,
+                "wgrad_library_ms": time_ms(
+                    lambda: torch.nn.grad.conv3d_weight(
+                        x_nc, (co, ci, 5, 5, 5), g_nc, padding=2)),
+                "bound_ms": bound, "bound_by": by,
+                "repeat_bit_identical": bit_repeat(
+                    lambda: c5.conv5_wgrad_kl(x, g),
+                    name + " weight gradient"),
+                "geometry": wgrad_geometry(form, *shape, ci, co)}
+        line.update(ragged_columns(x, g))
+        emit(line)
         del x, g, x_nc, g_nc, got, ref
 
 
@@ -2195,6 +2379,184 @@ def phase_train_f32():
           "batch": BATCH, "edge": EDGE, "dtype": "float32", "remat": False,
           "losses": losses, "loss_step1_plain_path": loss1_plain,
           "worst_grad_rel_l2_vs_plain": list(worst),
+          "plain_path_step_ms": plain_ms, "new": new, "old": old,
+          "old_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
+          "nvidia_smi": smi_line()})
+    return launches
+
+
+@contextlib.contextmanager
+def old_ragged_kernels():
+    """Route every bf16 weight gradient of a view a tensor copy cannot
+    describe to ``wgrad_mma_kernel`` (the kernel the software producer of
+    ``csrc/conv5_wgrad_tma.cu`` replaced), to time both in one process."""
+    wform = c5.conv5_wgrad_form
+
+    def old_wform(xk, gk, kind):
+        f = wform(xk, gk, kind)
+        return {"ragged": "mid", "head_ragged": "head"}.get(f, f)
+
+    c5.conv5_wgrad_form = old_wform
+    try:
+        yield
+    finally:
+        c5.conv5_wgrad_form = wform
+
+
+def spine_step_counts(steps, old=False):
+    """The launch counts ``steps`` steps of the bf16 spine V-Net imply, pins
+    apart (remat runs each block's forward twice): 15 head forwards and the
+    stem's, 15 input gradients; the stem's weight gradient on
+    ``stem_wgrad_tc_kernel``, the four at W = 8 on the tensor copy and the
+    eleven at W = 12, 9, 4 and 2 (out_tr's 32 -> 20 among them) on the
+    software producer (``old``: ``wgrad_mma_kernel<4>``)."""
+    expect = {k: 0 for k in c5.LAUNCHES if k != "pin"}
+    per = {"conv5_head": 2 * 15, "conv5_stem_tc": 2, "conv5_dgrad": 15,
+           "conv5_wgrad_stem_tc": 1, "conv5_wgrad_tma": 4,
+           "conv5_wgrad_mid" if old else "conv5_wgrad_ragged": 11}
+    expect.update({k: steps * v for k, v in per.items()})
+    return expect
+
+
+def profile_trace(fn):
+    """:func:`profile_call`'s figures for one call of ``fn``, and the
+    device time by category and the top kernels as
+    ``medicalseg_torch.tools.trace_ops`` reads them from the Chrome trace
+    of the same window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = profile_stats(prof, wall_ms)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        path = os.path.join(wd, "trace.json")
+        prof.export_chrome_trace(path)
+        read = trace_ops.summarize(path)
+    stats["categories"] = read["categories"]
+    stats["top_kernels"] = [[k[:100]] + v for k, v in list(
+        read["kernels"].items())[:12]]
+    return stats
+
+
+def phase_train_spine():
+    """The repo's bf16 spine recipe (``SPINE_TPU``: VNet, 20 classes, bf16,
+    remat, VALID down convs over W) built by ``Config`` at its batch of 3
+    on a seeded [3, 512, 512, 12, 1] batch with labels in [0, 20), the
+    step only: step 1 against the plain path from the same state and
+    masks (loss within ``LOSS_REL``, every leaf within ``GRAD_REL_L2``),
+    then one untimed and three timed steps with the counts set to 0 just
+    before them (exact, :func:`spine_step_counts`; at least 8 pins a
+    forward) and one profiled step, first on the routed kernels, then with
+    ``wgrad_mma_kernel`` forced in the same process; the loss falls."""
+    cfg = Config(SPINE_TPU)
+    mc = cfg.dic["model"]
+    check(mc["type"] == "VNet" and mc["dtype"] == "bfloat16" and
+          mc["remat"] is True and mc["num_classes"] == 20 and
+          cfg.batch_size == 3 and mc["kernel_size"][0] == [2, 2, 4] and
+          mc["stride_size"][0] == [2, 2, 1], "spine recipe changed")
+    batch, classes = cfg.batch_size, mc["num_classes"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    images = torch.rand((batch,) + SPINE_VOLUME + (1,), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, classes, (batch,) + SPINE_VOLUME,
+                           generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg.loss)
+
+    def new_state(weights=None):
+        model = build_model(mc, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        if weights is not None:
+            model.load_state_dict(weights)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED)
+
+    def run(state):
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    state = new_state()
+    model = state.model
+    check(type(model).__name__ == "VNet" and model.dtype == torch.bfloat16
+          and model.remat, "the spine recipe's model is not the bf16 remat "
+          "VNet")
+    start = copy.deepcopy(model.state_dict())
+
+    # step 1 against the plain path from the same state and masks
+    loss1, _ = run(state)
+    grads = {}
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and
+              p.grad.abs().sum().item() > 0, name + ": no finite, non-zero "
+              "gradient")
+        grads[name] = p.grad.float().clone()
+    ref = new_state(start)
+    with plain_ops():
+        c5.reset_launches()
+        loss1_plain, plain_ms = run(ref)
+        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    rels = grad_rel_l2(grads, {n: p.grad.float() for n, p in
+                               ref.model.named_parameters()})
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    rel_sorted = sorted(rels.values())
+    check(abs(loss1 - loss1_plain) <= LOSS_REL * abs(loss1_plain),
+          "spine step-1 loss {} vs plain path {}".format(loss1, loss1_plain))
+    check(worst[1] <= GRAD_REL_L2, "spine gradient of {} differs from the "
+          "plain path's by {} relative L2".format(*worst))
+    del ref, grads
+    torch.cuda.empty_cache()
+
+    def timed(old):
+        with (old_ragged_kernels() if old else contextlib.nullcontext()):
+            loss_w, _ = run(state)
+            torch.cuda.reset_peak_memory_stats()
+            c5.reset_launches()
+            steps = [run(state) for _ in range(3)]
+            launches = dict(c5.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = {k: v for k, v in launches.items() if k != "pin"}
+            check(got == spine_step_counts(3, old), "spine step launch "
+                  "counts{} {} != expected {}".format(
+                      " (old kernels)" if old else "", got,
+                      spine_step_counts(3, old)))
+            check(launches["pin"] >= 3 * 2 * 8, "spine pin launches {} < "
+                  "{}".format(launches["pin"], 3 * 2 * 8))
+            profile = profile_trace(lambda: run(state))
+        return launches, {
+            "losses": [loss_w] + [l for l, _ in steps],
+            "ms_per_step": float(np.median([ms for _, ms in steps])),
+            "ms_per_step_each": [ms for _, ms in steps],
+            "device_ms": profile["device_busy_ms"],
+            "idle_share": profile["idle_share"], "peak_mem_gb": peak,
+            "launches_per_step": {k: v // 3 for k, v in launches.items()
+                                  if v},
+            "device_ms_by_category": profile["categories"],
+            "top_kernels": profile["top_kernels"]}
+
+    launches, new = timed(False)
+    losses = [loss1] + new["losses"]
+    check(all(np.isfinite(losses)), "non-finite spine loss: {}".format(
+        losses))
+    check(losses[-1] < losses[0], "the spine loss did not fall: {}".format(
+        losses))
+    _, old = timed(True)
+    check(all(np.isfinite(old["losses"])), "non-finite spine loss on the "
+          "old kernels: {}".format(old["losses"]))
+    emit({"phase": "train_spine", "config": os.path.relpath(SPINE_TPU, ROOT),
+          "batch": batch, "shape": list(SPINE_VOLUME), "classes": classes,
+          "dtype": "bfloat16", "remat": True, "losses": losses,
+          "loss_step1_plain_path": loss1_plain,
+          "worst_grad_rel_l2_vs_plain": list(worst),
+          "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2],
           "plain_path_step_ms": plain_ms, "new": new, "old": old,
           "old_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
           "nvidia_smi": smi_line()})
@@ -4087,6 +4449,8 @@ def main():
     launches.update({k: train_launches[k] for k in BWD_KERNELS})
     f32_launches = phase_train_f32()
     launches.update({k: f32_launches[k] for k in F32_KERNELS})
+    spine_launches = phase_train_spine()
+    launches.update({k: spine_launches[k] for k in SPINE_KERNELS})
     phase_augment()
     flagship = phase_train_flagship()
     phase_train_graph()

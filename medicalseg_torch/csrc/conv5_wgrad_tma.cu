@@ -19,9 +19,11 @@
 // views a tensor copy cannot describe.
 //
 // Layout: x [N, D, Ci, H, W] and g [N, D, Co, H, W] are views given by
-// element strides for N, C, D and H; W is the contiguous axis, and each
-// view starts on 16 bytes with every other stride a multiple of 8 elements
-// (the wrapper's gate, ops/conv5.py: conv5_wgrad_form).
+// element strides for N, C, D and H; W is the contiguous axis. The tensor
+// copy takes views that start on 16 bytes with every other stride a
+// multiple of 8 elements (the wrapper's gate, ops/conv5.py:
+// conv5_wgrad_form: 'tma', 'head_tma'); the software producer below takes
+// any other W-contiguous bf16 view ('ragged', 'head_ragged').
 //
 // Bound on an H100 SXM: 2 * 125 * Ci * Co FLOP per voxel against (Ci + Co)
 // activations read per voxel, so every shape it takes is operation-bound:
@@ -57,6 +59,30 @@
 // channel (the wrapper pads a box by 8 columns or one row), so the channel
 // pitch is 4 mod 8 words and the 8 channels x 4 words of a fragment load
 // hit 32 different banks.
+// Views a tensor copy cannot describe (rows of 18, 24, 8 or 4 bytes: W = 9,
+// 12, 4, 2; a base off 16 bytes; a channel slice) take the same kernels
+// with another producer (template argument PW > 0): PW warps fill the same
+// boxes, byte for byte, from any W-contiguous view, and zero whatever lies
+// outside the volume or the channel range, as the tensor copy does. The
+// ring is zeroed once at the start and a producer writes only the box
+// columns that some tile of the launch can hold in-range data in (all of
+// them where W spans several tiles), so the zeros of the always-padding
+// columns and channels cost nothing per stage. A unit is 4 columns of one
+// box row of one channel plane. Each thread owns a fixed (row, unit)
+// position, neighbouring threads neighbouring rows of a plane (a warp's
+// copies of a plane are one run of memory), and a range of planes, which
+// it walks with constant strides after finding the row's validity once a
+// stage: where the view's rows start on 8 (or 4) bytes, one 8-byte (two
+// 4-byte) cp.async a unit with a source size that zero-fills the rest;
+// elsewhere (odd W, a base off 4 bytes) the aligned 32-bit words that hold
+// the unit, realigned with __byte_perm and stored with st.shared, eight
+// planes' loads in flight before their stores. A producer thread commits
+// its copies of a stage as a group and waits for the group before; then
+// lane 0 arrives for its warp on that earlier stage's full barrier (count
+// PW). The address arithmetic per unit, not the copies, bounded the first
+// form of this producer (PERF.md). The consumers, the barrier protocol,
+// the split and the reduce are the tensor-copy path's, so both give the
+// same bits on a view both can take.
 // The voxel axis is split over blocks; each writes a partial dW and
 // wgrad_tma_reduce_kernel sums the partials in split order: no atomics, two
 // runs are bit-identical. An mbarrier wait that never completes traps (a
@@ -78,7 +104,9 @@ constexpr int CIB = 32;                  // input channels per block
 constexpr int NF = 4;                    // n8 tiles per warp: 32 output channels
 constexpr int COB = 8 * NF;
 constexpr int CONSUMER_WARPS = 2 * KS;   // (kh, 16-channel half of the ci tile)
-constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);
+// threads of a block: the consumer warps and the producer's (PW software
+// producer warps, or one loader warp for the tensor copy, PW = 0)
+constexpr int threads_for(int pw) { return 32 * (2 * KS + (pw > 0 ? pw : 1)); }
 constexpr int MAX_STAGES = 8;
 constexpr int BAR_BYTES = 128;           // 2 * MAX_STAGES mbarriers of 8 bytes
 constexpr int X_LEFT = 8;                // the x box starts this many columns left
@@ -93,6 +121,19 @@ struct TGeom {
   uint32_t x_bytes;    // bytes of the x box (the g box follows it)
   uint32_t stage;      // bytes of one stage (x box + g box)
   long long tiles_per_split;
+};
+
+// The software producer's source: two W-contiguous bf16 views by element
+// strides (n, c, d, h), how each is copied (vec: 8 or 4 for cp.async of 8 or
+// 4 bytes where every row starts on that many bytes, 0 for aligned 32-bit
+// loads realigned with __byte_perm) and the box columns [c0, c1) written
+// (multiples of 4).
+struct Soft {
+  const uint16_t* x;
+  const uint16_t* g;
+  long long xs[4], gs[4];
+  int xvec, gvec;
+  int xc0, xc1, gc0, gc1;
 };
 
 // ---- mbarrier and tensor-copy helpers, as csrc/conv5_wg.cu proves them ----
@@ -144,6 +185,206 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// ---- the software producer ----
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int cp,
+                                         int bytes) {
+  if (cp == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void st_shared2(uint32_t dst, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(dst), "r"(a), "r"(b)
+               : "memory");
+}
+
+// the first n (<= 0, 1, >= 2) bf16 halves of a word, the rest zero
+__device__ __forceinline__ uint32_t keep(uint32_t v, int n) {
+  return n >= 2 ? v : (n == 1 ? v & 0xffffu : 0u);
+}
+
+// One box of a stage as the tensor copy lays it out: [ndep depths][nch
+// channels][rows][cols] bf16, element (dep, ch, r, col) from (d0 + dep, c0 +
+// ch, h0 + r, w0 + col), zero outside the view; the producer writes columns
+// [cs, ce).
+struct Box {
+  int d0, c0, h0, rows, w0, cols, cs, ce;
+};
+
+constexpr int UNITS = 8;  // planes a thread has in flight with realigned loads
+
+// Copies one unit (4 columns, n of them in range, n <= 0: none) from src to
+// the shared address dst: cp.async of 8 or 4 bytes with a source size (the
+// rest zero-filled), or (VEC 0) the aligned 32-bit words that hold it (two
+// where its first element is even, three where it is odd; only words that
+// hold an element in range are read), realigned with __byte_perm.
+template <int VEC>
+__device__ __forceinline__ void unit_copy(uint32_t dst, const uint16_t* src,
+                                          const uint16_t* base, int n) {
+  if constexpr (VEC == 8) {
+    cp_async(dst, n > 0 ? src : base, 8, 2 * max(n, 0));
+  } else {
+    cp_async(dst, n > 0 ? src : base, 4, 2 * min(max(n, 0), 2));
+    cp_async(dst + 4, n > 2 ? src + 2 : base, 4, 2 * max(n - 2, 0));
+  }
+}
+
+// Fills the box columns [b.cs, b.ce) of every channel that exists (the
+// others stay zero), rows in and out of range, at shared address dst, from
+// `base` with strides s (n, c, d, h) and extents n_d, n_c, n_h, n_w;
+// producer thread pt of PT. A unit is 4 columns of one row of one plane
+// (depth, channel). A thread owns a fixed (row, unit) position and a range
+// of planes: per stage it finds the row's validity and the unit's in-range
+// count once, then walks the planes with constant strides.
+template <int PT, int VEC, int NDEP, int NCH>
+__device__ __forceinline__ void soft_box(uint32_t dst, const uint16_t* base,
+                                         const long long (&s)[4], int nb, int n_d,
+                                         int n_c, int n_h, int n_w, const Box& b,
+                                         int pt) {
+  constexpr int PLANES = NDEP * NCH;
+  const int nu = (b.ce - b.cs) >> 2;
+  const int positions = b.rows * nu;
+  const int groups = max(1, min(PLANES, PT / positions));  // plane ranges
+  const int nch = min(NCH, n_c - b.c0);                    // channels that exist
+  const uint32_t plane_bytes = (uint32_t)(b.rows * b.cols * 2);
+  const long long tile = nb * s[0] + (long long)b.c0 * s[1] +
+                         (long long)b.d0 * s[2];
+  for (int item = pt; item < positions * groups; item += PT) {
+    // neighbouring threads take neighbouring positions of one plane range:
+    // a warp's copies of a plane are one run of rows, few sectors
+    const int grp = item / positions, pos = item - grp * positions;
+    const int r = pos / nu, col = b.cs + 4 * (pos - r * nu);
+    const int h = b.h0 + r, w = b.w0 + col;
+    const int nrow = h >= 0 && h < n_h && w >= 0 ? max(0, min(4, n_w - w)) : 0;
+    const int p0 = grp * PLANES / groups;
+    const int p1 = NDEP == 1 ? min((grp + 1) * PLANES / groups, nch)
+                             : (grp + 1) * PLANES / groups;
+    // the plane p0: its depth and channel, its source and destination
+    int dep = p0 / NCH, ch = p0 - dep * NCH;
+    const uint16_t* src = base + (tile + (long long)h * s[3] + w +
+                                  ch * s[1] + dep * s[2]);
+    uint32_t pdst = dst + (uint32_t)((r * b.cols + col) * 2) + p0 * plane_bytes;
+    const long long next_dep = s[2] - NCH * s[1];
+    if constexpr (VEC != 0) {
+      for (int p = p0; p < p1; ++p) {
+        const int dd = b.d0 + dep;
+        const int n = ch < nch && dd >= 0 && dd < n_d ? nrow : 0;
+        if (ch < nch) unit_copy<VEC>(pdst, src, base, n);
+        pdst += plane_bytes;
+        src += s[1];
+        if (NDEP > 1 && ++ch == NCH) {
+          ch = 0;
+          ++dep;
+          src += next_dep;
+        }
+      }
+    } else {
+      for (int pb = p0; pb < p1; pb += UNITS) {
+        uint32_t v[UNITS][3];
+        int ns[UNITS];
+        bool odd[UNITS];
+#pragma unroll
+        for (int k = 0; k < UNITS; ++k) {
+          const int dd = b.d0 + dep;
+          ns[k] = pb + k < p1 && ch < nch ? (dd >= 0 && dd < n_d ? nrow : 0) : -1;
+          const int n = ns[k];
+          const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+          odd[k] = (a & 2) != 0;
+          const uint32_t* wp = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+          v[k][0] = n >= 1 ? __ldg(wp) : 0u;
+          v[k][1] = (odd[k] ? n >= 2 : n >= 3) ? __ldg(wp + 1) : 0u;
+          v[k][2] = odd[k] && n >= 4 ? __ldg(wp + 2) : 0u;
+          src += s[1];
+          if (NDEP > 1 && ++ch == NCH) {
+            ch = 0;
+            ++dep;
+            src += next_dep;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < UNITS; ++k) {
+          if (ns[k] >= 0) {
+            const uint32_t lo =
+                odd[k] ? __byte_perm(v[k][0], v[k][1], 0x5432) : v[k][0];
+            const uint32_t hi =
+                odd[k] ? __byte_perm(v[k][1], v[k][2], 0x5432) : v[k][1];
+            st_shared2(pdst, keep(lo, ns[k]), keep(hi, ns[k] - 2));
+          }
+          pdst += plane_bytes;
+        }
+      }
+    }
+  }
+}
+
+template <int PT, int NDEP, int NCH>
+__device__ __forceinline__ void soft_fill(uint32_t dst, const uint16_t* base,
+                                          const long long (&s)[4], int vec, int nb,
+                                          int n_d, int n_c, int n_h, int n_w,
+                                          const Box& b, int pt) {
+  if (vec == 8)
+    soft_box<PT, 8, NDEP, NCH>(dst, base, s, nb, n_d, n_c, n_h, n_w, b, pt);
+  else if (vec == 4)
+    soft_box<PT, 4, NDEP, NCH>(dst, base, s, nb, n_d, n_c, n_h, n_w, b, pt);
+  else
+    soft_box<PT, 0, NDEP, NCH>(dst, base, s, nb, n_d, n_c, n_h, n_w, b, pt);
+}
+
+// A producer warp's waits and arrivals. Its lane 0 waits for a slot to be
+// free (the warp follows); after filling a stage each thread commits its
+// copies as a group, waits until all but this stage's group have landed,
+// and lane 0 arrives once for the warp on the previous stage's full
+// barrier (count: PW), which releases the warp's copies and stores;
+// soft_last arrives for the last stage.
+__device__ __forceinline__ void soft_wait(uint32_t bar, uint32_t parity) {
+  if ((threadIdx.x & 31) == 0) mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+constexpr uint32_t NO_STAGE = 0xffffffffu;  // no shared address
+
+__device__ __forceinline__ void soft_arrive(uint32_t bar, uint32_t& prev) {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (prev != NO_STAGE) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(prev);
+  }
+  prev = bar;
+}
+
+__device__ __forceinline__ void soft_last(uint32_t prev) {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  if (prev != NO_STAGE && (threadIdx.x & 31) == 0) mbar_arrive(prev);
+}
+
+// Zeroes the ring once (the columns and channels no producer writes stay
+// zero), before the barriers are set up.
+__device__ __forceinline__ void zero_ring(uint8_t* ring, uint32_t bytes) {
+  uint4* r4 = reinterpret_cast<uint4*>(ring);
+  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    r4[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The tile after (wi, hi, od, nb) in the (n, d, tile row, tile column)
+// order of the voxel split: a producer walks its tiles without dividing.
+__device__ __forceinline__ void next_tile(int& wi, int& hi, int& od, int& nb,
+                                          int tiles_w, int tiles_h, int d) {
+  if (++wi < tiles_w) return;
+  wi = 0;
+  if (++hi < tiles_h) return;
+  hi = 0;
+  if (++od < d) return;
+  od = 0;
+  ++nb;
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
@@ -190,10 +431,11 @@ __device__ __forceinline__ void k_step(float (&acc)[KS][NF][4], const uint32_t* 
   }
 }
 
-template <int TW>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int TW, int PW>
+__global__ void __launch_bounds__(threads_for(PW), 1)
 wgrad_tma_kernel(float* __restrict__ part, const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap gmap, TGeom q) {
+                 const __grid_constant__ CUtensorMap gmap, const __grid_constant__ Soft src,
+                 TGeom q) {
   extern __shared__ __align__(128) uint8_t smem_t[];
   const uint32_t bars = smem_u32(smem_t);
   const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
@@ -214,39 +456,53 @@ wgrad_tma_kernel(float* __restrict__ part, const __grid_constant__ CUtensorMap x
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if constexpr (PW > 0) zero_ring(smem_t + BAR_BYTES, q.stages * q.stage);
   if (threadIdx.x == 0) {
     for (int i = 0; i < q.stages; ++i) {
-      mbar_init(full + 8 * i, 1);
+      mbar_init(full + 8 * i, PW > 0 ? PW : 1);
       mbar_init(empty + 8 * i, CONSUMER_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {
-    // ===================== loader =====================
-    if (lane == 0) {
-      uint32_t it = 0;
-      for (long long t = first; t < last; ++t) {
-        long long rest = t;
-        const int w0 = (int)(rest % tiles_w) * TW;
-        rest /= tiles_w;
-        const int h0 = (int)(rest % tiles_h) * q.th;
-        rest /= tiles_h;
-        const int od = (int)(rest % q.d);
-        const int nb = (int)(rest / q.d);
-        const int id = od + kd - HALO;
-        if (id < 0 || id >= q.d) continue;  // only padding: the consumers skip it too
-        const uint32_t slot = it % q.stages;
+  if (warp >= CONSUMER_WARPS) {
+    // ============== producer: tensor copies, or PW warps ==============
+    const int pt = threadIdx.x - 32 * CONSUMER_WARPS;
+    if (PW == 0 && pt != 0) return;
+    uint32_t it = 0, prev = NO_STAGE;
+    int wi = (int)(first % tiles_w), hi = (int)(first / tiles_w % tiles_h);
+    int od = (int)(first / tiles_w / tiles_h % q.d);
+    int nb = (int)(first / tiles_w / tiles_h / q.d);
+    for (long long t = first; t < last;
+         ++t, next_tile(wi, hi, od, nb, tiles_w, tiles_h, q.d)) {
+      const int w0 = wi * TW, h0 = hi * q.th;
+      const int id = od + kd - HALO;
+      if (id < 0 || id >= q.d) continue;  // only padding: the consumers skip it too
+      const uint32_t slot = it % q.stages;
+      if constexpr (PW == 0)
         mbar_wait(empty + 8 * slot, ((it / q.stages) & 1) ^ 1);
-        const uint32_t bar = full + 8 * slot;
-        const uint32_t dst = ring + slot * q.stage;
+      else
+        soft_wait(empty + 8 * slot, ((it / q.stages) & 1) ^ 1);
+      const uint32_t bar = full + 8 * slot;
+      const uint32_t dst = ring + slot * q.stage;
+      if constexpr (PW == 0) {
         mbar_expect_tx(bar, q.stage);
         tma_load_5d(dst, &xmap, bar, w0 - X_LEFT, h0 - HALO, c0, id, nb);
         tma_load_5d(dst + q.x_bytes, &gmap, bar, w0, h0, o0, od, nb);
-        ++it;
+      } else {
+        const Box xb{id, c0, h0 - HALO, q.xrows, w0 - X_LEFT, q.xw, src.xc0,
+                     src.xc1};
+        const Box gb{od, o0, h0, q.grows, w0, q.gw, src.gc0, src.gc1};
+        soft_fill<32 * PW, 1, CIB>(dst, src.x, src.xs, src.xvec, nb, q.d, q.ci,
+                                   q.h, q.w, xb, pt);
+        soft_fill<32 * PW, 1, COB>(dst + q.x_bytes, src.g, src.gs, src.gvec, nb,
+                                   q.d, q.co, q.h, q.w, gb, pt);
+        soft_arrive(bar, prev);
       }
+      ++it;
     }
+    if constexpr (PW > 0) soft_last(prev);
     return;
   }
 
@@ -347,8 +603,7 @@ wgrad_tma_kernel(float* __restrict__ part, const __grid_constant__ CUtensorMap x
 // close; what limits the kernel is its shared-memory loads, 28 a warp per
 // K step (8 of x, 20 of g) for 20 mma.sync.
 constexpr int HEAD_COG = 3;             // output channels of a block
-constexpr int HEAD_WARPS = 2 * KS;      // (kd, row parity)
-constexpr int HEAD_THREADS = 32 * (HEAD_WARPS + 1);
+constexpr int HEAD_WARPS = 2 * KS;      // (kd, row parity): threads_for(PW) too
 constexpr int G_LEFT = 8;               // the g box starts this many columns left
 
 struct HGeom {
@@ -363,11 +618,12 @@ struct HGeom {
   long long tiles_per_split;
 };
 
-template <int TW>
-__global__ void __launch_bounds__(HEAD_THREADS, 1)
+template <int TW, int PW>
+__global__ void __launch_bounds__(threads_for(PW), 1)
 wgrad_head_tma_kernel(float* __restrict__ part,
                       const __grid_constant__ CUtensorMap xmap,
-                      const __grid_constant__ CUtensorMap gmap, HGeom q) {
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ Soft src, HGeom q) {
   extern __shared__ __align__(128) uint8_t smem_h[];
   const uint32_t bars = smem_u32(smem_h);
   const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
@@ -385,37 +641,51 @@ wgrad_head_tma_kernel(float* __restrict__ part,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if constexpr (PW > 0) zero_ring(smem_h + BAR_BYTES, q.stages * q.stage);
   if (threadIdx.x == 0) {
     for (int i = 0; i < q.stages; ++i) {
-      mbar_init(full + 8 * i, 1);
+      mbar_init(full + 8 * i, PW > 0 ? PW : 1);
       mbar_init(empty + 8 * i, HEAD_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == HEAD_WARPS) {
-    // ===================== loader =====================
-    if (lane == 0) {
-      uint32_t it = 0;
-      for (long long t = first; t < last; ++t, ++it) {
-        long long rest = t;
-        const int w0 = (int)(rest % tiles_w) * TW;
-        rest /= tiles_w;
-        const int h0 = (int)(rest % tiles_h) * q.th;
-        rest /= tiles_h;
-        const int ud = (int)(rest % q.d);
-        const int nb = (int)(rest / q.d);
-        const uint32_t slot = it % q.stages;
+  if (warp >= HEAD_WARPS) {
+    // ============== producer: tensor copies, or PW warps ==============
+    const int pt = threadIdx.x - 32 * HEAD_WARPS;
+    if (PW == 0 && pt != 0) return;
+    uint32_t it = 0, prev = NO_STAGE;
+    int wi = (int)(first % tiles_w), hi = (int)(first / tiles_w % tiles_h);
+    int ud = (int)(first / tiles_w / tiles_h % q.d);
+    int nb = (int)(first / tiles_w / tiles_h / q.d);
+    for (long long t = first; t < last;
+         ++t, ++it, next_tile(wi, hi, ud, nb, tiles_w, tiles_h, q.d)) {
+      const int w0 = wi * TW, h0 = hi * q.th;
+      const uint32_t slot = it % q.stages;
+      if constexpr (PW == 0)
         mbar_wait(empty + 8 * slot, ((it / q.stages) & 1) ^ 1);
-        const uint32_t bar = full + 8 * slot;
-        const uint32_t dst = ring + slot * q.stage;
+      else
+        soft_wait(empty + 8 * slot, ((it / q.stages) & 1) ^ 1);
+      const uint32_t bar = full + 8 * slot;
+      const uint32_t dst = ring + slot * q.stage;
+      if constexpr (PW == 0) {
         mbar_expect_tx(bar, q.x_bytes + q.g_bytes);
         tma_load_5d(dst, &xmap, bar, w0, h0, c0, ud, nb);
         tma_load_5d(dst + q.x_bytes, &gmap, bar, w0 - G_LEFT, h0 - HALO, o0,
                     ud - HALO, nb);
+      } else {
+        const Box xb{ud, c0, h0, q.xrows, w0, q.xw, src.xc0, src.xc1};
+        const Box gb{ud - HALO, o0, h0 - HALO, q.grows, w0 - G_LEFT, q.gw, src.gc0,
+                     src.gc1};
+        soft_fill<32 * PW, 1, CIB>(dst, src.x, src.xs, src.xvec, nb, q.d, q.ci,
+                                   q.h, q.w, xb, pt);
+        soft_fill<32 * PW, KS, HEAD_COG>(dst + q.x_bytes, src.g, src.gs, src.gvec,
+                                         nb, q.d, q.co, q.h, q.w, gb, pt);
+        soft_arrive(bar, prev);
       }
     }
+    if constexpr (PW > 0) soft_last(prev);
     return;
   }
 
@@ -607,22 +877,22 @@ bool make_tmap(CUtensorMap* map, const void* base, int n, int d, int c, int h,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int TW>
-cudaError_t launch_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
-                       float* part, float* out, int splits, const TGeom& q,
-                       cudaStream_t s) {
-  const long long chan_blocks =
-      (long long)KS * ((q.ci + CIB - 1) / CIB) * ((q.co + COB - 1) / COB);
+// One launch of kernel `kern` (threads a block `threads`) and, where the
+// voxel axis is split, the fixed-order reduce of its partials.
+template <typename Kern, typename Geom>
+cudaError_t launch_with_reduce(Kern kern, int threads, long long chan_blocks,
+                               const CUtensorMap& xmap, const CUtensorMap& gmap,
+                               const Soft& src, float* part, float* out, int splits,
+                               const Geom& q, cudaStream_t s) {
   const size_t smem = BAR_BYTES + (size_t)q.stages * q.stage;
   if (chan_blocks > 0x7fffffffLL || splits > 65535 || smem > 227 * 1024)
     return cudaErrorInvalidValue;
-  auto kern = wgrad_tma_kernel<TW>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   float* dst = splits == 1 ? out : part;
-  kern<<<dim3((unsigned)chan_blocks, splits), THREADS, smem, s>>>(dst, xmap, gmap,
-                                                                   q);
+  kern<<<dim3((unsigned)chan_blocks, splits), threads, smem, s>>>(dst, xmap, gmap,
+                                                                 src, q);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const long long size = (long long)KS * KS * KS * q.ci * q.co;
@@ -631,29 +901,114 @@ cudaError_t launch_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
   return cudaGetLastError();
 }
 
+template <int TW, int PW>
+cudaError_t launch_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
+                       const Soft& src, float* part, float* out, int splits,
+                       const TGeom& q, cudaStream_t s) {
+  const long long chan_blocks =
+      (long long)KS * ((q.ci + CIB - 1) / CIB) * ((q.co + COB - 1) / COB);
+  return launch_with_reduce(wgrad_tma_kernel<TW, PW>, threads_for(PW), chan_blocks,
+                            xmap, gmap, src, part, out, splits, q, s);
+}
 
-template <int TW>
+template <int TW, int PW>
 cudaError_t launch_head_tma(const CUtensorMap& xmap, const CUtensorMap& gmap,
-                            float* part, float* out, int splits,
+                            const Soft& src, float* part, float* out, int splits,
                             const HGeom& q, cudaStream_t s) {
   const long long chan_blocks = (long long)((q.ci + CIB - 1) / CIB) *
                                 ((q.co + HEAD_COG - 1) / HEAD_COG);
-  const size_t smem = BAR_BYTES + (size_t)q.stages * q.stage;
-  if (chan_blocks > 0x7fffffffLL || splits > 65535 || smem > 227 * 1024)
-    return cudaErrorInvalidValue;
-  auto kern = wgrad_head_tma_kernel<TW>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  float* dst = splits == 1 ? out : part;
-  kern<<<dim3((unsigned)chan_blocks, splits), HEAD_THREADS, smem, s>>>(
-      dst, xmap, gmap, q);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const long long size = (long long)KS * KS * KS * q.ci * q.co;
-  wgrad_tma_reduce_kernel<<<(unsigned)((size + 255) / 256), 256, 0, s>>>(
-      part, out, splits, size);
-  return cudaGetLastError();
+  return launch_with_reduce(wgrad_head_tma_kernel<TW, PW>, threads_for(PW),
+                            chan_blocks, xmap, gmap, src, part, out, splits, q, s);
+}
+
+// The launch for producer warps `pw` (0: the tensor copy) and tile width tw.
+template <int PW>
+cudaError_t launch_tma_pw(int tw, const CUtensorMap& xmap, const CUtensorMap& gmap,
+                          const Soft& src, float* part, float* out, int splits,
+                          const TGeom& q, cudaStream_t s) {
+  switch (tw) {
+    case 8: return launch_tma<8, PW>(xmap, gmap, src, part, out, splits, q, s);
+    case 16: return launch_tma<16, PW>(xmap, gmap, src, part, out, splits, q, s);
+    case 32: return launch_tma<32, PW>(xmap, gmap, src, part, out, splits, q, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int PW>
+cudaError_t launch_head_pw(int tw, const CUtensorMap& xmap, const CUtensorMap& gmap,
+                           const Soft& src, float* part, float* out, int splits,
+                           const HGeom& q, cudaStream_t s) {
+  switch (tw) {
+    case 16: return launch_head_tma<16, PW>(xmap, gmap, src, part, out, splits, q, s);
+    case 32: return launch_head_tma<32, PW>(xmap, gmap, src, part, out, splits, q, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A view the software producer takes with copies of `vec` bytes: 8 or 4
+// where the base and every stride (elements) keep each row on that many
+// bytes, 0 (realigned 32-bit loads) for any other bf16 view.
+bool vec_ok(const void* base, int vec, const long long (&s)[4]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (a % 2 || (vec != 0 && vec != 4 && vec != 8)) return false;
+  for (int i = 0; i < 4; ++i)
+    if (s[i] < 0 || (vec && (s[i] * 2) % vec)) return false;
+  return vec == 0 || a % vec == 0;
+}
+
+// The columns [c0, c1) a producer writes of a box `cols` wide that starts
+// `left` columns left of its tile: multiples of 4, every column that holds
+// the view's row in some tile (all of them where W spans several tiles).
+bool span_ok(int c0, int c1, int cols, int left, int tw, int w) {
+  if (c0 < 0 || c1 > cols || c0 >= c1 || c0 % 4 || c1 % 4) return false;
+  if (w > tw) return c0 == 0 && c1 == cols;
+  return c0 <= left && c1 >= (left + w < cols ? left + w : cols);
+}
+
+Soft make_soft(const void* x, const void* g, const long long (&xs)[4],
+               const long long (&gs)[4], int xvec, int gvec, int xc0, int xc1,
+               int gc0, int gc1) {
+  Soft src{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(g),
+           {xs[0], xs[1], xs[2], xs[3]}, {gs[0], gs[1], gs[2], gs[3]},
+           xvec, gvec, xc0, xc1, gc0, gc1};
+  return src;
+}
+
+TGeom tma_geom(int th, int tw, int xrows, int xw, int grows, int gw, int stages,
+               int splits, int n, int d, int ci, int h, int w, int co) {
+  const long long tiles = (long long)n * d * ((h + th - 1) / th) *
+                          ((w + tw - 1) / tw);
+  const long long per = (tiles + splits - 1) / splits;
+  const uint32_t x_bytes = (uint32_t)(CIB * xrows * xw * 2);
+  const uint32_t g_bytes = (uint32_t)(COB * grows * gw * 2);
+  return TGeom{n, d, ci, h, w, co, th, xrows, xw, grows, gw, stages, x_bytes,
+               x_bytes + g_bytes, per};
+}
+
+bool tma_geom_ok(int th, int tw, int xrows, int xw, int grows, int gw, int stages,
+                 int splits) {
+  return !(th < 2 || th % 2 || splits < 1 || stages < 3 || stages > MAX_STAGES ||
+           xrows < th + 2 * HALO || xw < tw + X_LEFT + HALO || grows < th ||
+           gw < tw || ((xrows * xw / 8) & 1) == 0 || ((grows * gw / 8) & 1) == 0);
+}
+
+HGeom head_geom(int th, int tw, int xrows, int xw, int grows, int gw, int stages,
+                int splits, int n, int d, int ci, int h, int w, int co) {
+  const long long tiles = (long long)n * d * ((h + th - 1) / th) *
+                          ((w + tw - 1) / tw);
+  const long long per = (tiles + splits - 1) / splits;
+  const uint32_t x_bytes = (uint32_t)(CIB * xrows * xw * 2);
+  const uint32_t g_bytes = (uint32_t)(KS * HEAD_COG * grows * gw * 2);
+  const uint32_t stage = (x_bytes + g_bytes + 127) / 128 * 128;
+  return HGeom{n, d, ci, h, w, co, th, xrows, xw, grows, gw, stages, x_bytes,
+               g_bytes, stage, per};
+}
+
+bool head_geom_ok(int th, int tw, int xrows, int xw, int grows, int gw, int stages,
+                  int splits, int co) {
+  return !(th < 1 || splits < 1 || stages < 2 || stages > MAX_STAGES || co < 1 ||
+           co > 16 || xrows < th || xw < tw || grows < th + 2 * HALO ||
+           gw < tw + G_LEFT + HALO || ((xrows * xw / 8) & 1) == 0);
 }
 
 }  // namespace
@@ -673,28 +1028,53 @@ extern "C" int conv5_wgrad_tma_launch(
     int ci, int h, int w, int co, long long xs_n, long long xs_c, long long xs_d,
     long long xs_h, long long gs_n, long long gs_c, long long gs_d,
     long long gs_h, void* stream) {
-  if (th < 2 || th % 2 || splits < 1 || stages < 3 || stages > MAX_STAGES ||
-      xrows < th + 2 * HALO || xw < tw + X_LEFT + HALO || grows < th ||
-      gw < tw || ((xrows * xw / 8) & 1) == 0 || ((grows * gw / 8) & 1) == 0)
+  if (!tma_geom_ok(th, tw, xrows, xw, grows, gw, stages, splits))
     return cudaErrorInvalidValue;
   CUtensorMap xmap, gmap;
   if (!make_tmap(&xmap, x, n, d, ci, h, w, xs_n, xs_c, xs_d, xs_h, xrows, xw) ||
       !make_tmap(&gmap, g, n, d, co, h, w, gs_n, gs_c, gs_d, gs_h, grows, gw))
     return cudaErrorInvalidValue;
-  const long long tiles = (long long)n * d * ((h + th - 1) / th) *
-                          ((w + tw - 1) / tw);
-  const long long per = (tiles + splits - 1) / splits;
-  const uint32_t x_bytes = (uint32_t)(CIB * xrows * xw * 2);
-  const uint32_t g_bytes = (uint32_t)(COB * grows * gw * 2);
-  const TGeom q{n, d, ci, h, w, co, th, xrows, xw, grows, gw, stages, x_bytes,
-                x_bytes + g_bytes, per};
+  const TGeom q = tma_geom(th, tw, xrows, xw, grows, gw, stages, splits, n, d, ci,
+                           h, w, co);
+  const Soft none{};
+  return launch_tma_pw<0>(tw, xmap, gmap, none, static_cast<float*>(part),
+                          static_cast<float*>(out), splits, q,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The same kernel on any W-contiguous bf16 views (the ones a tensor copy
+// cannot describe), its boxes filled by `pw` software producer warps (1, 2,
+// 4 or 6): x and g copied by `xvec` / `gvec` bytes (8, 4, or 0 for realigned
+// 32-bit loads; the view's base and strides must keep rows on that many
+// bytes), box columns [xc0, xc1) and [gc0, gc1) written (multiples of 4,
+// every column some tile holds in-range data in). Geometry, scratch and
+// result as conv5_wgrad_tma_launch.
+extern "C" int conv5_wgrad_ragged_launch(
+    const void* x, const void* g, void* part, void* out, int th, int tw,
+    int xrows, int xw, int grows, int gw, int stages, int splits, int pw,
+    int xvec, int gvec, int xc0, int xc1, int gc0, int gc1, int n, int d,
+    int ci, int h, int w, int co, long long xs_n, long long xs_c, long long xs_d,
+    long long xs_h, long long gs_n, long long gs_c, long long gs_d,
+    long long gs_h, void* stream) {
+  const long long xs[4] = {xs_n, xs_c, xs_d, xs_h};
+  const long long gs[4] = {gs_n, gs_c, gs_d, gs_h};
+  if (!tma_geom_ok(th, tw, xrows, xw, grows, gw, stages, splits) ||
+      !vec_ok(x, xvec, xs) || !vec_ok(g, gvec, gs) ||
+      !span_ok(xc0, xc1, xw, X_LEFT, tw, w) || !span_ok(gc0, gc1, gw, 0, tw, w))
+    return cudaErrorInvalidValue;
+  CUtensorMap none;
+  memset(&none, 0, sizeof(none));
+  const Soft src = make_soft(x, g, xs, gs, xvec, gvec, xc0, xc1, gc0, gc1);
+  const TGeom q = tma_geom(th, tw, xrows, xw, grows, gw, stages, splits, n, d, ci,
+                           h, w, co);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tw) {
-    case 8: return launch_tma<8>(xmap, gmap, pf, of, splits, q, s);
-    case 16: return launch_tma<16>(xmap, gmap, pf, of, splits, q, s);
-    case 32: return launch_tma<32>(xmap, gmap, pf, of, splits, q, s);
+  switch (pw) {
+    case 1: return launch_tma_pw<1>(tw, none, none, src, pf, of, splits, q, s);
+    case 2: return launch_tma_pw<2>(tw, none, none, src, pf, of, splits, q, s);
+    case 4: return launch_tma_pw<4>(tw, none, none, src, pf, of, splits, q, s);
+    case 6: return launch_tma_pw<6>(tw, none, none, src, pf, of, splits, q, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -715,29 +1095,51 @@ extern "C" int conv5_wgrad_head_tma_launch(
     int ci, int h, int w, int co, long long xs_n, long long xs_c, long long xs_d,
     long long xs_h, long long gs_n, long long gs_c, long long gs_d,
     long long gs_h, void* stream) {
-  if (th < 1 || splits < 1 || stages < 2 || stages > MAX_STAGES || co < 1 ||
-      co > 16 || xrows < th || xw < tw || grows < th + 2 * HALO ||
-      gw < tw + G_LEFT + HALO || ((xrows * xw / 8) & 1) == 0)
+  if (!head_geom_ok(th, tw, xrows, xw, grows, gw, stages, splits, co))
     return cudaErrorInvalidValue;
   CUtensorMap xmap, gmap;
   if (!make_tmap(&xmap, x, n, d, ci, h, w, xs_n, xs_c, xs_d, xs_h, xrows, xw) ||
       !make_tmap(&gmap, g, n, d, co, h, w, gs_n, gs_c, gs_d, gs_h, grows, gw,
                  HEAD_COG, KS))
     return cudaErrorInvalidValue;
-  const long long tiles = (long long)n * d * ((h + th - 1) / th) *
-                          ((w + tw - 1) / tw);
-  const long long per = (tiles + splits - 1) / splits;
-  const uint32_t x_bytes = (uint32_t)(CIB * xrows * xw * 2);
-  const uint32_t g_bytes = (uint32_t)(KS * HEAD_COG * grows * gw * 2);
-  const uint32_t stage = (x_bytes + g_bytes + 127) / 128 * 128;
-  const HGeom q{n, d, ci, h, w, co, th, xrows, xw, grows, gw, stages, x_bytes,
-                g_bytes, stage, per};
+  const HGeom q = head_geom(th, tw, xrows, xw, grows, gw, stages, splits, n, d,
+                            ci, h, w, co);
+  const Soft none{};
+  return launch_head_pw<0>(tw, xmap, gmap, none, static_cast<float*>(part),
+                           static_cast<float*>(out), splits, q,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The narrow head's kernel on any W-contiguous bf16 views, its boxes filled
+// by `pw` software producer warps; the producer's arguments as
+// conv5_wgrad_ragged_launch (the g box starts 8 columns left of its tile),
+// the rest as conv5_wgrad_head_tma_launch.
+extern "C" int conv5_wgrad_head_ragged_launch(
+    const void* x, const void* g, void* part, void* out, int th, int tw,
+    int xrows, int xw, int grows, int gw, int stages, int splits, int pw,
+    int xvec, int gvec, int xc0, int xc1, int gc0, int gc1, int n, int d,
+    int ci, int h, int w, int co, long long xs_n, long long xs_c, long long xs_d,
+    long long xs_h, long long gs_n, long long gs_c, long long gs_d,
+    long long gs_h, void* stream) {
+  const long long xs[4] = {xs_n, xs_c, xs_d, xs_h};
+  const long long gs[4] = {gs_n, gs_c, gs_d, gs_h};
+  if (!head_geom_ok(th, tw, xrows, xw, grows, gw, stages, splits, co) ||
+      !vec_ok(x, xvec, xs) || !vec_ok(g, gvec, gs) ||
+      !span_ok(xc0, xc1, xw, 0, tw, w) || !span_ok(gc0, gc1, gw, G_LEFT, tw, w))
+    return cudaErrorInvalidValue;
+  CUtensorMap none;
+  memset(&none, 0, sizeof(none));
+  const Soft src = make_soft(x, g, xs, gs, xvec, gvec, xc0, xc1, gc0, gc1);
+  const HGeom q = head_geom(th, tw, xrows, xw, grows, gw, stages, splits, n, d,
+                            ci, h, w, co);
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tw) {
-    case 16: return launch_head_tma<16>(xmap, gmap, pf, of, splits, q, s);
-    case 32: return launch_head_tma<32>(xmap, gmap, pf, of, splits, q, s);
+  switch (pw) {
+    case 1: return launch_head_pw<1>(tw, none, none, src, pf, of, splits, q, s);
+    case 2: return launch_head_pw<2>(tw, none, none, src, pf, of, splits, q, s);
+    case 4: return launch_head_pw<4>(tw, none, none, src, pf, of, splits, q, s);
+    case 6: return launch_head_pw<6>(tw, none, none, src, pf, of, splits, q, s);
     default: return cudaErrorInvalidValue;
   }
 }

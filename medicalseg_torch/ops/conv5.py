@@ -21,10 +21,12 @@ the CPU and on the card alike (the JAX ``_conv5_kl_bwd`` / ``_pin_bwd``):
 dx is the same conv of the cotangent with the flipped, io-transposed
 weight through the forward kernel, dw comes from the weight-gradient
 kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
-convs on views a tensor copy can describe: :func:`conv5_wgrad_form`),
+convs, fed by tensor copies or by a software producer on views a tensor
+copy cannot describe: :func:`conv5_wgrad_form`),
 ``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16),
 ``csrc/conv5_wgrad_tf32.cu`` (f32 convs but the stem) and
-``csrc/conv5_wgrad.cu`` (the rest), db is a plain f32 sum.
+``csrc/conv5_wgrad.cu`` (f32 and wider bf16 stems), db is a plain f32
+sum.
 :func:`conv5_kl_fused` is inference-only. It and the no-grad pin of
 :func:`pin_kl` call the ``torch.library`` ops ``medicalseg::conv5_fused``
 and ``medicalseg::pin`` (the eval forward's kernels), so that
@@ -94,14 +96,16 @@ P = K // 2  # halo
 # under its form (:func:`conv5_wgrad_form`): "stem_tc" (bf16 stems, Co <=
 # 16), "stem" (other stems), "tf32" (every other f32 conv), "head_tma"
 # (bf16 narrow heads, Co <= 16, on views a tensor copy can describe),
-# "head" (every other bf16 narrow head), "tma" (bf16 wider convs on such
-# views) or "mid" (every other bf16 wider conv).
+# "head_ragged" (every other bf16 narrow head), "tma" (bf16 wider convs on
+# such views) or "ragged" (every other bf16 wider conv); "head" and "mid"
+# (``wgrad_mma_kernel``) only where ``form=`` forces them.
 LAUNCHES = {"conv5_head": 0, "conv5_head_tf32": 0, "conv5_stem": 0,
             "conv5_stem_tc": 0, "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_dgrad_tf32": 0,
             "conv5_wgrad_stem": 0, "conv5_wgrad_stem_tc": 0,
             "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
-            "conv5_wgrad_mid": 0, "conv5_wgrad_tma": 0,
+            "conv5_wgrad_head_ragged": 0, "conv5_wgrad_mid": 0,
+            "conv5_wgrad_tma": 0, "conv5_wgrad_ragged": 0,
             "conv5_wgrad_tf32": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,6 +118,10 @@ _WGRAD_SMEM = 100 * 1024  # wgrad: shared memory of a block (2 blocks per SM)
 _WGRAD_THREADS = 384  # wgrad: the kernel's __launch_bounds__
 _TMA_MAX_STAGES = 8  # wgrad_tma_kernel: most stages of its ring
 _TMA_BAR_BYTES = 128  # wgrad_tma_kernel: its mbarriers, ahead of the ring
+# the tensor-copy kernels' software producer: its warps where it copies by
+# cp.async, and where it realigns 32-bit loads (latency-bound: more warps
+# keep more loads in flight; measured in PERF.md)
+_SOFT_WARPS, _SOFT_WARPS_REALIGNED = 2, 6
 _STEM_BLOCKS = 1056  # stem_tc_kernel: depth chunks until 8 blocks per SM
 _STEM_CO = 16  # stem_tc_kernel: most output channels (N of its GEMM)
 _STEM_WG_RESIDENT = 2 * _SMS  # stem_wgrad_tc_kernel: 2 blocks an SM
@@ -283,6 +291,10 @@ def _wgrad_tma_lib():
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.conv5_wgrad_tma_launch, lib.conv5_wgrad_head_tma_launch):
         fn.argtypes = [vp] * 4 + [i] * 14 + [ll] * 8 + [vp]
+        fn.restype = ctypes.c_int
+    for fn in (lib.conv5_wgrad_ragged_launch,
+               lib.conv5_wgrad_head_ragged_launch):
+        fn.argtypes = [vp] * 4 + [i] * 21 + [ll] * 8 + [vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -1023,24 +1035,53 @@ def conv5_wgrad_form(xk, gk, kind):
     ``stem_wgrad_tc_kernel``, any W-contiguous view) or 'stem'
     (``wgrad_kernel``); for every other f32 conv 'tf32'
     (``wgrad_tf32_kernel``, any W-contiguous views); for bf16 narrow heads
-    (Co <= 16) 'head_tma' (both views describable by a tensor copy:
-    ``wgrad_head_tma_kernel``) or 'head' (``wgrad_mma_kernel<1|2>``); for
-    wider bf16 convs 'tma' (both views describable: ``wgrad_tma_kernel``)
-    or 'mid' (``wgrad_mma_kernel<4>``). Forced, 'head' and 'mid' take
-    ``wgrad_kernel`` in f32. Every view of the main path is contiguous after
-    :func:`pin_kl`, so the stem of a bf16 train step is 'stem_tc', the
-    narrow head 'head_tma' and every square and wide conv 'tma'; in f32 the
+    (Co <= 16) ``wgrad_head_tma_kernel``, 'head_tma' where a tensor copy
+    can describe both views, else 'head_ragged' (its software producer);
+    for wider bf16 convs ``wgrad_tma_kernel``, 'tma' or 'ragged' alike.
+    'head' and 'mid' (``wgrad_mma_kernel<1|2>`` / ``<4>``; ``wgrad_kernel``
+    in f32) run only where ``form=`` forces them. Every view of the main
+    path is contiguous after :func:`pin_kl`: the cube's and the flagship's
+    (W a multiple of 8) take 'stem_tc', 'head_tma' and 'tma'; the spine
+    recipe's rows of W = 12, 9, 4 and 2 elements take 'ragged'; in f32 the
     stem is 'stem' and every other conv 'tf32'."""
     if kind == "stem":
         return ("stem_tc" if xk.dtype == torch.bfloat16 and
                 gk.shape[2] <= _STEM_CO else "stem")
     if xk.dtype == torch.float32:
         return "tf32"
-    copyable = (xk.dtype == torch.bfloat16 and _tma_view(xk)
-                and _tma_view(gk))
+    copyable = _tma_view(xk) and _tma_view(gk)
     if gk.shape[2] <= 16:
-        return "head_tma" if copyable else "head"
-    return "tma" if copyable else "mid"
+        return "head_tma" if copyable else "head_ragged"
+    return "tma" if copyable else "ragged"
+
+
+def soft_vec(t):
+    """How the software producer copies a W-contiguous bf16 view: 8 or 4
+    (cp.async of that many bytes) where the base and every stride keep each
+    row on that many bytes, else 0 (aligned 32-bit loads realigned with
+    ``__byte_perm``)."""
+    ptr, strides = t.data_ptr(), t.stride()[:4]
+    for vec in (8, 4):
+        if ptr % vec == 0 and all(2 * v % vec == 0 for v in strides):
+            return vec
+    return 0
+
+
+def _soft_warps():
+    return dict(producer_warps=_SOFT_WARPS,
+                producer_warps_realigned=_SOFT_WARPS_REALIGNED,
+                soft_threads=32 * (2 * K + max(_SOFT_WARPS,
+                                               _SOFT_WARPS_REALIGNED)))
+
+
+def _soft_span(cols, left, tw, w):
+    """The box columns [c0, c1) the software producer writes, multiples of
+    4, of a box ``cols`` wide that starts ``left`` columns left of its
+    tile: where W fits one tile, the columns that hold the row (the rest
+    are padding in every tile and stay zero), else all of them."""
+    if w > tw:
+        return (0, cols)
+    return (left, min(cols, -(-(left + w) // 4) * 4))
 
 
 def conv5_wgrad_stem_tc_geometry(n, d, h, w):
@@ -1090,7 +1131,14 @@ def conv5_wgrad_tma_geometry(n, d, h, w, ci, co):
       holding 25 taps x 32 x 32 f32 accumulators (100 KB of registers, 80
       a thread over 10 warps, one block per SM); ``splits``: blocks along
       the voxel tiles (:func:`_wgrad_tma_splits`); ``grid``;
-    * ``threads``: 10 consumer warps and the loader warp."""
+    * ``threads``: 10 consumer warps and the loader warp;
+    * the software producer's ('ragged': views a tensor copy cannot
+      describe): ``producer_warps`` in place of the loader warp where
+      both views are copied by cp.async, ``producer_warps_realigned``
+      where one is read by realigned loads (:func:`soft_vec` 0),
+      ``soft_threads`` (the block at the larger count), and ``xspan`` /
+      ``gspan``, the box columns [c0, c1) it writes (:func:`_soft_span`;
+      the ring starts zeroed)."""
     return dict(_wgrad_tma_geometry(n, d, h, w, ci, co))
 
 
@@ -1111,7 +1159,9 @@ def _wgrad_tma_geometry(n, d, h, w, ci, co):
                 gw=gw, x_bytes=x_bytes, g_bytes=g_bytes, stage=stage,
                 stages=stages, smem=_TMA_BAR_BYTES + stages * stage,
                 chan_blocks=chan_blocks, splits=splits,
-                grid=(chan_blocks, splits), threads=32 * (2 * K + 1))
+                grid=(chan_blocks, splits), threads=32 * (2 * K + 1),
+                **_soft_warps(), xspan=_soft_span(xw, 8, tw, w),
+                gspan=_soft_span(gw, 0, tw, w))
 
 
 def conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co):
@@ -1139,7 +1189,11 @@ def conv5_wgrad_head_tma_geometry(n, d, h, w, ci, co):
       blocks, each with a tile at least (the partials summed in split
       order by a second pass); ``grid``;
     * ``threads``: 10 consumer warps (depth tap x tile-row parity) and the
-      loader warp."""
+      loader warp;
+    * the software producer's ('head_ragged'), as
+      :func:`conv5_wgrad_tma_geometry`'s: ``producer_warps``,
+      ``producer_warps_realigned``, ``soft_threads``, ``xspan`` (the x box
+      starts at its tile) and ``gspan`` (8 columns left of it)."""
     return dict(_wgrad_head_tma_geometry(n, d, h, w, ci, co))
 
 
@@ -1168,7 +1222,8 @@ def _wgrad_head_tma_geometry(n, d, h, w, ci, co):
                 x_bytes=x_bytes, g_bytes=g_bytes, stage=stage, stages=stages,
                 smem=_TMA_BAR_BYTES + stages * stage, chan_blocks=chan_blocks,
                 splits=splits, grid=(chan_blocks, splits),
-                threads=32 * (2 * K + 1))
+                threads=32 * (2 * K + 1), **_soft_warps(),
+                xspan=_soft_span(xw, 0, tw, w), gspan=_soft_span(gw, 8, tw, w))
 
 
 def _wgrad_tma_splits(tiles, tile_vox, chan_blocks, ci, co):
@@ -1264,7 +1319,9 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     names; ``form='mid'`` / ``'head'`` takes ``wgrad_mma_kernel`` (bf16)
     where a tensor-copy kernel would run and ``wgrad_kernel`` (f32) where
     ``wgrad_tf32_kernel`` would, and ``form='stem'`` takes ``wgrad_kernel``
-    where ``stem_wgrad_tc_kernel`` would, to time the two side by side."""
+    where ``stem_wgrad_tc_kernel`` would, to time the two side by side;
+    ``form='ragged'`` / ``'head_ragged'`` takes the software producer on a
+    view a tensor copy could describe too (bf16 only)."""
     if xk.device.type != "cuda" or gk.device != xk.device:
         raise RuntimeError("wgrad kernel needs CUDA tensors on one device, "
                            "got {} and {}".format(xk.device, gk.device))
@@ -1282,9 +1339,13 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     # bf16 on the tensor cores; f32, and the stem where forced, on the CUDA
     # cores (f32 keeps exact f32 products and sums)
     mma = xk.dtype == torch.bfloat16 and form in ("head", "mid")
-    if form == "tma":
+    if form in ("tma", "ragged", "head_tma", "head_ragged") and (
+            xk.dtype != torch.bfloat16 or gk.dtype != torch.bfloat16):
+        raise TypeError("the {} weight gradient takes bf16 operands, got "
+                        "{}".format(form, xk.dtype))
+    if form in ("tma", "ragged"):
         q = conv5_wgrad_tma_geometry(n, d, h, ww, ci, co)
-    elif form == "head_tma":
+    elif form in ("head_tma", "head_ragged"):
         q = conv5_wgrad_head_tma_geometry(n, d, h, ww, ci, co)
     elif mma:
         q = conv5_wgrad_mma_geometry(n, d, h, ww, ci, co)
@@ -1316,6 +1377,16 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
               lib.conv5_wgrad_head_tma_launch)
         cfg = (q["th"], q["tw"], q["xrows"], q["xw"], q["grows"], q["gw"],
                q["stages"], q["splits"])
+    elif form in ("ragged", "head_ragged"):
+        lib = _wgrad_tma_lib()
+        fn = (lib.conv5_wgrad_ragged_launch if form == "ragged" else
+              lib.conv5_wgrad_head_ragged_launch)
+        xvec, gvec = soft_vec(xk), soft_vec(gk)
+        pw = q["producer_warps_realigned" if min(xvec, gvec) == 0 else
+               "producer_warps"]
+        cfg = (q["th"], q["tw"], q["xrows"], q["xw"], q["grows"], q["gw"],
+               q["stages"], q["splits"], pw, xvec, gvec, *q["xspan"],
+               *q["gspan"])
     elif mma:
         fn = _wgrad_lib().conv5_wgrad_mma_launch
         cfg = (q["nf"], q["th"], q["tw"], q["xcs"], q["gcs"], q["splits"])
@@ -1339,9 +1410,9 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     [5, 5, 5, Ci, Co]. One wrapper for every conv of V-Net (stem, narrow
     head, square and wide stacks): bf16 runs on the tensor cores, the
     square and wide convs through ``wgrad_tma_kernel`` and the narrow heads
-    through ``wgrad_head_tma_kernel`` (tensor-copy rings) where
-    :func:`conv5_wgrad_form` says 'tma' / 'head_tma', else
-    ``wgrad_mma_kernel``, and the stem (Ci = 1, Co <= 16) through
+    through ``wgrad_head_tma_kernel`` (rings fed by tensor copies, or by
+    their software producer on views a tensor copy cannot describe:
+    :func:`conv5_wgrad_form`), and the stem (Ci = 1, Co <= 16) through
     ``stem_wgrad_tc_kernel``; f32 convs but the stem run on the tensor
     cores in split TF32 (``wgrad_tf32_kernel``); f32 and wider bf16 stems
     run on the CUDA cores (``wgrad_kernel``); the voxel axis is reduced

@@ -4,8 +4,8 @@
 ``--wgrad``, on the weight-gradient kernels (``csrc/conv5_wgrad_tma.cu``,
 ``csrc/conv5_wgrad.cu``).
 
-    python -m medicalseg_torch.tools.conv5_times [--wgrad | --wgrad-stem]
-        [--variant SRC.cu]
+    python -m medicalseg_torch.tools.conv5_times [--wgrad | --wgrad-stem |
+        --ragged] [--variant SRC.cu]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -49,6 +49,22 @@ replaced), ``conv3d_weight``, the bound by bytes (x and g read once) and
 the geometry. ``--variant SRC.cu`` builds each candidate of
 ``conv5_stem_wgrad.cu`` (same C interface) and times it beside the built
 kernel with the same checks.
+
+``--ragged``: builds ``conv5_wgrad_tma`` and ``conv5_wgrad`` (registers
+and spills), then holds the tensor-copy kernels' software producer (the
+'ragged' / 'head_ragged' routes) on views a tensor copy cannot describe:
+first small views (W = 9, 12, 4, 2 and 3, Co 20 and 3, a base 2 bytes
+into an allocation, a channel slice, W over several tiles), then the
+spine recipe's ragged weight gradients at batch 3 and the ragged shapes
+of a 96^3 V-Net. Each against ``conv5_wgrad_kl_plain`` (scaled error,
+fatal above 2e-2), a repeat and the tensor copy's route on the same
+values padded to a W that is a multiple of 8 and cut back to W (fatal
+unless bit for bit: the boxes are the same bytes); at the full-size
+shapes the times of the route as routed (``routed``) and with 1, 2, 4
+and 6 producer warps (``pw``),
+``wgrad_mma_kernel`` forced (``old``), ``conv3d_weight``, the pad route
+(the padded copies and the tensor-copy kernel, ``pad``; the kernel alone,
+``pad_kernel``) and the bound.
 """
 import argparse
 import ctypes
@@ -268,6 +284,138 @@ def wgrad_main(variants):
             form, vname, ms))
 
 
+# The spine recipe's ragged weight gradients at batch 3 (configs/
+# mri_spine_seg/vnet_mri_spine_seg_512_512_12_15k_tpu.yml: W runs 12 -> 9 ->
+# 8 -> 4 -> 2; the two levels at W = 8 take the tensor copy) and the ragged
+# shapes of a 96^3 V-Net: (name, [N, D, H, W], Ci, Co, convs a step)
+RAGGED = [("down_tr32", (3, 256, 256, 9), 32, 32, 1),
+          ("down_tr128", (3, 64, 64, 4), 128, 128, 3),
+          ("down_tr256", (3, 32, 32, 2), 256, 256, 2),
+          ("up_tr256", (3, 64, 64, 4), 256, 256, 2),
+          ("up_tr64", (3, 256, 256, 9), 64, 64, 1),
+          ("up_tr32", (3, 512, 512, 12), 32, 32, 1),
+          ("out_tr", (3, 512, 512, 12), 32, 20, 1),
+          ("down_tr128_96", (2, 12, 12, 12), 128, 128, 0),
+          ("up_tr256_96", (2, 12, 12, 12), 256, 256, 0),
+          ("down_tr256_96", (2, 6, 6, 6), 256, 256, 0),
+          ("head3_w12", (2, 12, 12, 12), 32, 3, 0),
+          ("head16_w12", (2, 12, 12, 12), 32, 16, 0)]
+
+
+def padded(t):
+    """``t`` copied into a buffer whose W is a multiple of 8 and cut back
+    to W: a view a tensor copy can describe, the same values."""
+    w = t.shape[4]
+    buf = t.new_zeros(t.shape[:4] + (-(-w // 8) * 8,))
+    buf[..., :w] = t
+    return buf[..., :w]
+
+
+def small_views(gen):
+    """(name, x, g) views of the software producer's cases at small
+    shapes."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    out = []
+    for w, co in ((9, 20), (12, 40), (4, 32), (2, 24), (3, 17), (9, 3),
+                  (12, 16), (4, 3), (100, 36), (100, 5)):
+        out.append(("w{}_co{}".format(w, co), rnd(2, 5, 40, 7, w),
+                    rnd(2, 5, co, 7, w)))
+    flat = rnd(2 * 5 * 40 * 7 * 16 + 1)
+    out.append(("odd_base", flat[1:].view(2, 5, 40, 7, 16),
+                rnd(2, 5, 20, 7, 16)))
+    flat3 = rnd(2 * 5 * 3 * 7 * 16 + 1)
+    out.append(("odd_base_head", rnd(2, 5, 40, 7, 16),
+                flat3[1:].view(2, 5, 3, 7, 16)))
+    wide = rnd(2, 5, 48, 7, 12)
+    out.append(("channel_slice", wide[:, :, 3:43], rnd(2, 5, 36, 7, 12)))
+    out.append(("channel_slice_head", rnd(2, 5, 40, 7, 12),
+                wide[:, :, 5:8]))
+    return out
+
+
+def ragged_check(name, x, g):
+    """The routed ragged weight gradient against the plain version, a
+    repeat and the tensor copy on the padded copies (bit for bit); fatal
+    if any fails. Returns (form, scaled error)."""
+    form = c5.conv5_wgrad_form(x, g, "head")
+    if form not in ("ragged", "head_ragged"):
+        sys.exit("conv5_times: {} routes to {}".format(name, form))
+    got = c5._conv5_wgrad_cuda(x, g, "head")
+    ref = c5.conv5_wgrad_kl_plain(x, g)
+    err = ((got - ref).abs() / (ref.abs().max() + ref.abs())).max().item()
+    same = torch.equal(got, c5._conv5_wgrad_cuda(x, g, "head"))
+    xp, gp = padded(x), padded(g)
+    pad_form = c5.conv5_wgrad_form(xp, gp, "head")
+    as_tma = torch.equal(got, c5._conv5_wgrad_cuda(xp, gp, "head"))
+    print("{:14s} {} {} scaled_err {:.2e} repeats {} = {} {}".format(
+        name, tuple(x.shape), tuple(g.shape), err, same, pad_form, as_tma),
+        flush=True)
+    if not (err <= 2e-2 and same and as_tma and pad_form in (
+            "tma", "head_tma")):
+        sys.exit("conv5_times: {} ragged wgrad disagrees".format(name))
+    return form, err
+
+
+def ragged_main():
+    print(torch.cuda.get_device_name(0))
+    ptxas_lines("conv5_wgrad_tma", "tma")
+    ptxas_lines("conv5_wgrad", "mma")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, x, g in small_views(gen):
+        ragged_check(name, x, g)
+    total = {}
+    for name, (n, d, h, w), ci, co, count in RAGGED:
+        x = torch.randn((n, d, ci, h, w), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        g = torch.randn((n, d, co, h, w), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        form, err = ragged_check(name, x, g)
+        times = {}
+        times["routed"] = time_ms(lambda: c5._conv5_wgrad_cuda(x, g, "head"))
+        saved = c5._SOFT_WARPS, c5._SOFT_WARPS_REALIGNED
+        for pw in (1, 2, 4, 6):
+            c5._SOFT_WARPS = c5._SOFT_WARPS_REALIGNED = pw
+            c5._wgrad_tma_geometry.cache_clear()
+            c5._wgrad_head_tma_geometry.cache_clear()
+            try:
+                times["pw{}".format(pw)] = time_ms(
+                    lambda: c5._conv5_wgrad_cuda(x, g, "head"))
+            finally:
+                c5._SOFT_WARPS, c5._SOFT_WARPS_REALIGNED = saved
+                c5._wgrad_tma_geometry.cache_clear()
+                c5._wgrad_head_tma_geometry.cache_clear()
+        old = "mid" if co > 16 else "head"
+        times["old"] = time_ms(lambda: c5._conv5_wgrad_cuda(
+            x, g, "head", form=old))
+        xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        times["conv3d_weight"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            xn, (co, ci, 5, 5, 5), gn, padding=2))
+        del xn, gn
+        times["pad"] = time_ms(lambda: c5._conv5_wgrad_cuda(
+            padded(x), padded(g), "head"))
+        xp, gp = padded(x), padded(g)
+        times["pad_kernel"] = time_ms(lambda: c5._conv5_wgrad_cuda(
+            xp, gp, "head"))
+        del xp, gp
+        flops = 2.0 * n * d * h * w * 125 * ci * co
+        q = (c5.conv5_wgrad_tma_geometry if form == "ragged" else
+             c5.conv5_wgrad_head_tma_geometry)(n, d, h, w, ci, co)
+        print("{:14s} route {} {} bound {:.4f} vec {} {} geometry {}".format(
+            name, form, " ".join("{} {:.3f}".format(k, v)
+                                 for k, v in times.items()),
+            flops / PEAK_BF16 * 1e3, c5.soft_vec(x), c5.soft_vec(g),
+            {k: q[k] for k in ("th", "tw", "stages", "splits", "chan_blocks",
+                               "xspan", "gspan")}), flush=True)
+        for k, v in times.items():
+            total[k] = total.get(k, 0.0) + count * v
+        del x, g
+    print("per spine step: " + " ".join("{} {:.2f}".format(k, v)
+                                        for k, v in total.items()))
+
+
 def wgrad_stem_main(variants):
     """The stem's weight gradient at its cube and flagship shapes: the
     built kernel and its candidates beside the kernel it replaced and the
@@ -327,6 +475,9 @@ def main():
                         help="time the weight gradients instead")
     parser.add_argument("--wgrad-stem", action="store_true",
                         help="time the stem's weight gradient instead")
+    parser.add_argument("--ragged", action="store_true",
+                        help="time the software producer of the tensor-copy "
+                        "weight gradients on ragged views instead")
     parser.add_argument("--variant", action="append", default=[],
                         help="a candidate conv5_stem.cu (with --wgrad: "
                         "conv5_wgrad_tma.cu, with --wgrad-stem: "
@@ -340,6 +491,8 @@ def main():
         return wgrad_main(args.variant)
     if args.wgrad_stem:
         return wgrad_stem_main(args.variant)
+    if args.ragged:
+        return ragged_main()
     print(torch.cuda.get_device_name(0))
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()

@@ -40,12 +40,15 @@ CUBE_CONVS = [(32, 32, 64), (64, 64, 32), (128, 128, 16), (256, 256, 8),
               (32, 3, 128)]
 # The spine recipes' levels, [N, D, H, W] with their channels. The upstream
 # configs/mri_spine_seg/*_512_512_12_15k.yml (batch 3) see a 512 x 512 x 12
-# volume with strides (2, 2, 1), (2, 2, 1), then (2, 2, 2); the synthetic
-# flagship (configs/synthetic/vnetdeepsup_synspine_15k.yml) 12 x 512 x 512
-# with strides (1, 2, 2), (1, 2, 2), then (2, 2, 2). Heads of 20 classes.
-SPINE_LEVELS = [((3, 512, 512, 12), 16), ((3, 256, 256, 12), 32),
-                ((3, 128, 128, 12), 64), ((3, 64, 64, 6), 128),
-                ((3, 32, 32, 3), 256),
+# volume; their down convs are VALID with kernels (2, 2, 4), (2, 2, 2),
+# (2, 2, 2), (2, 2, 2) and strides (2, 2, 1), (2, 2, 1), (2, 2, 2), (2, 2,
+# 2), so W runs 12 -> 9 -> 8 -> 4 -> 2 (medicalseg_tpu/models/vnet.py). The
+# synthetic flagship (configs/synthetic/vnetdeepsup_synspine_15k.yml) sees
+# 12 x 512 x 512 with strides (1, 2, 2), (1, 2, 2), then (2, 2, 2). Heads of
+# 20 classes.
+SPINE_LEVELS = [((3, 512, 512, 12), 16), ((3, 256, 256, 9), 32),
+                ((3, 128, 128, 8), 64), ((3, 64, 64, 4), 128),
+                ((3, 32, 32, 2), 256),
                 ((3, 12, 512, 512), 16), ((3, 12, 256, 256), 32),
                 ((3, 12, 128, 128), 64), ((3, 6, 64, 64), 128),
                 ((3, 3, 32, 32), 256)]

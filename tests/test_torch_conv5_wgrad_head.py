@@ -130,7 +130,8 @@ def _meta(shape, dtype=torch.bfloat16):
     ("co16", (1, 4, 8, 6, 16), 16, torch.bfloat16, "head_tma"),
     ("co1", (1, 4, 5, 6, 8), 1, torch.bfloat16, "head_tma"),
     ("f32", (2, 8, 32, 8, 16), 3, torch.float32, "tf32"),
-    ("w-not-16-byte-rows", (1, 3, 24, 7, 100), 3, torch.bfloat16, "head"),
+    ("w-not-16-byte-rows", (1, 3, 24, 7, 100), 3, torch.bfloat16,
+     "head_ragged"),
     ("co17", (1, 4, 5, 6, 8), 17, torch.bfloat16, "tma")])
 def test_gate_forms(what, x_shape, co, dtype, form):
     n, d, _, h, w = x_shape
@@ -145,12 +146,13 @@ def test_gate_follows_the_views_a_tensor_copy_can_describe():
     # g as a channel slice of a wider tensor: its own strides, no copy
     wide = torch.zeros((2, 3, 8, 4, 16), dtype=torch.bfloat16)
     assert c5.conv5_wgrad_form(x, wide[:, :, 2:5], "head") == "head_tma"
-    # a base 2 bytes into an allocation
+    # a base 2 bytes into an allocation: the kernel's software producer
     flat = torch.zeros(g.numel() + 1, dtype=g.dtype)
-    assert c5.conv5_wgrad_form(x, flat[1:].view(g.shape), "head") == "head"
+    assert c5.conv5_wgrad_form(x, flat[1:].view(g.shape),
+                               "head") == "head_ragged"
     # rows that do not start on 16 bytes (W = 12, contiguous)
     x12, g12 = x[..., :12].contiguous(), g[..., :12].contiguous()
-    assert c5.conv5_wgrad_form(x12, g12, "head") == "head"
+    assert c5.conv5_wgrad_form(x12, g12, "head") == "head_ragged"
     # a bf16 stem takes stem_wgrad_tc_kernel, whatever its views
     assert c5.conv5_wgrad_form(x, g, "stem") == "stem_tc"
 

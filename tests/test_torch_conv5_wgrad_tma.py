@@ -121,15 +121,16 @@ def test_gate_sends_every_main_path_view_to_the_tma_kernel(ci, edge):
 
 
 @pytest.mark.parametrize("what,x_shape,co,dtype,kind,form", [
-    ("ragged-w100", (1, 3, 24, 7, 100), 33, torch.bfloat16, "head", "mid"),
-    ("ragged-w10", (1, 5, 3, 9, 10), 40, torch.bfloat16, "head", "mid"),
+    ("ragged-w100", (1, 3, 24, 7, 100), 33, torch.bfloat16, "head",
+     "ragged"),
+    ("ragged-w10", (1, 5, 3, 9, 10), 40, torch.bfloat16, "head", "ragged"),
     ("f32", (2, 8, 64, 8, 16), 64, torch.float32, "head", "tf32"),
     ("narrow-head", (2, 8, 32, 8, 16), 3, torch.bfloat16, "head",
      "head_tma"),
     ("co16", (2, 8, 32, 8, 16), 16, torch.bfloat16, "head", "head_tma"),
     ("narrow-head-f32", (2, 8, 32, 8, 16), 3, torch.float32, "head", "tf32"),
     ("narrow-head-w12", (2, 8, 32, 8, 12), 3, torch.bfloat16, "head",
-     "head"),
+     "head_ragged"),
     ("stem", (2, 8, 1, 8, 16), 16, torch.bfloat16, "stem", "stem_tc"),
     ("stem-f32", (2, 8, 1, 8, 16), 16, torch.float32, "stem", "stem"),
     ("co17", (1, 4, 5, 6, 8), 17, torch.bfloat16, "head", "tma")])
@@ -147,12 +148,12 @@ def test_gate_follows_the_views_a_tensor_copy_can_describe():
     view = x.transpose(1, 2).contiguous().transpose(1, 2)
     assert not view.is_contiguous()
     assert c5.conv5_wgrad_form(view, g, "head") == "tma"
-    # a base 2 bytes into an allocation
+    # a base 2 bytes into an allocation: the kernel's software producer
     flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
-    assert c5.conv5_wgrad_form(flat[1:].view(x.shape), g, "head") == "mid"
+    assert c5.conv5_wgrad_form(flat[1:].view(x.shape), g, "head") == "ragged"
     # rows that do not start on 16 bytes (W = 12, contiguous)
     x12, g12 = x[..., :12].contiguous(), g[..., :12].contiguous()
-    assert c5.conv5_wgrad_form(x12, g12, "head") == "mid"
+    assert c5.conv5_wgrad_form(x12, g12, "head") == "ragged"
     # the same extent cut from W = 16: rows 32 bytes apart, a tensor copy
     # reads it with zeros past column 12
     assert c5.conv5_wgrad_form(x[..., :12], g[..., :12], "head") == "tma"
@@ -163,9 +164,10 @@ def test_gate_follows_the_views_a_tensor_copy_can_describe():
 def test_main_path_hands_the_weight_gradient_contiguous_operands(
         monkeypatch):
     """A bf16 V-Net backward on the CPU, the weight-gradient wrapper
-    recorded: every square and wide conv's operands are contiguous, and
-    those at a W that is a multiple of 8 (16 and 8 at this input; every
-    level at 128^3) are the tensor-copy kernel's."""
+    recorded: every square and wide conv's operands are contiguous, those
+    at a W that is a multiple of 8 (16 and 8 at this input; every level at
+    128^3) go to the tensor copy and the rest to the same kernel's software
+    producer."""
     seen = []
     plain = c5.conv5_wgrad_kl
 
@@ -184,7 +186,7 @@ def test_main_path_hands_the_weight_gradient_contiguous_operands(
     assert len(seen) == 16
     wide = [s for s in seen if s[1] == "head" and s[2] > 16]
     assert len(wide) == 14 and all(s[0] for s in seen)
-    assert all(s[4] == ("tma" if s[3] % 8 == 0 else "mid") for s in wide)
+    assert all(s[4] == ("tma" if s[3] % 8 == 0 else "ragged") for s in wide)
     assert sum(s[4] == "tma" for s in wide) == 3
 
 

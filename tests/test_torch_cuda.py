@@ -26,6 +26,7 @@ from medicalseg_torch.models.losses import (CrossEntropyLoss, DiceLoss,
 from medicalseg_torch.ops import conv5 as c5
 from medicalseg_torch.ops import hu_resize as hr
 from medicalseg_torch.ops import intensity, resize
+from medicalseg_torch.tools.conv5_times import padded
 
 pytestmark = pytest.mark.cuda
 
@@ -303,9 +304,10 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     got = c5.conv5_wgrad_kl(x, g, kind)
     torch.cuda.synchronize()
     form = c5.conv5_wgrad_form(x, g, kind)
-    # bf16 convs on W-aligned views take a tensor-copy kernel (square and
-    # wide: wgrad_tma_kernel, narrow heads: wgrad_head_tma_kernel); the
-    # ragged views (W = 100, W = 10) keep wgrad_mma_kernel
+    # bf16 convs take the tensor-copy kernels (square and wide:
+    # wgrad_tma_kernel, narrow heads: wgrad_head_tma_kernel), fed by tensor
+    # copies on W-aligned views and by their software producer on the
+    # ragged ones (W = 100, W = 10, W = 3)
     copyable = (dtype == torch.bfloat16 and kind == "head" and
                 shape[4] % 8 == 0)
     # bf16 stems take the tensor-core stem kernel, f32 stems wgrad_kernel;
@@ -313,8 +315,8 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     assert form == (("stem_tc" if dtype == torch.bfloat16 else "stem")
                     if kind == "stem" else
                     "tf32" if dtype == torch.float32 else
-                    ("head_tma" if copyable else "head") if co <= 16 else
-                    ("tma" if copyable else "mid"))
+                    ("head_tma" if copyable else "head_ragged") if co <= 16
+                    else ("tma" if copyable else "ragged"))
     assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
     assert sum(c5.LAUNCHES.values()) == 1
     assert got.shape == (5, 5, 5, shape[2], co)
@@ -452,18 +454,19 @@ def test_stem_wgrad_tc_kernel_reads_strided_views(dev):
 
 def test_wgrad_head_tma_kernel_raises_on_a_view_it_cannot_take(dev):
     """A base 2 bytes into an allocation is not a view a tensor copy can
-    describe: the gate sends it to wgrad_mma_kernel<1>, and forced onto
-    the tensor-copy kernel the launch is refused and the wrapper raises;
-    nothing falls back to the plain version."""
+    describe: the gate sends it to the software producer of
+    wgrad_head_tma_kernel, and forced onto the tensor copy the launch is
+    refused and the wrapper raises; nothing falls back to the plain
+    version."""
     x, g = _wgrad_operands((1, 3, 32, 8, 16), 3, dev, seed=13)
     flat = torch.empty(g.numel() + 1, dtype=g.dtype, device=dev)
     view = flat[1:].view(g.shape)
     view.copy_(g)
-    assert c5.conv5_wgrad_form(x, view, "head") == "head"
+    assert c5.conv5_wgrad_form(x, view, "head") == "head_ragged"
     c5.reset_launches()
     _scaled_close(c5.conv5_wgrad_kl(x, view), c5.conv5_wgrad_kl_plain(
         x, view), torch.bfloat16)
-    assert c5.LAUNCHES["conv5_wgrad_head"] == 1
+    assert c5.LAUNCHES["conv5_wgrad_head_ragged"] == 1
     with pytest.raises(RuntimeError, match="launch failed"):
         c5._conv5_wgrad_cuda(x, view, "head", form="head_tma")
     assert c5.LAUNCHES["conv5_wgrad_head_tma"] == 0
@@ -474,8 +477,8 @@ def test_wgrad_head_tma_kernel_raises_on_a_view_it_cannot_take(dev):
 def test_wgrad_tma_kernel_views(dev, what):
     """A transposed [N, C, D, H, W] tensor is a view the tensor copy can
     describe (its own strides, no copy); a base 2 bytes into an allocation
-    or W = 20 is not, and goes to wgrad_mma_kernel<4>. Both agree with the
-    plain version."""
+    or W = 20 is not, and goes to the kernel's software producer. Both
+    agree with the plain version."""
     x, g = _wgrad_operands((2, 5, 32, 8, 24), 64, dev, seed=11)
     if what == "ncdhw-view":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
@@ -488,13 +491,102 @@ def test_wgrad_tma_kernel_views(dev, what):
         x = view
     else:
         x, g = x[..., :20].contiguous(), g[..., :20].contiguous()
-    want = "tma" if what.endswith("view") else "mid"
+    want = "tma" if what.endswith("view") else "ragged"
     assert c5.conv5_wgrad_form(x, g, "head") == want
     c5.reset_launches()
     got = c5.conv5_wgrad_kl(x, g)
     torch.cuda.synchronize()
     assert c5.LAUNCHES["conv5_wgrad_" + want] == 1
     _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
+
+
+# The tensor-copy kernels' software producer ('ragged', 'head_ragged') on
+# views a tensor copy cannot describe: (what, [N, D, Ci, H, W], Co, view)
+# at W = 9, 12, 4 and 2 (realigned loads, cp.async of 8 and 4 bytes), Co 20
+# and 3, a base 2 bytes into an allocation, a channel slice, W over several
+# tiles
+RAGGED_CASES = [("w9-co20", (2, 5, 40, 9, 9), 20, None),
+                ("w12-co20", (2, 5, 32, 9, 12), 20, None),
+                ("w4-co40", (2, 6, 36, 8, 4), 40, None),
+                ("w2-co20", (2, 6, 32, 8, 2), 20, None),
+                ("w9-co3", (2, 5, 32, 9, 9), 3, None),
+                ("w12-co3", (2, 5, 40, 9, 12), 3, None),
+                ("w4-co3", (2, 6, 32, 8, 4), 3, None),
+                ("w2-co16", (2, 6, 32, 8, 2), 16, None),
+                ("w100-co36", (1, 3, 24, 7, 100), 36, None),
+                ("odd-base-co20", (2, 4, 32, 8, 16), 20, "odd"),
+                ("odd-base-co3", (2, 4, 32, 8, 16), 3, "odd"),
+                ("channel-slice-co20", (2, 4, 32, 8, 12), 20, "slice"),
+                ("channel-slice-co3", (2, 4, 32, 8, 12), 3, "slice")]
+
+
+def _ragged_view(x, how):
+    """``x`` as the view ``how`` names, same values: a base 2 bytes into
+    an allocation, or channels 3.. of a wider tensor."""
+    if how == "odd":
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = flat[1:].view(x.shape)
+    elif how == "slice":
+        n, d, c, h, w = x.shape
+        view = torch.empty((n, d, c + 7, h, w), dtype=x.dtype,
+                           device=x.device)[:, :, 3:3 + c]
+    else:
+        return x
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("what,shape,co,how", RAGGED_CASES,
+                         ids=[c[0] for c in RAGGED_CASES])
+def test_wgrad_ragged_matches_plain_and_the_tensor_copy(dev, what, shape, co,
+                                                        how):
+    """Against the plain version (scaled bf16 tolerance); bit for bit on a
+    second launch; and bit for bit the tensor copy's route on the same
+    values padded to a W that is a multiple of 8 (the producer fills the
+    same boxes, byte for byte)."""
+    x, g = _wgrad_operands(shape, co, dev, seed=len(what))
+    x = _ragged_view(x, how)
+    if how == "odd":
+        g = _ragged_view(g, how)
+    form = "ragged" if co > 16 else "head_ragged"
+    assert c5.conv5_wgrad_form(x, g, "head") == form
+    c5.reset_launches()
+    got = c5._conv5_wgrad_cuda(x, g, "head")
+    torch.cuda.synchronize()
+    assert c5.LAUNCHES["conv5_wgrad_" + form] == 1
+    assert sum(c5.LAUNCHES.values()) == 1
+    _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
+    assert torch.equal(got, c5._conv5_wgrad_cuda(x, g, "head"))
+    xp, gp = padded(x), padded(g)
+    assert c5.conv5_wgrad_form(xp, gp, "head") == form.replace("ragged",
+                                                               "tma")
+    assert torch.equal(got, c5._conv5_wgrad_cuda(xp, gp, "head"))
+
+
+@pytest.mark.parametrize("co", [32, 3])
+def test_wgrad_ragged_equals_the_tensor_copy_on_a_view_both_take(dev, co):
+    """Forced onto a contiguous W = 16 view, the software producer gives
+    the tensor copy's bits."""
+    x, g = _wgrad_operands((2, 5, 40, 9, 16), co, dev, seed=co)
+    tma, ragged = ("tma", "ragged") if co > 16 else ("head_tma",
+                                                     "head_ragged")
+    assert c5.conv5_wgrad_form(x, g, "head") == tma
+    assert torch.equal(c5._conv5_wgrad_cuda(x, g, "head", form=ragged),
+                       c5._conv5_wgrad_cuda(x, g, "head"))
+
+
+def test_wgrad_ragged_raises_on_views_it_cannot_take(dev):
+    """W not the contiguous axis, or f32 forced onto the bf16 producer:
+    the wrapper raises; nothing falls back to another kernel or to the
+    plain version."""
+    x, g = _wgrad_operands((2, 5, 32, 9, 9), 20, dev, seed=3)
+    xt = x.transpose(3, 4).contiguous().transpose(3, 4)
+    c5.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        c5.conv5_wgrad_kl(xt, g)
+    with pytest.raises(TypeError, match="bf16"):
+        c5._conv5_wgrad_cuda(x.float(), g.float(), "head", form="ragged")
+    assert sum(c5.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -752,9 +844,10 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
             c5.LAUNCHES["conv5_stem_tc"]) == (fwd, fwd)
     assert c5.LAUNCHES["conv5_dgrad_tf32" if f32 else "conv5_dgrad"] == 15
     # the 14 square and wide weight gradients: in bf16 the tensor-copy
-    # kernel where W is a multiple of 8 (7 convs at 32, 16 and 8 at this
-    # input; all 14 at 128^3) and wgrad_mma_kernel<4> at W = 4 and 2; in
-    # f32, with the narrow head, the split-TF32 kernel
+    # kernel, fed by tensor copies where W is a multiple of 8 (7 convs at
+    # 32, 16 and 8 at this input; all 14 at 128^3) and by its software
+    # producer at W = 4 and 2; in f32, with the narrow head, the
+    # split-TF32 kernel
     # the narrow head: its tensor-copy kernel in bf16 (W = 32)
     # the stem: stem_wgrad_tc_kernel in bf16, the CUDA-core kernel in f32
     wide = (0, 0) if f32 else (7, 7)
@@ -762,10 +855,12 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     stem = (1, 0) if f32 else (0, 1)
     assert (c5.LAUNCHES["conv5_wgrad_stem"],
             c5.LAUNCHES["conv5_wgrad_stem_tc"],
-            c5.LAUNCHES["conv5_wgrad_head"],
+            c5.LAUNCHES["conv5_wgrad_head_ragged"],
             c5.LAUNCHES["conv5_wgrad_head_tma"],
-            c5.LAUNCHES["conv5_wgrad_mid"],
+            c5.LAUNCHES["conv5_wgrad_ragged"],
             c5.LAUNCHES["conv5_wgrad_tma"]) == stem + head + wide
+    assert c5.LAUNCHES["conv5_wgrad_head"] == c5.LAUNCHES[
+        "conv5_wgrad_mid"] == 0
     assert c5.LAUNCHES["conv5_wgrad_tf32"] == (15 if f32 else 0)
     assert c5.LAUNCHES["conv5_fused_epilogue"] == 0
     for name, p in state.model.named_parameters():

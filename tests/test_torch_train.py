@@ -26,12 +26,14 @@ import torch
 from medicalseg_tpu.core import state as jstate
 from medicalseg_tpu.models import VNet as JVNet
 from medicalseg_tpu.models import losses as jlosses
+from medicalseg_tpu.utils import loss_utils as jlu
 from medicalseg_torch.core.state import (TrainState, make_eval_step,
                                          make_train_step)
 from medicalseg_torch.cvlibs import config as tconfig
 from medicalseg_torch.cvlibs.config import Config
 from medicalseg_torch.models import VNet
 from medicalseg_torch.models import losses as tlosses
+from medicalseg_torch.utils import loss_utils as tlu
 from medicalseg_torch.utils import transplant
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +43,18 @@ LR, END_LR, POWER, DECAY_STEPS = 0.01, 0.0, 0.9, 20
 MOMENTUM, WEIGHT_DECAY = 0.9, 1e-4
 N_CLASSES = 2
 SHAPE = (2, 16, 16, 16)
+# The upstream spine recipe's kernels and strides (configs/mri_spine_seg/
+# vnet_mri_spine_seg_512_512_12_15k_tpu.yml: VALID down convs, W 12 -> 9 ->
+# 8 -> 4 -> 2) at a small D and H. The port's step runs in bf16 as that
+# config does and is held to the JAX package's step in f32, each leaf
+# within chip_smoke.py's bf16 bound, 0.35 relative L2 (a conv bias that
+# feeds a BatchNorm relative to its conv's weight gradient). Measured: the
+# port's bf16 step 0.16 (median leaf) and 0.29 (worst) from the JAX f32
+# step; the JAX bf16 step on the CPU itself sits 0.51 (median) from it.
+SPINE_KS = ((2, 2, 4), (2, 2, 2), (2, 2, 2), (2, 2, 2))
+SPINE_SS = ((2, 2, 1), (2, 2, 1), (2, 2, 2), (2, 2, 2))
+SPINE_SHAPE = (2, 32, 32, 12)
+SPINE_GRAD_REL_L2 = 0.35
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -169,6 +183,56 @@ def test_five_step_trajectory_and_batchnorm_statistics_match_jax():
             moved["batch_stats"]["InputTransition_0"]["BatchNorm3D_0"][stat],
             ref["batch_stats"]["InputTransition_0"]["BatchNorm3D_0"][stat],
             atol=2e-2, rtol=2e-2)
+
+
+def test_spine_recipe_bf16_step_gradients_match_jax():
+    """One train step of the spine recipe's VNet in bf16 (batch statistics,
+    no dropout, MixedLoss(CE + Dice)) against the JAX package's step in
+    f32 from the same weights: the loss within 1e-2, every leaf's gradient
+    within its relative-L2 bound."""
+    rng = np.random.RandomState(11)
+    images = rng.rand(*SPINE_SHAPE, 1).astype(np.float32)
+    labels = rng.randint(0, N_CLASSES, SPINE_SHAPE).astype(np.int32)
+    jmodel = JVNet(in_channels=1, num_classes=N_CLASSES, dropout=False,
+                   kernel_size=SPINE_KS, stride_size=SPINE_SS,
+                   head_conv="pallas", mid_conv="pallas")
+    variables = jax.device_get(jax.jit(
+        lambda k, a: jmodel.init(k, a, train=False))(
+            jax.random.PRNGKey(5), jnp.asarray(images)))
+    jl = {"types": [jlosses.MixedLoss(
+        [jlosses.CrossEntropyLoss(), jlosses.DiceLoss()], [1.0, 1.0])],
+        "coef": [1]}
+
+    def loss_fn(params):
+        outs, _ = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jnp.asarray(images), train=True, mutable=["batch_stats"])
+        loss_list, _ = jlu.loss_computation(outs, jnp.asarray(labels), jl)
+        return sum(loss_list)
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
+    port = VNet(num_classes=N_CLASSES, dropout=False, kernel_size=SPINE_KS,
+                stride_size=SPINE_SS, dtype=torch.bfloat16)
+    port.load_state_dict(transplant.state_dict_from_flax(variables))
+    outs = port.train()(torch.from_numpy(images))
+    loss_list, _ = tlu.loss_computation(outs, torch.from_numpy(labels).long(),
+                                        _port_losses())
+    loss = sum(loss_list)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-2)
+    # the JAX gradients in the port's names and layouts
+    want = transplant.state_dict_from_flax(
+        {"params": jax.device_get(jgrads),
+         "batch_stats": variables["batch_stats"]})
+    grads = dict(port.named_parameters())
+    assert len(grads) > 100
+    for name, p in grads.items():
+        ref = want[name].float()
+        scale = ref.norm()
+        if name.endswith(("conv1.bias", "down_conv.bias", "up_conv.bias")):
+            scale = want[name[:-4] + "weight"].float().norm()
+        rel = ((p.grad.float() - ref).norm() / scale.clamp_min(1e-30)).item()
+        assert rel <= SPINE_GRAD_REL_L2, (name, rel)
 
 
 @pytest.mark.parametrize("done", [1, 2, 3, 4])

@@ -23,6 +23,8 @@ from medicalseg_torch.utils import flax_from_state_dict, state_dict_from_flax
 
 SPINE_KS = ((4, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2))
 SPINE_SS = ((1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2))
+RECIPE_KS = ((2, 2, 4), (2, 2, 2), (2, 2, 2), (2, 2, 2))
+RECIPE_SS = ((2, 2, 1), (2, 2, 1), (2, 2, 2), (2, 2, 2))
 GEOMETRIES = {
     "cube": dict(shape=(1, 16, 16, 16, 1)),
     "cube_pallas": dict(shape=(1, 16, 16, 16, 1), head_conv="pallas",
@@ -32,7 +34,21 @@ GEOMETRIES = {
     "spine_pallas": dict(shape=(1, 8, 32, 32, 1), kernel_size=SPINE_KS,
                          stride_size=SPINE_SS, head_conv="pallas",
                          mid_conv="pallas"),
+    # the upstream spine recipe as its bf16 config runs it
+    # (configs/mri_spine_seg/vnet_mri_spine_seg_512_512_12_15k_tpu.yml):
+    # VALID down convs over W, so W runs 12 -> 9 -> 8 -> 4 -> 2
+    "spine_recipe_bf16": dict(shape=(2, 32, 32, 12, 1),
+                              kernel_size=RECIPE_KS, stride_size=RECIPE_SS,
+                              head_conv="pallas", mid_conv="pallas",
+                              dtype=jnp.bfloat16),
 }
+# bf16 logits of two frameworks round at other places through 31 layers:
+# the package's bf16 tolerance (5e-3, tests/test_pallas_conv5.py's bound
+# for one conv) holds as the mean absolute difference over the volume, the
+# argmax as the serving bound (99.5% of voxels), and each logit within
+# four bf16 ulps of the logits' magnitude (1-2): 2^-5. Measured: mean
+# 1.55e-3, argmax 99.70%, worst 0.0273.
+BF16_MEAN_ABS, BF16_ARGMAX, BF16_MAX_ABS = 5e-3, 0.995, 2.0 ** -5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,6 +90,8 @@ def _jax_vnet(name, dropout=True):
 def _port_vnet(name, variables, dropout=True):
     g = {k: v for k, v in GEOMETRIES[name].items()
          if k in ("kernel_size", "stride_size")}
+    if GEOMETRIES[name].get("dtype") == jnp.bfloat16:
+        g["dtype"] = torch.bfloat16
     model = VNet(num_classes=3, dropout=dropout, **g)
     model.load_state_dict(state_dict_from_flax(variables))
     return model
@@ -87,7 +105,15 @@ def test_vnet_eval_matches_jax(name):
     port = _port_vnet(name, variables).eval()
     with torch.no_grad():
         got = port(torch.from_numpy(x))[0]
-    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert got.shape == ref.shape
+    if GEOMETRIES[name].get("dtype") == jnp.bfloat16:
+        got, ref = got.float().numpy(), ref.astype(np.float32)
+        diff = np.abs(got - ref)
+        assert diff.mean() <= BF16_MEAN_ABS
+        assert diff.max() <= BF16_MAX_ABS
+        assert (got.argmax(-1) == ref.argmax(-1)).mean() >= BF16_ARGMAX
+        return
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-3)
 
 
