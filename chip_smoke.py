@@ -14,7 +14,7 @@ JSON line; any failure raises and the script exits non-zero:
    parallel) and report the seconds.
 3. kernels: at every 5^3 conv shape of the 128^3 batch-2 V-Net forward,
    hold each kernel (head, bf16 stem, fused epilogue; the f32 stem's
-   ``conv5_kernel``) against its plain PyTorch
+   ``stem_tf32_kernel``) against its plain PyTorch
    version in bf16 (atol = rtol = 2e-2, one bf16 ulp at the outputs'
    magnitude) and f32 (atol = rtol = 1e-4, TF32 off: summation order
    only), and the pin kernel against ``contiguous()`` on the permuted
@@ -39,13 +39,22 @@ JSON line; any failure raises and the script exits non-zero:
    taken out (ten calls replayed from one CUDA graph): at the small views
    a host-timed call measures the wrapper's Python, not the copy.
    Per conv also the f32 columns (``f32_*``): the routed kernel (the head
-   convs' split-TF32 ``conv5_tf32_kernel``, the stem's ``conv5_kernel``)
-   unfused and fused, ``conv5_kernel`` forced in the same process
-   (``ms_old``), the plain version timed once, ``F.conv3d`` in strict f32
-   (TF32 off: the library column) and with TF32 on (``library_tf32_ms``, a
-   side column: cuDNN's default, a less exact function), the bound in
-   split TF32 (three TF32 products a term at 495 TF/s, or the bytes at 4
-   bytes an element), a fatal bit-for-bit repeat and the geometry.
+   convs' split-TF32 ``conv5_tf32_kernel``, the stem's split-TF32
+   ``stem_tf32_kernel``) unfused and fused, ``conv5_kernel`` forced in the
+   same process (``ms_old``), the plain version timed once, ``F.conv3d``
+   in strict f32 (TF32 off: the library column) and with TF32 on
+   (``library_tf32_ms``, a side column: cuDNN's default, a less exact
+   function), the bound in split TF32 (three TF32 products a term at 495
+   TF/s, or the bytes at 4 bytes an element), a fatal bit-for-bit repeat
+   and the geometry; for the stem also the device times of both kernels
+   unfused and fused (``f32_device_ms``, ``f32_device_ms_old``, each also
+   ``_fused``: ten calls replayed from one CUDA graph). Then the f32 stem
+   at ``F32_STEMS`` (the upstream spine recipes' [3, 512, 1, 512, 12], the
+   cube's H block behind a 2-row halo, a ragged view 4 bytes into its
+   allocation) with the same columns, held to its plain version at 1e-4.
+   At every f32 stem shape ``conv5_kernel`` forced, unfused and fused, is
+   held to the plain version too (``err_float32_old_*``, fatal): it stays
+   for stems wider than 16 channels and every forced comparison.
 4. serve: four seeded 128^3 volumes through
    ``medicalseg_torch.deploy.infer.Predictor`` (the lung ``_tpu`` config's
    model section, a seeded init with non-trivial BN statistics, bf16,
@@ -101,10 +110,14 @@ JSON line; any failure raises and the script exits non-zero:
    ``torch.nn.grad.conv3d_input`` / ``conv3d_weight`` as the library
    yardstick, and for the input gradient the same packing, geometry,
    ratio and repeat columns as the forward's. The f32 columns as in phase
-   3 (``wgrad_f32_*``, ``dgrad_f32_*``): ``wgrad_tf32_kernel`` beside
-   ``wgrad_kernel`` forced, the input gradient's ``conv5_tf32_kernel``
-   beside ``conv5_kernel`` forced. Then the bf16 weight gradients on views
-   a tensor copy cannot describe (``ragged``: the tensor-copy kernels fed
+   3 (``wgrad_f32_*``, ``dgrad_f32_*``): ``wgrad_tf32_kernel`` (the stem's
+   ``stem_wgrad_tf32_kernel``, with both device times and its geometry)
+   beside ``wgrad_kernel`` forced, the input gradient's
+   ``conv5_tf32_kernel`` beside ``conv5_kernel`` forced; the stem's weight
+   gradient also at ``F32_STEMS``, scaled error within 1e-4, the same
+   columns; at every f32 stem shape ``wgrad_kernel`` forced is held to the
+   plain version as well (``wgrad_rel_err_float32_old``, fatal). Then the
+   bf16 weight gradients on views a tensor copy cannot describe (``ragged``: the tensor-copy kernels fed
    by their software producer, 'ragged' / 'head_ragged', at the 12^3 and
    6^3 levels of a 96^3 V-Net and at narrow heads of W = 12) against their
    plain versions, with time, plain, ``conv3d_weight``, bound, a fatal
@@ -150,10 +163,16 @@ JSON line; any failure raises and the script exits non-zero:
    steps with the counts set to 0 just before them: exactly 15 head
    forwards, 15 input gradients and 15 weight gradients a step on the
    split-TF32 kernels, the stem's forward and weight gradient on
-   ``conv5_kernel`` / ``wgrad_kernel``, 8 pins, nothing else; the loss
-   falls. Prints the median host ms of the three steps, a profiled step's
-   device ms and idle share, the peak memory, then the same with the old
-   CUDA-core kernels forced in the same process (their counts exact too).
+   ``stem_tf32_kernel`` / ``stem_wgrad_tf32_kernel``, 8 pins, nothing
+   else; the loss falls. Prints the median host ms of the three steps, a
+   profiled step's device ms and idle share, the peak memory, then the
+   same with the stem's CUDA-core kernels forced (``old_stems``) and with
+   every CUDA-core kernel forced (``old``) in the same process (their
+   counts exact too). A profiled window must hold every hand-kernel launch
+   the wrappers counted over it (taken again, up to three windows; else
+   its device figures are None and its counts are printed beside the
+   wrappers'); the stems' own device ms in it (``stems_device_ms``) give
+   ``old_stems_minus_new_device_ms``.
 9c. train_spine: the repo's bf16 spine recipe
    (``configs/mri_spine_seg/vnet_mri_spine_seg_512_512_12_15k_tpu.yml``:
    VNet, 20 classes, bf16, remat, VALID down convs, so W runs 12 -> 9 -> 8
@@ -170,6 +189,21 @@ JSON line; any failure raises and the script exits non-zero:
    (``medicalseg_torch.tools.trace_ops`` on the step's Chrome trace), the
    peak memory; then the same with ``wgrad_mma_kernel`` forced in the
    same process (its counts exact too).
+9d. train_spine_f32: the upstream f32 spine recipe
+   (``configs/mri_spine_seg/vnet_mri_spine_seg_512_512_12_15k.yml``: the
+   same VNet, float32, no remat) built by ``Config`` at its batch of 3 on
+   a seeded [3, 512, 512, 12, 1] batch with labels in [0, 20), the step
+   only. Step 1 against the plain path from the same state and masks
+   (loss within 1e-5 relative, every leaf within ``GRAD_REL_L2_F32``);
+   then one untimed and three timed steps with the counts set to 0 just
+   before them: exactly 15 head forwards, 15 input gradients and 15
+   weight gradients a step on the split-TF32 head kernels (W = 12, 9, 8,
+   4, 2), the stem's forward and weight gradient on the split-TF32 stem
+   kernels, at least 8 pins a step; the loss falls. Prints the median
+   host ms of the three, a profiled step's device ms, idle share and
+   device time by ``trace_ops`` category (the window whole, as in 9b), the
+   peak memory; then the same with the stem's CUDA-core kernels forced in
+   the same process (its counts exact too).
 10. train_flagship: the flagship config
    (``configs/synthetic/vnetdeepsup_synspine_15k.yml``: VNetDeepSup,
    bf16, per-block remat, 20 classes, four MixedLoss heads, SGD with
@@ -368,9 +402,10 @@ JSON line; any failure raises and the script exits non-zero:
 Then one ``{"kernels": [...]}`` line (times summed over the convs of one
 forward or backward; ``launches`` of the forward kernels from the serve
 phase, of ``hu_resize`` from serve_raw, of the backward kernels from the
-train phase, of the f32 kernels from train_f32, of ``conv5_wgrad_ragged``
-from train_spine, its times summed over the spine step's eleven ragged
-weight gradients) and, last, the ``{"ok": ...}`` line.
+train phase, of the f32 kernels from train_f32 (each also launched on
+train_spine_f32's path), of ``conv5_wgrad_ragged`` from train_spine, its
+times summed over the spine step's eleven ragged weight gradients) and,
+last, the ``{"ok": ...}`` line.
 """
 
 import contextlib
@@ -439,6 +474,10 @@ SPINE = os.path.join(ROOT, "configs", "synthetic",
 SPINE_TPU = os.path.join(ROOT, "configs", "mri_spine_seg",
                          "vnet_mri_spine_seg_512_512_12_15k_tpu.yml")
 SPINE_VOLUME = (512, 512, 12)  # D, H, W of its volumes as the model sees them
+# the upstream f32 spine recipe: the same VNet with no dtype and no remat
+# (train_spine_f32)
+SPINE_F32 = os.path.join(ROOT, "configs", "mri_spine_seg",
+                         "vnet_mri_spine_seg_512_512_12_15k.yml")
 # The 5^3 head convs of one spine forward at batch 3: (name, Ci, Co, [N, D,
 # H, W], convs a step). W of 9, 4, 2 and 12 gives rows a tensor copy cannot
 # describe; the two levels at W = 8 are the describable ones, for contrast.
@@ -453,6 +492,13 @@ SPINE_CONVS = [("down_tr32", 32, 32, (3, 256, 256, 9), 1),
                ("out_tr", 32, 20, (3, 512, 512, 12), 1)]
 BATCH = 2
 EDGE = 128  # served volume edge
+# the f32 stem's shapes beside the cube's (CONVS' in_tr), [N, D, 1, H, W]:
+# the upstream spine recipes' stem, the cube's H block behind a 2-row halo
+# on each side (a rank of a space-2 mesh: H / 2 + 4 rows), and a ragged
+# view (rows of 100, a base 4 bytes into its allocation; g a channel slice)
+F32_STEMS = [("in_tr_spine", (3, 512, 512, 12)),
+             ("in_tr_halo_h", (BATCH, EDGE, EDGE // 2 + 4, EDGE)),
+             ("in_tr_ragged", (1, 64, 96, 100))]
 # the flagship's stem input as the weight gradient sees it: [N, D, 1, H, W]
 # (configs/synthetic/vnetdeepsup_synspine_15k.yml: batch 3, 12 x 512 x 512)
 FLAGSHIP_STEM = (3, 12, 512, 512)
@@ -489,11 +535,12 @@ BWD_KERNELS = ("conv5_dgrad", "conv5_wgrad_stem_tc",
 # the spine recipe's ragged weight gradients (train_spine): the tensor-copy
 # kernel fed by its software producer
 SPINE_KERNELS = ("conv5_wgrad_ragged",)
-# the f32 route (the upstream f32 recipes, train_f32): the split-TF32 head
-# kernels and the stem's CUDA-core kernels; each f32 form's stats key by kind
-F32_FWD = {"head": "conv5_head_tf32", "stem": "conv5_stem"}
+# the f32 route (the upstream f32 recipes, train_f32, train_spine_f32): the
+# split-TF32 kernels, the head convs' and the stem's; each f32 form's stats
+# key by kind
+F32_FWD = {"head": "conv5_head_tf32", "stem": "conv5_stem_tf32"}
 F32_DGRAD = "conv5_dgrad_tf32"
-F32_WGRAD = {"head": "conv5_wgrad_tf32", "stem": "conv5_wgrad_stem"}
+F32_WGRAD = {"head": "conv5_wgrad_tf32", "stem": "conv5_wgrad_stem_tf32"}
 F32_KERNELS = tuple(F32_FWD.values()) + (F32_DGRAD,) + tuple(
     F32_WGRAD.values())
 SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
@@ -509,8 +556,9 @@ SOURCES = {"conv5_head": "medicalseg_torch/csrc/conv5_wg.cu",
            "conv5_head_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
            "conv5_dgrad_tf32": "medicalseg_torch/csrc/conv5_tf32.cu",
            "conv5_wgrad_tf32": "medicalseg_torch/csrc/conv5_wgrad_tf32.cu",
-           "conv5_stem": "medicalseg_torch/csrc/conv5.cu",
-           "conv5_wgrad_stem": "medicalseg_torch/csrc/conv5_wgrad.cu"}
+           "conv5_stem_tf32": "medicalseg_torch/csrc/conv5_stem_tf32.cu",
+           "conv5_wgrad_stem_tf32":
+               "medicalseg_torch/csrc/conv5_stem_wgrad_tf32.cu"}
 REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_stem_tc": "medicalseg_tpu/ops/pallas_conv5.py:423",
             "conv5_fused_epilogue": "medicalseg_tpu/ops/pallas_conv5.py:1288",
@@ -524,8 +572,8 @@ REPLACES = {"conv5_head": "medicalseg_tpu/ops/pallas_conv5.py:382",
             "conv5_head_tf32": "medicalseg_tpu/ops/pallas_conv5.py:309",
             "conv5_dgrad_tf32": "medicalseg_tpu/ops/pallas_conv5.py:1383",
             "conv5_wgrad_tf32": "medicalseg_tpu/ops/pallas_conv5.py:832",
-            "conv5_stem": "medicalseg_tpu/ops/pallas_conv5.py:423",
-            "conv5_wgrad_stem": "medicalseg_tpu/ops/pallas_conv5.py:912"}
+            "conv5_stem_tf32": "medicalseg_tpu/ops/pallas_conv5.py:423",
+            "conv5_wgrad_stem_tf32": "medicalseg_tpu/ops/pallas_conv5.py:912"}
 TRAIN_SEED = 0
 # kernel path vs plain path, relative L2 error per leaf. bf16 at 128^3:
 # the two paths round at other places, and the random-init net amplifies
@@ -768,6 +816,169 @@ def bit_repeat(call, what):
     same = torch.equal(first, second)
     check(same, "two launches of the {} disagree".format(what))
     return same
+
+
+def f32_stem_fwd_columns(x, w, b, ep):
+    """The f32 stem forward's device columns: ``stem_tf32_kernel`` without
+    and with the epilogue and ``conv5_kernel`` forced in the same process
+    (the kernel it replaced), each ten calls replayed from one CUDA graph
+    (the weights' packing inside each call, as a captured step runs it);
+    a fatal bit-for-bit repeat of both forms; the geometry."""
+    n, d, _, h, ww = x.shape
+    cols = {}
+    for tag, e_ in (("", None), ("_fused", ep)):
+        def call(form=None, e_=e_):
+            return c5._conv5_cuda(x, w, b, "stem", e_, form=form)
+
+        bit_repeat(call, "f32 stem forward" + tag)
+        cols.update({"f32_device_ms" + tag: graph_ms(call),
+                     "f32_device_ms_old" + tag: graph_ms(
+                         lambda: call("stem"))})
+    cols["f32_geometry"] = dict(kernel="stem_tf32_kernel",
+                                **c5.conv5_stem_tf32_geometry(n, d, h, ww))
+    return cols
+
+
+def f32_stem_wgrad_columns(x, g):
+    """The f32 stem weight gradient's device columns:
+    ``stem_wgrad_tf32_kernel`` and ``wgrad_kernel`` forced (graph
+    replays) and the geometry."""
+    n, d, _, h, ww = x.shape
+
+    def call(form=None):
+        return c5._conv5_wgrad_cuda(x, g, "stem", form=form)
+
+    return {"wgrad_f32_device_ms": graph_ms(call),
+            "wgrad_f32_device_ms_old": graph_ms(lambda: call("stem")),
+            "wgrad_f32_geometry": dict(
+                kernel="stem_wgrad_tf32_kernel",
+                **c5.conv5_wgrad_stem_tf32_geometry(n, d, h, ww))}
+
+
+def old_stem_err(name, x, w, b, ep, ref, g=None):
+    """``conv5_kernel`` (``g`` None; ``ep`` its epilogue or None) or
+    ``wgrad_kernel`` forced on an f32 stem, held to its plain version
+    ``ref`` as the routed kernel is (dW scaled by its magnitude); fatal.
+    The CUDA-core kernels the split-TF32 stems replaced stay in the port:
+    they serve stems wider than 16 channels and every forced comparison.
+    Returns the error."""
+    tol = TOL[torch.float32]
+    if g is None:
+        got = c5._conv5_cuda(x, w, b, "stem", ep, form="stem")
+        err = (got - ref).abs().max().item()
+        ok = torch.allclose(got, ref, atol=tol, rtol=tol)
+        what = "conv5_kernel{}".format(" fused" if ep else "")
+    else:
+        err = scaled_err(c5._conv5_wgrad_cuda(x, g, "stem", form="stem"), ref)
+        ok = err <= tol
+        what = "wgrad_kernel"
+    check(ok, "{} f32 {} (forced) disagrees with its plain version: "
+          "error {}".format(name, what, err))
+    return err
+
+
+def f32_stem_operands(name, shape, gen, co=16):
+    """Seeded f32 stem operands at one :data:`F32_STEMS` shape: x, g, w, b
+    and the epilogue; the ragged shape's x lies 4 bytes into its allocation
+    and its g is a channel slice of a wider tensor."""
+    n, d, h, ww = shape
+    dev = torch.device("cuda")
+    if name == "in_tr_ragged":
+        flat = torch.randn((n * d * h * ww + 1,), generator=gen, device=dev)
+        x = flat[1:].view(n, d, 1, h, ww)
+        g = torch.randn((n, d, co + 4, h, ww), generator=gen,
+                        device=dev)[:, :, 2:2 + co]
+    else:
+        x = torch.randn((n, d, 1, h, ww), generator=gen, device=dev)
+        g = torch.randn((n, d, co, h, ww), generator=gen, device=dev)
+    w = torch.randn((5, 5, 5, 1, co), generator=gen, device=dev) / 125 ** 0.5
+    b = torch.randn((co,), generator=gen, device=dev)
+    ep = (0.5 + torch.rand((co,), generator=gen, device=dev),
+          torch.randn((co,), generator=gen, device=dev),
+          torch.rand((co,), generator=gen, device=dev))
+    return x, g, w, b, ep
+
+
+def f32_stem_rows(stats, backward):
+    """The f32 stem at :data:`F32_STEMS` (the spine recipes' stem, a
+    halo'd H block, a ragged view): ``backward`` False, the forward
+    unfused and fused (phase ``kernels``), else the weight gradient (phase
+    ``kernels_bwd``), each against its plain version (f32: atol = rtol =
+    1e-4; dW scaled by its magnitude), with a fatal bit-for-bit repeat,
+    host and device times of the routed kernel and of the kernel it
+    replaced forced (``ms_old``, ``device_ms_old``), the library call in
+    strict f32 and with TF32 on, the bound and the geometry. Their errors
+    join ``stats``; their times are not a cube pass's."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, shape in F32_STEMS:
+        x, g, w, b, ep = f32_stem_operands(name, shape, gen)
+        n, d, _, h, ww = x.shape
+        co = g.shape[2]
+        bound, by = conv_bound_ms(1, co, n * d * h * ww, 4)
+        x_nc = x.transpose(1, 2).contiguous()
+        w_o = w.permute(4, 3, 0, 1, 2).contiguous()
+        line = {"phase": "kernels_bwd" if backward else "kernels",
+                "conv": name, "kind": "stem", "ci": 1, "co": co,
+                "shape": [n, d, 1, h, ww], "x_stride": list(x.stride()),
+                "f32_bound_ms": bound, "f32_bound_by": by, "per_forward": 0}
+        if not backward:
+            for tag, e_ in (("plain_form", None), ("fused", ep)):
+                got = (c5.conv5_kl_fused(x, w, b, e_, "stem") if e_ else
+                       c5.conv5_kl(x, w, b, "stem"))
+                ref = c5.conv5_kl_plain(x, w, b, e_)
+                err = (got - ref).abs().max().item()
+                check(torch.allclose(got, ref, atol=TOL[torch.float32],
+                                     rtol=TOL[torch.float32]),
+                      "{} f32 {} disagrees with its plain version: max |d| "
+                      "{}".format(name, tag, err))
+                line["err_float32_" + tag] = err
+                line["err_float32_old_" + tag] = old_stem_err(
+                    name, x, w, b, e_, ref)
+                key = F32_FWD["stem"]
+                stats[key]["err"] = max(stats[key]["err"], err)
+                del got, ref
+            _, plain = timed_once(lambda: c5.conv5_kl_plain(x, w, b))
+            line.update(f32_columns(
+                "f32_", lambda: c5.conv5_kl(x, w, b, "stem"),
+                lambda: c5._conv5_cuda(x, w, b, "stem", None, form="stem"),
+                plain, lambda: F.conv3d(x_nc, w_o, b, padding=2)))
+            line.update(
+                f32_ms_fused=time_ms(
+                    lambda: c5.conv5_kl_fused(x, w, b, ep, "stem")),
+                f32_ms_old_fused=time_ms(
+                    lambda: c5._conv5_cuda(x, w, b, "stem", ep, form="stem")))
+            line.update(f32_stem_fwd_columns(x, w, b, ep),
+                        f32_form="conv5_" + c5.conv5_form(x, co, "stem"))
+        else:
+            got = c5.conv5_wgrad_kl(x, g, "stem")
+            ref, plain = timed_once(lambda: c5.conv5_wgrad_kl_plain(x, g))
+            rel = scaled_err(got, ref)
+            check(rel <= TOL[torch.float32], "{} f32 weight gradient "
+                  "disagrees with its plain version: scaled error {}".format(
+                      name, rel))
+            key = F32_WGRAD["stem"]
+            stats[key]["err"] = max(stats[key]["err"],
+                                    (got - ref).abs().max().item())
+            line.update(wgrad_rel_err_float32=rel,
+                        wgrad_rel_err_float32_old=old_stem_err(
+                            name, x, None, None, None, ref, g),
+                        wgrad_max_abs_float32=ref.abs().max().item())
+            del got, ref
+            g_nc = g.transpose(1, 2).contiguous()
+            line.update(f32_columns(
+                "wgrad_f32_", lambda: c5.conv5_wgrad_kl(x, g, "stem"),
+                lambda: c5._conv5_wgrad_cuda(x, g, "stem", form="stem"),
+                plain, lambda: torch.nn.grad.conv3d_weight(
+                    x_nc, w_o.shape, g_nc, padding=2)))
+            line.update(f32_stem_wgrad_columns(x, g),
+                        wgrad_f32_form="conv5_wgrad_" + c5.conv5_wgrad_form(
+                            x, g, "stem"),
+                        wgrad_f32_repeat_bit_identical=bit_repeat(
+                            lambda: c5.conv5_wgrad_kl(x, g, "stem"),
+                            name + " f32 weight gradient"))
+            del g_nc
+        emit(line)
+        del x, g, x_nc
 
 
 def smi_line():
@@ -1031,6 +1242,9 @@ def phase_kernels():
                 else:
                     key = F32_FWD[kind]
                     stats[key]["err"] = max(stats[key]["err"], err)
+                    if kind == "stem":
+                        line["err_float32_old_" + tag[8:]] = old_stem_err(
+                            name, xd, w, b, e_, ref)
                 del got, ref
         xb = x.to(torch.bfloat16)
         ms = time_ms(lambda: c5.conv5_kl(xb, w, b, kind))
@@ -1069,6 +1283,8 @@ def phase_kernels():
             lambda: c5.conv5_kl(x, w, b, kind), name + " f32 forward")
         if kind == "head":
             cols["f32_geometry"] = tf32_geometry(BATCH, e, e, e, ci, co)
+        else:
+            cols.update(f32_stem_fwd_columns(x, w, b, ep))
         line.update(cols)
         emit(line)
         add(form, count, ms, plain, bound, by, lib)
@@ -1076,6 +1292,7 @@ def phase_kernels():
         add(F32_FWD[kind], count, cols["f32_ms"], cols["f32_plain_ms"],
             bound32, by32, cols["f32_library_ms"])
         del x, xb, x_ncdhw, x_nc32
+    f32_stem_rows(stats, backward=False)
 
     for c, e in PINS:
         src = torch.randn((BATCH, c, e, e, e), generator=gen,
@@ -1149,6 +1366,9 @@ def phase_kernels_bwd():
             key = form if dtype == torch.bfloat16 else F32_WGRAD[kind]
             stats[key]["err"] = max(stats[key]["err"],
                                     (got - ref).abs().max().item())
+            if dtype == torch.float32 and kind == "stem":
+                line["wgrad_rel_err_float32_old"] = old_stem_err(
+                    name, xd, None, None, None, ref, gd)
             del got, ref
             if kind != "stem":
                 got = c5.conv5_dgrad_kl(gd, w)
@@ -1230,6 +1450,7 @@ def phase_kernels_bwd():
                                     plain_d.get(torch.float32)))
         emit(line)
         del x, g
+    f32_stem_rows(stats, backward=True)
     phase_ragged_wgrad()
     spine_conv_rows(stats)
     return stats
@@ -1342,8 +1563,9 @@ def f32_bwd_columns(stats, name, kind, x, g, w, count, plain_w, plain_d):
     """The f32 weight gradient (and, but for the stem, input gradient) of
     one conv: the routed kernel beside the CUDA-core kernel forced
     (``wgrad_kernel``, ``conv5_kernel``), cuDNN's in strict f32 (TF32 on as
-    a side column), the split-TF32 bound, a fatal bit-for-bit repeat;
-    added to ``stats``."""
+    a side column), the split-TF32 bound, a fatal bit-for-bit repeat (for
+    the stem also both device times and the geometry); added to
+    ``stats``."""
     n, d, ci, h, ww = x.shape
     co = g.shape[2]
     bound, by = conv_bound_ms(ci, co, n * d * h * ww, 4)
@@ -1359,6 +1581,8 @@ def f32_bwd_columns(stats, name, kind, x, g, w, count, plain_w, plain_d):
     if kind != "stem":
         cols["wgrad_f32_geometry"] = tf32_geometry(n, d, h, ww, ci, co, True)
         cols["dgrad_f32_geometry"] = tf32_geometry(n, d, h, ww, co, ci)
+    else:
+        cols.update(f32_stem_wgrad_columns(x, g))
     cols.update(wgrad_f32_bound_ms=bound, wgrad_f32_bound_by=by,
                 wgrad_f32_form=F32_WGRAD[kind],
                 wgrad_f32_repeat_bit_identical=bit_repeat(
@@ -1465,10 +1689,33 @@ KERNEL_TAGS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                "wgrad_kernel", "wgrad_reduce_kernel", "wgrad_tma_kernel",
                "wgrad_tma_reduce_kernel", "wgrad_head_tma_kernel",
                "stem_tc_kernel", "stem_wgrad_tc_kernel",
-               "stem_wgrad_reduce_kernel", "pin_vec_kernel", "pin_kernel")
+               "stem_wgrad_reduce_kernel", "pin_vec_kernel", "pin_kernel",
+               "stem_tf32_kernel", "stem_wgrad_tf32_kernel",
+               "stem_wgrad_tf32_reduce_kernel")
 
 
-def profile_call(fn):
+def profiled(fn, lead=False):
+    """(the finished profiler over one call of ``fn``, that call's host
+    wall ms). ``lead``: the window opens with one one-element fill and
+    20 ms of host sleep before ``fn``, outside its wall time, so that the
+    call's first kernels do not fall at the window's edge (the fill adds
+    its microseconds to the busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if lead:
+            torch.ones((1,), device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def profile_call(fn, lead=False):
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     device time of the kernels each PyTorch operator launched itself (its
     self device time; the ten largest of each), and the device's idle share
@@ -1476,15 +1723,54 @@ def profile_call(fn):
     (``nccl_ms``), out of the busy time: a collective's kernel runs on its
     own stream and spins while it waits for the other ranks, so its time
     overlaps the compute stream's and is not work."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return profile_stats(prof, wall_ms)
+    return profile_stats(*profiled(fn, lead))
+
+
+# the f32 stem's kernels in a step: the split-TF32 ones and, forced, the
+# CUDA-core ones they replaced (each with its reduce)
+STEM_TAGS = {False: ("stem_tf32_kernel", "stem_wgrad_tf32_kernel",
+                     "stem_wgrad_tf32_reduce_kernel"),
+             True: ("conv5_kernel", "wgrad_kernel", "wgrad_reduce_kernel")}
+
+
+def counted_profile(fn, profiler=profile_call, attempts=3):
+    """``profiler(fn, lead=True)`` whose window holds every hand-kernel
+    launch the wrappers counted over the same call: the trace's launches
+    of the csrc kernels (a split sum's second kernel not counted) against
+    the sum of ``LAUNCHES`` (the fused epilogue, a second count of a
+    forward, not counted). A window short of a kernel is taken again, up to
+    ``attempts`` windows (``trace_windows``). Where none is whole
+    (``whole`` False) its device time and idle share are not given (None)
+    and the last window's hand-kernel counts by name (``hand_counts``) stand
+    beside the wrappers' (``counted``). Leaves ``LAUNCHES`` at the profiled
+    call's counts. For paths whose every wrapper launches one kernel
+    besides its reduce (the f32 steps)."""
+    for attempt in range(1, attempts + 1):
+        c5.reset_launches()
+        stats = profiler(fn, lead=True)
+        want = sum(v for k, v in c5.LAUNCHES.items()
+                   if k != "conv5_fused_epilogue")
+        stats.update(trace_windows=attempt,
+                     whole=stats["hand_launches"] == want)
+        if stats["whole"]:
+            return stats
+    stats.update(device_busy_ms=None, idle_share=None,
+                 counted={k: v for k, v in c5.LAUNCHES.items() if v})
+    return stats
+
+
+def stems_ms(profile, old):
+    """The f32 stem's own device ms in a profiled step (forward, weight
+    gradient and its reduce; ``old``: the CUDA-core kernels forced, the
+    heads on the split-TF32 kernels), None where the window was not
+    whole."""
+    if not profile["whole"]:
+        return None
+    return sum(profile["hand_ms"].get(k, 0.0) for k in STEM_TAGS[old])
+
+
+def minus(a, b):
+    return None if a is None or b is None else a - b
 
 
 def device_groups(prof):
@@ -1499,12 +1785,24 @@ def device_groups(prof):
         if "nccl" in ev.key.lower():
             nccl_ms += ms
             continue
-        name = ev.key
-        for tag in KERNEL_TAGS:
-            if tag in name:
-                name = tag
+        # the longest tag in the name: "stem_wgrad_tf32_kernel" holds
+        # "wgrad_tf32_kernel" too
+        name = max((tag for tag in KERNEL_TAGS if tag in ev.key), key=len,
+                   default=ev.key)
         groups[name] = groups.get(name, 0.0) + ms
     return groups, nccl_ms
+
+
+def hand_counts(prof):
+    """{csrc kernel: launches} of a finished profiler's device events."""
+    counts = {}
+    for ev in prof.key_averages():
+        kernel = (trace_ops.hand_kernel(ev.key) if getattr(
+            ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                  else None)
+        if kernel is not None:
+            counts[kernel] = counts.get(kernel, 0) + ev.count
+    return counts
 
 
 def profile_stats(prof, wall_ms):
@@ -1517,7 +1815,13 @@ def profile_stats(prof, wall_ms):
            for ev in prof.key_averages()
            if getattr(ev, "device_type", None) ==
            torch.autograd.DeviceType.CPU and ev.self_device_time_total]
+    counts = hand_counts(prof)
+    hand = sum(v for k, v in counts.items()
+               if k not in trace_ops.REDUCE_KERNELS)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "hand_launches": hand,
+            "hand_ms": {k: v for k, v in groups.items() if k in KERNEL_TAGS},
+            "hand_counts": counts,
             "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "nccl_ms": nccl_ms,
             "device_ms_by_kernel": [[k[:80], v] for k, v in top],
@@ -2252,19 +2556,26 @@ def phase_train():
 
 
 @contextlib.contextmanager
-def old_f32_kernels():
-    """Route every f32 head conv to the CUDA-core kernels the split-TF32
+def old_f32_kernels(stems_only=False):
+    """Route every f32 conv to the CUDA-core kernels the split-TF32
     kernels replaced (``conv5_kernel`` forward and input gradient,
-    ``wgrad_kernel``), to time both in one process."""
+    ``wgrad_kernel``; ``stems_only``: the stem's forward and weight
+    gradient alone), to time both in one process."""
     form, wform = c5.conv5_form, c5.conv5_wgrad_form
 
     def old_form(xk, co, kind):
         f = form(xk, co, kind)
-        return "head" if f == "head_tf32" else f
+        if f == "stem_tf32":
+            return "stem"
+        return "head" if f == "head_tf32" and not stems_only else f
 
     def old_wform(xk, gk, kind):
         f = wform(xk, gk, kind)
-        return ("head" if gk.shape[2] <= 16 else "mid") if f == "tf32" else f
+        if f == "stem_tf32":
+            return "stem"
+        if f == "tf32" and not stems_only:
+            return "head" if gk.shape[2] <= 16 else "mid"
+        return f
 
     c5.conv5_form, c5.conv5_wgrad_form = old_form, old_wform
     try:
@@ -2273,18 +2584,21 @@ def old_f32_kernels():
         c5.conv5_form, c5.conv5_wgrad_form = form, wform
 
 
-def f32_step_counts(steps, old=False):
+def f32_step_counts(steps, old=None):
     """The launch counts ``steps`` steps of the f32 lung V-Net imply (no
     remat): 15 head convs, their 15 input gradients and 15 weight
-    gradients on the split-TF32 kernels (``old``: the CUDA-core kernels,
-    out_tr's weight gradient as the narrow head), the stem's forward and
-    weight gradient on the CUDA cores, 8 pins a forward, nothing else."""
+    gradients on the split-TF32 kernels, the stem's forward and weight
+    gradient on the split-TF32 stem kernels, 8 pins a forward, nothing
+    else. ``old='stems'``: the stem on the CUDA-core kernels; ``old='all'``:
+    every conv on them (out_tr's weight gradient as the narrow head)."""
     expect = {k: 0 for k in c5.LAUNCHES}
     per = ({"conv5_head": 15, "conv5_dgrad": 15, "conv5_wgrad_mid": 14,
-            "conv5_wgrad_head": 1} if old else
+            "conv5_wgrad_head": 1} if old == "all" else
            {"conv5_head_tf32": 15, "conv5_dgrad_tf32": 15,
             "conv5_wgrad_tf32": 15})
-    per.update(conv5_stem=1, conv5_wgrad_stem=1, pin=8)
+    per.update({"conv5_stem_tf32": 1, "conv5_wgrad_stem_tf32": 1}
+               if old is None else {"conv5_stem": 1, "conv5_wgrad_stem": 1})
+    per["pin"] = 8
     expect.update({k: steps * v for k, v in per.items()})
     return expect
 
@@ -2344,9 +2658,10 @@ def phase_train_f32():
 
     def timed(old):
         """One untimed step, then three timed ones with the counts set to 0
-        just before them (exact), their peak memory and one profiled
-        step."""
-        with (old_f32_kernels() if old else contextlib.nullcontext()):
+        just before them (exact), their peak memory and one profiled step;
+        ``old``: None, 'stems' or 'all' (:func:`f32_step_counts`)."""
+        with (old_f32_kernels(old == "stems") if old else
+              contextlib.nullcontext()):
             loss_w, _ = run(state)
             torch.cuda.reset_peak_memory_stats()
             c5.reset_launches()
@@ -2354,10 +2669,9 @@ def phase_train_f32():
             launches = dict(c5.LAUNCHES)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             check(launches == f32_step_counts(3, old), "f32 step launch "
-                  "counts{} {} != expected {}".format(
-                      " (old kernels)" if old else "", launches,
-                      f32_step_counts(3, old)))
-            profile = profile_call(lambda: run(state))
+                  "counts ({} kernels) {} != expected {}".format(
+                      old or "new", launches, f32_step_counts(3, old)))
+            profile = counted_profile(lambda: run(state))
         return launches, {"losses": [loss_w] + [l for l, _ in steps],
                 "ms_per_step": float(np.median([ms for _, ms in steps])),
                 "ms_per_step_each": [ms for _, ms in steps],
@@ -2365,21 +2679,34 @@ def phase_train_f32():
                 "idle_share": profile["idle_share"], "peak_mem_gb": peak,
                 "launches_per_step": {k: v // 3 for k, v in launches.items()
                                       if v},
-                "device_ms_by_kernel": profile["device_ms_by_kernel"]}
+                "device_ms_by_kernel": profile["device_ms_by_kernel"],
+                "stems_device_ms": (stems_ms(profile, old == "stems")
+                                    if old != "all" else None),
+                "trace_windows": profile["trace_windows"],
+                "trace_whole": profile["whole"],
+                "trace_counts": None if profile["whole"] else [
+                    profile["hand_counts"], profile["counted"]]}
 
-    launches, new = timed(False)
+    launches, new = timed(None)
     losses = [loss1] + new["losses"]
     check(all(np.isfinite(losses)), "non-finite f32 loss: {}".format(losses))
     check(losses[-1] < losses[0], "the f32 loss did not fall: {}".format(
         losses))
-    _, old = timed(True)
-    check(all(np.isfinite(old["losses"])), "non-finite f32 loss on the old "
-          "kernels: {}".format(old["losses"]))
+    _, old_stems = timed("stems")
+    _, old = timed("all")
+    for run_ in (old_stems, old):
+        check(all(np.isfinite(run_["losses"])), "non-finite f32 loss on the "
+              "old kernels: {}".format(run_["losses"]))
     emit({"phase": "train_f32", "config": os.path.relpath(LUNG_F32, ROOT),
           "batch": BATCH, "edge": EDGE, "dtype": "float32", "remat": False,
           "losses": losses, "loss_step1_plain_path": loss1_plain,
           "worst_grad_rel_l2_vs_plain": list(worst),
-          "plain_path_step_ms": plain_ms, "new": new, "old": old,
+          "plain_path_step_ms": plain_ms, "new": new, "old_stems": old_stems,
+          "old": old,
+          "old_stems_over_new_ms": old_stems["ms_per_step"] /
+          new["ms_per_step"],
+          "old_stems_minus_new_device_ms": minus(
+              old_stems["stems_device_ms"], new["stems_device_ms"]),
           "old_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
           "nvidia_smi": smi_line()})
     return launches
@@ -2418,19 +2745,12 @@ def spine_step_counts(steps, old=False):
     return expect
 
 
-def profile_trace(fn):
+def profile_trace(fn, lead=False):
     """:func:`profile_call`'s figures for one call of ``fn``, and the
     device time by category and the top kernels as
     ``medicalseg_torch.tools.trace_ops`` reads them from the Chrome trace
     of the same window."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profiled(fn, lead)
     stats = profile_stats(prof, wall_ms)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         path = os.path.join(wd, "trace.json")
@@ -2559,6 +2879,155 @@ def phase_train_spine():
           "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2],
           "plain_path_step_ms": plain_ms, "new": new, "old": old,
           "old_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
+          "nvidia_smi": smi_line()})
+    return launches
+
+
+def spine_f32_step_counts(steps, old_stems=False):
+    """The launch counts ``steps`` steps of the f32 spine V-Net imply, pins
+    apart (no remat): 15 head forwards, 15 input gradients and 15 weight
+    gradients on the split-TF32 head kernels at W = 12, 9, 8, 4 and 2
+    (out_tr's 32 -> 20 among them), the stem's forward and weight gradient
+    on the split-TF32 stem kernels (``old_stems``: ``conv5_kernel`` and
+    ``wgrad_kernel``)."""
+    expect = {k: 0 for k in c5.LAUNCHES if k != "pin"}
+    per = {"conv5_head_tf32": 15, "conv5_dgrad_tf32": 15,
+           "conv5_wgrad_tf32": 15}
+    per.update({"conv5_stem": 1, "conv5_wgrad_stem": 1} if old_stems else
+               {"conv5_stem_tf32": 1, "conv5_wgrad_stem_tf32": 1})
+    expect.update({k: steps * v for k, v in per.items()})
+    return expect
+
+
+def phase_train_spine_f32():
+    """The upstream f32 spine recipe (``SPINE_F32``: VNet, 20 classes,
+    float32, no remat, VALID down convs over W, so W runs 12 -> 9 -> 8 -> 4
+    -> 2) built by ``Config`` at its batch of 3 on a seeded [3, 512, 512,
+    12, 1] batch with labels in [0, 20), the step only: step 1 against the
+    plain path from the same state and masks (loss within 1e-5 relative,
+    every leaf within ``GRAD_REL_L2_F32``), then one untimed and three
+    timed steps with the counts set to 0 just before them (exact,
+    :func:`spine_f32_step_counts`; at least 8 pins a step) and one
+    profiled step (device time by ``trace_ops`` category), first on the
+    routed kernels, then with the stem's CUDA-core kernels forced in the
+    same process; the loss falls."""
+    cfg = Config(SPINE_F32)
+    mc = cfg.dic["model"]
+    check(mc["type"] == "VNet" and "dtype" not in mc and
+          not mc.get("remat") and mc["num_classes"] == 20 and
+          cfg.batch_size == 3 and mc["kernel_size"][0] == [2, 2, 4] and
+          mc["stride_size"][0] == [2, 2, 1], "f32 spine recipe changed")
+    batch, classes = cfg.batch_size, mc["num_classes"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    images = torch.rand((batch,) + SPINE_VOLUME + (1,), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, classes, (batch,) + SPINE_VOLUME,
+                           generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg.loss)
+
+    def new_state(weights=None):
+        model = build_model(mc, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        if weights is not None:
+            model.load_state_dict(weights)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED)
+
+    def run(state):
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    state = new_state()
+    model = state.model
+    check(type(model).__name__ == "VNet" and model.dtype == torch.float32
+          and not model.remat, "the f32 spine recipe's model is not the f32 "
+          "VNet without remat")
+    start = copy.deepcopy(model.state_dict())
+
+    # step 1 against the plain path from the same state and masks
+    loss1, _ = run(state)
+    grads = {}
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and
+              p.grad.abs().sum().item() > 0, name + ": no finite, non-zero "
+              "gradient")
+        grads[name] = p.grad.clone()
+    ref = new_state(start)
+    with plain_ops():
+        c5.reset_launches()
+        loss1_plain, plain_ms = run(ref)
+        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    rels = grad_rel_l2(grads, {n: p.grad for n, p in
+                               ref.model.named_parameters()})
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    rel_sorted = sorted(rels.values())
+    check(abs(loss1 - loss1_plain) <= 1e-5 * abs(loss1_plain),
+          "f32 spine step-1 loss {} vs plain path {}".format(loss1,
+                                                           loss1_plain))
+    check(worst[1] <= GRAD_REL_L2_F32, "f32 spine gradient of {} differs "
+          "from the plain path's by {} relative L2".format(*worst))
+    del ref, grads
+    torch.cuda.empty_cache()
+
+    def timed(old_stems):
+        with (old_f32_kernels(stems_only=True) if old_stems else
+              contextlib.nullcontext()):
+            loss_w, _ = run(state)
+            torch.cuda.reset_peak_memory_stats()
+            c5.reset_launches()
+            steps = [run(state) for _ in range(3)]
+            launches = dict(c5.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = {k: v for k, v in launches.items() if k != "pin"}
+            want = spine_f32_step_counts(3, old_stems)
+            check(got == want, "f32 spine step launch counts{} {} != "
+                  "expected {}".format(" (old stems)" if old_stems else "",
+                                       got, want))
+            check(launches["pin"] >= 3 * 8, "f32 spine pin launches {} < "
+                  "{}".format(launches["pin"], 3 * 8))
+            profile = counted_profile(lambda: run(state), profile_trace)
+        return launches, {
+            "losses": [loss_w] + [l for l, _ in steps],
+            "ms_per_step": float(np.median([ms for _, ms in steps])),
+            "ms_per_step_each": [ms for _, ms in steps],
+            "device_ms": profile["device_busy_ms"],
+            "idle_share": profile["idle_share"], "peak_mem_gb": peak,
+            "launches_per_step": {k: v // 3 for k, v in launches.items()
+                                  if v},
+            "device_ms_by_category": profile["categories"],
+            "top_kernels": profile["top_kernels"],
+            "stems_device_ms": stems_ms(profile, old_stems),
+            "trace_windows": profile["trace_windows"],
+            "trace_whole": profile["whole"],
+            "trace_counts": None if profile["whole"] else [
+                profile["hand_counts"], profile["counted"]]}
+
+    launches, new = timed(False)
+    losses = [loss1] + new["losses"]
+    check(all(np.isfinite(losses)), "non-finite f32 spine loss: {}".format(
+        losses))
+    check(losses[-1] < losses[0], "the f32 spine loss did not fall: "
+          "{}".format(losses))
+    _, old = timed(True)
+    check(all(np.isfinite(old["losses"])), "non-finite f32 spine loss on "
+          "the old stems: {}".format(old["losses"]))
+    emit({"phase": "train_spine_f32",
+          "config": os.path.relpath(SPINE_F32, ROOT), "batch": batch,
+          "shape": list(SPINE_VOLUME), "classes": classes,
+          "dtype": "float32", "remat": False, "losses": losses,
+          "loss_step1_plain_path": loss1_plain,
+          "worst_grad_rel_l2_vs_plain": list(worst),
+          "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2],
+          "plain_path_step_ms": plain_ms, "new": new, "old_stems": old,
+          "old_stems_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
+          "old_stems_minus_new_device_ms": minus(
+              old["stems_device_ms"], new["stems_device_ms"]),
           "nvidia_smi": smi_line()})
     return launches
 
@@ -4238,8 +4707,12 @@ def _torchrun(args, nproc=2, timeout=600):
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                           timeout=timeout)
-    check(proc.returncode == 0, "{} exited {}:\n{}\n{}".format(
+    # the first traceback of any rank, beside the end of the output (where
+    # the launcher's report of the ranks it ended stands)
+    first = proc.stderr.find("Traceback")
+    check(proc.returncode == 0, "{} exited {}:\n{}\n{}\n...\n{}".format(
         " ".join(args[:2]), proc.returncode, proc.stdout[-3000:],
+        proc.stderr[first:first + 4000] if first >= 0 else "",
         proc.stderr[-3000:]))
     return proc.stdout + proc.stderr, time.time() - t0
 
@@ -4451,6 +4924,11 @@ def main():
     launches.update({k: f32_launches[k] for k in F32_KERNELS})
     spine_launches = phase_train_spine()
     launches.update({k: spine_launches[k] for k in SPINE_KERNELS})
+    spine_f32 = phase_train_spine_f32()
+    torch.cuda.empty_cache()  # its 25-30 GB, kept by the allocator
+    for key in F32_KERNELS:
+        check(spine_f32[key] > 0, key + " never launched on the f32 spine "
+              "recipe's path")
     phase_augment()
     flagship = phase_train_flagship()
     phase_train_graph()

@@ -33,8 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("conv5", "conv5_wg", "conv5_stem", "conv5_stem_wgrad",
-           "conv5_tf32", "conv5_wgrad", "conv5_wgrad_tma",
-           "conv5_wgrad_tf32", "pin", "hu_resize")
+           "conv5_tf32", "conv5_stem_tf32", "conv5_stem_wgrad_tf32",
+           "conv5_wgrad", "conv5_wgrad_tma", "conv5_wgrad_tf32", "pin",
+           "hu_resize")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # (rung, compile flags, link flags): the host build's gzip backends,
 # fastest first (libdeflate inflates a whole file at once, 2-3x zlib);

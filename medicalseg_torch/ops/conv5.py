@@ -1,7 +1,8 @@
 # Copyright 2026. Apache License 2.0.
 """5^3 SAME convolutions (stride 1) and the layout pin, through the
 hand-written CUDA kernels of ``csrc/conv5_wg.cu``, ``csrc/conv5_stem.cu``,
-``csrc/conv5_tf32.cu``, ``csrc/conv5.cu``, ``csrc/conv5_stem_wgrad.cu``,
+``csrc/conv5_stem_tf32.cu``, ``csrc/conv5_tf32.cu``, ``csrc/conv5.cu``,
+``csrc/conv5_stem_wgrad.cu``, ``csrc/conv5_stem_wgrad_tf32.cu``,
 ``csrc/conv5_wgrad.cu``, ``csrc/conv5_wgrad_tma.cu``,
 ``csrc/conv5_wgrad_tf32.cu`` and ``csrc/pin.cu``.
 
@@ -24,8 +25,9 @@ kernels of ``csrc/conv5_wgrad_tma.cu`` (bf16 square, wide and narrow-head
 convs, fed by tensor copies or by a software producer on views a tensor
 copy cannot describe: :func:`conv5_wgrad_form`),
 ``csrc/conv5_stem_wgrad.cu`` (bf16 stems with Co <= 16),
+``csrc/conv5_stem_wgrad_tf32.cu`` (f32 stems with Co <= 16),
 ``csrc/conv5_wgrad_tf32.cu`` (f32 convs but the stem) and
-``csrc/conv5_wgrad.cu`` (f32 and wider bf16 stems), db is a plain f32
+``csrc/conv5_wgrad.cu`` (wider stems), db is a plain f32
 sum.
 :func:`conv5_kl_fused` is inference-only. It and the no-grad pin of
 :func:`pin_kl` call the ``torch.library`` ops ``medicalseg::conv5_fused``
@@ -43,8 +45,10 @@ through ``stem_tc_kernel`` of ``csrc/conv5_stem.cu``
 (:func:`conv5_stem_tc_geometry`); every f32 head conv, forward and input
 gradient, runs on the tensor cores in split TF32 at f32 accuracy
 (``conv5_tf32_kernel`` of ``csrc/conv5_tf32.cu``: three TF32 products a
-term, :func:`split_tf32`, :func:`conv5_tf32_geometry`); f32 stems and wider
-bf16 stems run on the CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``).
+term, :func:`split_tf32`, :func:`conv5_tf32_geometry`), and so does the f32
+stem with Co <= 16 (``stem_tf32_kernel`` of ``csrc/conv5_stem_tf32.cu``,
+:func:`conv5_stem_tf32_geometry`); stems wider than 16 channels run on the
+CUDA cores (``conv5_kernel`` of ``csrc/conv5.cu``).
 The choice is by dtype, kind and Co alone (:func:`conv5_form`): the TPU's
 lane and VMEM eligibility rules do not apply here. The packed weights of
 the warpgroup, stem and split-TF32 kernels are kept while their parameter
@@ -89,20 +93,24 @@ P = K // 2  # halo
 
 # Launches of each kernel since the last reset_launches(). A forward conv
 # launch counts under its form (:func:`conv5_form`): "conv5_head" (bf16),
-# "conv5_head_tf32" (f32), "conv5_stem_tc" (bf16 stems) or "conv5_stem"
-# (other stems), and also under "conv5_fused_epilogue" when it applies the
-# BN + PReLU epilogue; the same kernel launched for a backward counts under
+# "conv5_head_tf32" (f32), "conv5_stem_tc" (bf16 stems, Co <= 16),
+# "conv5_stem_tf32" (f32 stems, Co <= 16) or "conv5_stem" (wider stems),
+# and also under "conv5_fused_epilogue" when it applies the BN + PReLU
+# epilogue; the same kernel launched for a backward counts under
 # "conv5_dgrad" (f32: "conv5_dgrad_tf32") only. A weight gradient counts
 # under its form (:func:`conv5_wgrad_form`): "stem_tc" (bf16 stems, Co <=
-# 16), "stem" (other stems), "tf32" (every other f32 conv), "head_tma"
+# 16), "stem_tf32" (f32 stems, Co <= 16), "stem" (wider stems), "tf32"
+# (every other f32 conv), "head_tma"
 # (bf16 narrow heads, Co <= 16, on views a tensor copy can describe),
 # "head_ragged" (every other bf16 narrow head), "tma" (bf16 wider convs on
 # such views) or "ragged" (every other bf16 wider conv); "head" and "mid"
 # (``wgrad_mma_kernel``) only where ``form=`` forces them.
 LAUNCHES = {"conv5_head": 0, "conv5_head_tf32": 0, "conv5_stem": 0,
-            "conv5_stem_tc": 0, "conv5_fused_epilogue": 0,
+            "conv5_stem_tc": 0, "conv5_stem_tf32": 0,
+            "conv5_fused_epilogue": 0,
             "pin": 0, "conv5_dgrad": 0, "conv5_dgrad_tf32": 0,
             "conv5_wgrad_stem": 0, "conv5_wgrad_stem_tc": 0,
+            "conv5_wgrad_stem_tf32": 0,
             "conv5_wgrad_head": 0, "conv5_wgrad_head_tma": 0,
             "conv5_wgrad_head_ragged": 0, "conv5_wgrad_mid": 0,
             "conv5_wgrad_tma": 0, "conv5_wgrad_ragged": 0,
@@ -128,6 +136,11 @@ _STEM_WG_RESIDENT = 2 * _SMS  # stem_wgrad_tc_kernel: 2 blocks an SM
 _TF32_VOX = 256  # conv5_tf32_kernel: output voxels of a block (8 warps x 32)
 _TF32_CK = 8  # conv5_tf32_kernel: input channels a stage (one k8 step)
 _TF32_CIB = 16  # wgrad_tf32_kernel: input channels of a block (m16)
+_STF_VOX = 512  # stem_tf32_kernel: voxels of a block tile (8 warps x 64)
+_STF_WARP = 64  # stem_tf32_kernel: voxels of a warp (four m16 tiles)
+_STF_YP = 68  # stem_tf32_kernel: staged output pitch (floats)
+_SWF_VOX = 256  # stem_wgrad_tf32_kernel: voxels of a tile (8 warps x 32)
+_SWF_GP = 260  # stem_wgrad_tf32_kernel: staged g channel pitch (floats)
 
 
 def reset_launches():
@@ -261,6 +274,26 @@ def _stem_wgrad_lib():
     lib.conv5_stem_wgrad_tc_launch.argtypes = ([vp] * 4 + [i] * 8 + [ll] * 7
                                                + [vp])
     lib.conv5_stem_wgrad_tc_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_tf32_lib():
+    lib = _build.library("conv5_stem_tf32")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_stem_tf32_launch.argtypes = ([vp] * 5 + [i] * 13 + [ll] * 7 +
+                                           [vp])
+    lib.conv5_stem_tf32_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_wgrad_tf32_lib():
+    lib = _build.library("conv5_stem_wgrad_tf32")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.conv5_stem_wgrad_tf32_launch.argtypes = ([vp] * 4 + [i] * 16 +
+                                                 [ll] * 7 + [vp])
+    lib.conv5_stem_wgrad_tf32_launch.restype = ctypes.c_int
     return lib
 
 
@@ -488,7 +521,8 @@ _PACKED = {}
 
 def _packed_weight(w, nt, dgrad=False):
     """:func:`_pack_weights_wg` of ``w`` (``nt='stem'``:
-    :func:`_pack_weights_stem`; ``nt=('tf32', nf)``:
+    :func:`_pack_weights_stem`; ``nt='stem_tf32'``:
+    :func:`_pack_weights_stem_tf32`; ``nt=('tf32', nf)``:
     :func:`_pack_weights_tf32`), kept while the tensor ``w`` views
     (a layer passes a permuted view of its parameter) is alive and
     unchanged: an in-place update (an optimizer step, ``load_state_dict``)
@@ -501,6 +535,8 @@ def _packed_weight(w, nt, dgrad=False):
     def pack(w):
         if nt == "stem":
             return _pack_weights_stem(w)
+        if nt == "stem_tf32":
+            return _pack_weights_stem_tf32(w)
         if isinstance(nt, tuple):  # ("tf32", nf)
             return _pack_weights_tf32(w, nt[1], dgrad)
         return _pack_weights_wg(w, nt, dgrad)
@@ -538,15 +574,17 @@ def _pack_weights(w, dtype, cot):
 def conv5_form(xk, co, kind):
     """The forward kernel that takes a conv of ``xk`` into ``co`` output
     channels, named by its :data:`LAUNCHES` entry (``'conv5_' + form``):
-    'stem_tc' (bf16, ``kind='stem'``, Co <= 16: ``stem_tc_kernel``),
-    'stem' (every other stem: ``conv5_kernel``), 'head' (bf16:
+    for ``kind='stem'`` with Co <= 16 'stem_tc' (bf16: ``stem_tc_kernel``)
+    or 'stem_tf32' (f32: ``stem_tf32_kernel``, any W-contiguous view), for
+    wider stems 'stem' (``conv5_kernel``); 'head' (bf16:
     ``conv5_wg_kernel``) or 'head_tf32' (f32: ``conv5_tf32_kernel``, any
     W-contiguous view). Its input gradient counts under 'dgrad' or, in
     f32, 'dgrad_tf32'."""
     if kind != "stem":
         return "head_tf32" if xk.dtype == torch.float32 else "head"
-    return ("stem_tc" if xk.dtype == torch.bfloat16 and co <= _STEM_CO
-            else "stem")
+    if co > _STEM_CO:
+        return "stem"
+    return "stem_tf32" if xk.dtype == torch.float32 else "stem_tc"
 
 
 def split_tf32(a):
@@ -750,6 +788,196 @@ def _pack_weights_stem(w):
         80, _STEM_CO)
 
 
+def _round4(v):
+    return -(-int(v) // 4) * 4
+
+
+def _stem_tile(w, h, tw_max, vox):
+    """The (h, w) tile of a split-TF32 stem kernel: (tiles_w, twd, th).
+    Where W fits ``tw_max`` a tile is whole rows (twd = W: its voxels pack
+    onto the GEMM's rows without a padded column), else ``tiles_w`` tiles
+    of equal width rounded up to 4 columns (16-byte copies); th rows make
+    at most ``vox`` voxels, spread evenly over the tiles along H."""
+    tiles_w = 1 if w <= tw_max else -(-w // tw_max)
+    twd = w if tiles_w == 1 else _round4(-(-w // tiles_w))
+    th = max(1, min(h, vox // twd))
+    th = -(-h // -(-h // th))
+    return tiles_w, twd, th
+
+
+def stem_tf32_columns():
+    """The K columns of ``stem_tf32_kernel``: column 4 hg + t (half k8 step
+    hg, lane quad position t) -> (kd, kh, kw), or None for the three
+    zero-weight columns. hg 0..24: (kd, kh) = divmod(hg, 5), kw = t; 25..29:
+    kd = hg - 25, kh = t, kw = 4; 30: kd = t, (kh, kw) = (4, 4); 31: the
+    tap (4, 4, 4) at t = 0."""
+    cols = []
+    for hg in range(32):
+        for t in range(4):
+            if hg < 25:
+                cols.append(divmod(hg, K) + (t,))
+            elif hg < 30:
+                cols.append((hg - 25, t, 4))
+            elif hg == 30:
+                cols.append((t, 4, 4))
+            else:
+                cols.append((4, 4, 4) if t == 0 else None)
+    return cols
+
+
+def _lift(res, lo, mod=32):
+    """The least value >= ``lo`` that is ``res`` mod ``mod``: a shared-memory
+    pitch whose word lands on a chosen bank."""
+    return lo + (res - lo) % mod
+
+
+def _stem_fit(h, th, layout):
+    """Halve a tall narrow tile of ``th`` rows (rounded to even blocks of
+    the H rows) until ``layout(th)``'s ``smem`` fits two blocks an SM, or
+    th is 1. Returns (th, layout(th), blocks_per_sm)."""
+    while True:
+        q = layout(th)
+        if q["smem"] <= _SMEM_MAX // 2 or th == 1:
+            return th, q, 2 if q["smem"] <= _SMEM_MAX // 2 else 1
+        th = -(-h // -(-h // (th // 2)))
+
+
+def _stem_chunks(d, units, resident):
+    """Depth chunks for ``units`` (tile, sample) pairs of ``d`` depths, each
+    chunk one work item, on a card that holds ``resident`` blocks at once:
+    the fewest items a block (``per``) times (depths a chunk + 0.5, its
+    set-up); the fewest chunks win a tie. Returns (dc, chunks, per)."""
+    best = None
+    for c in range(1, d + 1):
+        dc = -(-d // c)
+        chunks = -(-d // dc)
+        per = -(-units * chunks // resident)
+        key = (per * (dc + 0.5), chunks, dc, per)
+        best = key if best is None or key < best else best
+    return best[2], best[1], best[3]
+
+
+def _stem_tf32_smem(th, rawp, slot):
+    """Bytes of ``stem_tf32_kernel``'s block: the weight fragments, the
+    warps' output staging, the raw box, the channel constants and the
+    ring's hi and lo planes."""
+    return 16 * 16 * 2 * 32 + 4 * (8 * 16 * _STF_YP + (th + 4) * rawp +
+                                   4 * 16 + 2 * K * slot)
+
+
+def conv5_stem_tf32_geometry(n, d, h, w):
+    """Launch geometry of ``stem_tf32_kernel`` (``csrc/conv5_stem_tf32.cu``),
+    a dict (a fresh copy of a cached one):
+
+    * ``th`` x ``twd``: the block's (h, w) tile, at most 512 voxels packed
+      row-major onto M (:func:`_stem_tile`; whole rows where W <= 64),
+      ``tiles_w`` of them along W; warp i owns voxels 64 i .. 64 i + 63;
+    * ``rawp``: the raw box's row pitch (from 4 columns left of the tile,
+      twd + 6 rounded up to 4); ``rowp``, ``slot``: the ring's pitches, the
+      least that hold a row of twd + 4 and th + 4 rows with rowp = 8 mod
+      16 (the kh quad's four rows 8 banks apart, and a kw quad's two rows
+      apart while rowp < twd + 22) and slot = 8 mod 32 (the kd quad's
+      slots 8 banks apart but for the first and fifth); ``smem``;
+      ``blocks_per_sm``: 2 where two blocks fit, else 1 (a tall tile
+      halves first, :func:`_stem_fit`);
+    * ``dc``: output depths a block walks, ``chunks`` of them cover D: the
+      count that makes the launch shortest, a wave of blocks costing its
+      depths plus half a depth of set-up (:func:`_stem_chunks`); ``grid``:
+      (tiles, n * chunks); ``threads``: 256."""
+    return dict(_stem_tf32_geometry(n, d, h, w))
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_tf32_geometry(n, d, h, w):
+    tiles_w, twd, th = _stem_tile(w, h, 64, _STF_VOX)
+    rawp = _round4(twd + 6)
+
+    def layout(th):
+        rowp = _lift(8, twd + 4, 16)
+        slot = _lift(8, (th + 4) * rowp)
+        return dict(rowp=rowp, slot=slot,
+                    smem=_stem_tf32_smem(th, rawp, slot))
+
+    th, q, blocks_per_sm = _stem_fit(h, th, layout)
+    tiles = -(-h // th) * tiles_w
+    dc, chunks, _ = _stem_chunks(d, tiles * n, blocks_per_sm * _SMS)
+    return dict(th=th, twd=twd, tiles_w=tiles_w, rawp=rawp, **q,
+                blocks_per_sm=blocks_per_sm, dc=dc, chunks=chunks,
+                grid=(tiles, n * chunks), threads=256)
+
+
+def _pack_weights_stem_tf32(w):
+    """[5, 5, 5, 1, Co] f32 -> ``stem_tf32_kernel``'s pre-split weights [16
+    k8 steps, 2 n8 tiles, 32 lanes, 4] f32: lane (g, t) of n8 tile f at k
+    step s holds (hi(b0), hi(b1), lo(b0), lo(b1)) (:func:`split_tf32`) of b0
+    = W[column 8 s + t][8 f + g], b1 = W[column 8 s + 4 + t][8 f + g], the
+    columns of :func:`stem_tf32_columns`; zero-weight columns and channels
+    past Co are zero."""
+    co = w.shape[4]
+    wf = F.pad(w.float().reshape(K, K, K, co), (0, _STEM_CO - co))
+    # the columns in order, from slices (no host index: a CUDA graph
+    # captures the packing): kw 0..3 of the 25 (kd, kh) rows, kh 0..3 at kw
+    # 4 of the 5 kd, kd 0..3 at (4, 4), the tap (4, 4, 4) and three zeros
+    cols = torch.cat((wf[:, :, :4].reshape(-1, _STEM_CO),
+                      wf[:, :4, 4].reshape(-1, _STEM_CO), wf[:4, 4, 4],
+                      wf[4, 4, 4:], wf.new_zeros((3, _STEM_CO))))
+    hi, lo = split_tf32(cols)
+    # [hl, s, half, t, f, g] -> [s, f, g, t, hl, half]
+    return torch.stack((hi, lo)).reshape(2, 16, 2, 4, 2, 8).permute(
+        1, 4, 5, 3, 0, 2).contiguous().reshape(16, 2, 32, 4)
+
+
+def conv5_wgrad_stem_tf32_geometry(n, d, h, w):
+    """Launch geometry of ``stem_wgrad_tf32_kernel``
+    (``csrc/conv5_stem_wgrad_tf32.cu``), a dict (a fresh copy of a cached
+    one):
+
+    * ``th`` x ``twd``: the (h, w) tile of a work item, at most 256 voxels
+      packed row-major onto K (:func:`_stem_tile`; whole rows where W <=
+      32), ``tiles_w`` along W, ``tiles`` in all; warp i takes voxels 32 i
+      .. 32 i + 31 of every depth;
+    * ``rawp``: the raw x box's row pitch; ``order``, ``rowp``, ``slot``:
+      the tap order on N and the ring's pitches, rowp = 4 and slot = 20 mod
+      32 (order 0) or 20 and 4 (order 1), whichever ring is smaller, so
+      that a B load's eight 4-word windows lie on distinct banks (the
+      kernel's tap order: ``col_tap`` of its source); ``smem``: three copy
+      stages
+      (raw g [16][260], raw x box), the ring of ten slots, hi and lo, and
+      the lanes' voxel offsets (8 x 256 words);
+      ``blocks_per_sm``;
+    * ``dc``: the depths of an item, ``chunks`` of them cover D; ``items``
+      = n * chunks * tiles, ``per`` of them a block, ``blocks`` (the grid)
+      at most one wave: the fewest ``per`` times (dc + 0.5) (the fewest
+      chunks win a tie); each block writes one partial dW and a second
+      pass adds them in block order; ``threads``: 256."""
+    return dict(_stem_wgrad_tf32_geometry(n, d, h, w))
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_wgrad_tf32_geometry(n, d, h, w):
+    tiles_w, twd, th = _stem_tile(w, h, 32, _SWF_VOX)
+    rawp = _round4(twd + 6)
+
+    def layout(th):
+        rings = []
+        for order, (rr, ss) in enumerate(((4, 20), (20, 4))):
+            rowp = _lift(rr, twd + 4)
+            rings.append((_lift(ss, (th + 4) * rowp), order, rowp))
+        slot, order, rowp = min(rings)
+        return dict(order=order, rowp=rowp, slot=slot, smem=4 * (
+            3 * 16 * _SWF_GP + 3 * (th + 4) * rawp + 4 * K * slot + 8 * 256))
+
+    th, q, blocks_per_sm = _stem_fit(h, th, layout)
+    tiles = -(-h // th) * tiles_w
+    dc, chunks, per = _stem_chunks(d, tiles * n, blocks_per_sm * _SMS)
+    items = n * chunks * tiles
+    blocks = -(-items // per)
+    return dict(th=th, twd=twd, tiles_w=tiles_w, tiles=tiles, rawp=rawp,
+                **q, blocks_per_sm=blocks_per_sm, dc=dc, chunks=chunks,
+                items=items, per=per, blocks=blocks, grid=(blocks,),
+                threads=256)
+
+
 def _check_conv(xk, w, b, kind, ep):
     if xk.dim() != 5:
         raise ValueError("expected [N, D, C, H, W], got {}".format(
@@ -796,6 +1024,36 @@ def _stem_tc_launch(xk, w, b, epk, y):
                            "{}".format(rc))
 
 
+def _stem_tf32_launch(xk, w, b, epk, y):
+    """``stem_tf32_kernel`` of the f32 ``xk`` [N, D, 1, H, W] into ``y``,
+    with the packed epilogue ``epk`` or None."""
+    if xk.dtype != torch.float32:
+        raise TypeError("the f32 stem kernel takes float32, got {}".format(
+            xk.dtype))
+    n, d, _, h, ww = xk.shape
+    q = _stem_tf32_geometry(n, d, h, ww)
+    if (q["grid"][1] > 65535 or q["grid"][0] >= 2 ** 31
+            or q["smem"] > _SMEM_MAX):
+        raise ValueError("conv5 f32 stem launch too large for {}: {}".format(
+            tuple(xk.shape), q))
+    wpk = _packed_weight(w, "stem_tf32")
+    bias = b.float().contiguous()
+    xs, ys = xk.stride(), y.stride()
+    vec = int(xk.data_ptr() % 16 == 0 and
+              all(v % 4 == 0 for v in (xs[0], xs[1], xs[3])) and
+              (q["twd"] % 4 == 0 or q["tiles_w"] == 1))
+    with _on_device(xk.device) as stream:
+        rc = _stem_tf32_lib().conv5_stem_tf32_launch(
+            xk.data_ptr(), wpk.data_ptr(), bias.data_ptr(),
+            None if epk is None else epk.data_ptr(), y.data_ptr(), q["th"],
+            q["twd"], q["tiles_w"], q["dc"], q["rowp"], q["slot"], q["rawp"],
+            vec, n, d, h, ww, y.shape[2], xs[0], xs[1], xs[3], ys[0], ys[2],
+            ys[1], ys[3], stream)
+    if rc != 0:
+        raise RuntimeError("conv5 f32 stem kernel launch failed: CUDA error "
+                           "{}".format(rc))
+
+
 def _tf32_launch(xk, w, b, epk, y, dgrad):
     """``conv5_tf32_kernel`` of the f32 ``xk`` [N, D, Ci, H, W] into the
     contiguous f32 ``y`` [N, D, Co, H, W]: the conv with ``w``, bias ``b``
@@ -833,7 +1091,8 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     the cotangent, ``b`` is None), which counts under ``conv5_dgrad`` (f32:
     ``conv5_dgrad_tf32``) in :data:`LAUNCHES` where a forward counts under
     its form (:func:`conv5_form`); ``form='stem'`` takes ``conv5_kernel``
-    where ``stem_tc_kernel`` would run, and ``form='head'`` takes it where
+    where ``stem_tc_kernel`` or ``stem_tf32_kernel`` would run, and
+    ``form='head'`` takes it where
     ``conv5_tf32_kernel`` would (an f32 head conv, forward or input
     gradient), to time the two side by side."""
     if xk.device.type != "cuda":
@@ -855,9 +1114,11 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
     key = form
     if dgrad:
         key = "dgrad_tf32" if form == "head_tf32" else "dgrad"
-    if form in ("stem_tc", "head_tf32"):
+    if form in ("stem_tc", "stem_tf32", "head_tf32"):
         if form == "stem_tc":
             _stem_tc_launch(xk, w, b, epk, y)
+        elif form == "stem_tf32":
+            _stem_tf32_launch(xk, w, b, epk, y)
         else:
             _tf32_launch(xk, w, b, epk, y, dgrad)
         LAUNCHES["conv5_" + key] += 1
@@ -865,9 +1126,9 @@ def _conv5_cuda(xk, w, b, kind, ep, dgrad=False, form=None):
             LAUNCHES["conv5_fused_epilogue"] += 1
         return y
     part = None
-    # bf16 head convs run on the tensor cores; stems wider than
-    # stem_tc_kernel's 16 channels (and f32 stems, and any conv forced to
-    # form 'head' / 'stem' in f32) on the CUDA cores
+    # bf16 head convs run on the tensor cores; stems wider than the stem
+    # kernels' 16 channels (and any conv forced to form 'head' / 'stem')
+    # on the CUDA cores
     if xk.dtype == torch.bfloat16 and kind == "head":
         q = _wg_geometry(n, d, h, ww, ci, co)
         if (q["smem"] > _SMEM_MAX // q["blocks_per_sm"]
@@ -1031,9 +1292,10 @@ def _tma_view(t):
 def conv5_wgrad_form(xk, gk, kind):
     """The weight-gradient kernel that takes these operands, named by its
     :data:`LAUNCHES` entry (``'conv5_wgrad_' + form``): for stems (``kind
-    = 'stem'``, Ci = 1) 'stem_tc' (bf16, Co <= 16:
-    ``stem_wgrad_tc_kernel``, any W-contiguous view) or 'stem'
-    (``wgrad_kernel``); for every other f32 conv 'tf32'
+    = 'stem'``, Ci = 1) with Co <= 16 'stem_tc' (bf16:
+    ``stem_wgrad_tc_kernel``) or 'stem_tf32' (f32:
+    ``stem_wgrad_tf32_kernel``), both at any W-contiguous view, and for
+    wider stems 'stem' (``wgrad_kernel``); for every other f32 conv 'tf32'
     (``wgrad_tf32_kernel``, any W-contiguous views); for bf16 narrow heads
     (Co <= 16) ``wgrad_head_tma_kernel``, 'head_tma' where a tensor copy
     can describe both views, else 'head_ragged' (its software producer);
@@ -1043,10 +1305,11 @@ def conv5_wgrad_form(xk, gk, kind):
     path is contiguous after :func:`pin_kl`: the cube's and the flagship's
     (W a multiple of 8) take 'stem_tc', 'head_tma' and 'tma'; the spine
     recipe's rows of W = 12, 9, 4 and 2 elements take 'ragged'; in f32 the
-    stem is 'stem' and every other conv 'tf32'."""
+    stem is 'stem_tf32' and every other conv 'tf32'."""
     if kind == "stem":
-        return ("stem_tc" if xk.dtype == torch.bfloat16 and
-                gk.shape[2] <= _STEM_CO else "stem")
+        if gk.shape[2] > _STEM_CO:
+            return "stem"
+        return "stem_tf32" if xk.dtype == torch.float32 else "stem_tc"
     if xk.dtype == torch.float32:
         return "tf32"
     copyable = _tma_view(xk) and _tma_view(gk)
@@ -1284,6 +1547,41 @@ def _stem_wgrad_tc_launch(xk, gk):
     return out
 
 
+def _stem_wgrad_tf32_launch(xk, gk):
+    """``stem_wgrad_tf32_kernel`` of the f32 ``xk`` [N, D, 1, H, W] and
+    ``gk`` [N, D, Co, H, W] -> f32 [5, 5, 5, 1, Co]."""
+    if xk.dtype != torch.float32 or gk.dtype != torch.float32:
+        raise TypeError("the f32 stem weight gradient takes float32, got {} "
+                        "and {}".format(xk.dtype, gk.dtype))
+    n, d, _, h, ww = xk.shape
+    co = gk.shape[2]
+    q = _stem_wgrad_tf32_geometry(n, d, h, ww)
+    if q["smem"] > _SMEM_MAX:
+        raise ValueError("f32 stem wgrad launch too large for {}: {}".format(
+            tuple(xk.shape), q))
+    out = torch.empty((K, K, K, 1, co), dtype=torch.float32,
+                      device=xk.device)
+    part = (torch.empty((q["blocks"], K * K * K * co), dtype=torch.float32,
+                        device=xk.device) if q["blocks"] > 1 else None)
+    xs, gs = xk.stride(), gk.stride()
+    # 16-byte g copies take 4 voxels of a row whole: W a multiple of 4 (a
+    # W slice of a wider row would read the row beyond it)
+    vec = int(ww % 4 == 0 and q["twd"] % 4 == 0 and
+              xk.data_ptr() % 16 == 0 and gk.data_ptr() % 16 == 0 and
+              all(v % 4 == 0 for v in (xs[0], xs[1], xs[3]) + gs[:4]))
+    with _on_device(xk.device) as stream:
+        rc = _stem_wgrad_tf32_lib().conv5_stem_wgrad_tf32_launch(
+            xk.data_ptr(), gk.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            q["th"], q["twd"], q["tiles_w"], q["dc"], q["per"], q["blocks"],
+            q["rowp"], q["slot"], q["rawp"], q["order"], vec, n, d, h, ww, co,
+            xs[0], xs[1], xs[3], gs[0], gs[2], gs[1], gs[3], stream)
+    if rc != 0:
+        raise RuntimeError("f32 stem wgrad kernel launch failed: CUDA error "
+                           "{}".format(rc))
+    return out
+
+
 def _wgrad_tf32_launch(xk, gk):
     """``wgrad_tf32_kernel`` of the f32 ``xk`` [N, D, Ci, H, W] and ``gk``
     [N, D, Co, H, W] -> f32 [5, 5, 5, Ci, Co]."""
@@ -1319,7 +1617,8 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     names; ``form='mid'`` / ``'head'`` takes ``wgrad_mma_kernel`` (bf16)
     where a tensor-copy kernel would run and ``wgrad_kernel`` (f32) where
     ``wgrad_tf32_kernel`` would, and ``form='stem'`` takes ``wgrad_kernel``
-    where ``stem_wgrad_tc_kernel`` would, to time the two side by side;
+    where ``stem_wgrad_tc_kernel`` or ``stem_wgrad_tf32_kernel`` would, to
+    time the two side by side;
     ``form='ragged'`` / ``'head_ragged'`` takes the software producer on a
     view a tensor copy could describe too (bf16 only)."""
     if xk.device.type != "cuda" or gk.device != xk.device:
@@ -1331,9 +1630,11 @@ def _conv5_wgrad_cuda(xk, gk, kind, form=None):
     n, d, ci, h, ww = xk.shape
     co = gk.shape[2]
     form = form or conv5_wgrad_form(xk, gk, kind)
-    if form in ("stem_tc", "tf32"):
-        out = (_stem_wgrad_tc_launch(xk, gk) if form == "stem_tc" else
-               _wgrad_tf32_launch(xk, gk))
+    if form in ("stem_tc", "stem_tf32", "tf32"):
+        launch = {"stem_tc": _stem_wgrad_tc_launch,
+                  "stem_tf32": _stem_wgrad_tf32_launch,
+                  "tf32": _wgrad_tf32_launch}[form]
+        out = launch(xk, gk)
         LAUNCHES["conv5_wgrad_" + form] += 1
         return out
     # bf16 on the tensor cores; f32, and the stem where forced, on the CUDA
@@ -1413,8 +1714,9 @@ def conv5_wgrad_kl(xk, gk, kind="head"):
     through ``wgrad_head_tma_kernel`` (rings fed by tensor copies, or by
     their software producer on views a tensor copy cannot describe:
     :func:`conv5_wgrad_form`), and the stem (Ci = 1, Co <= 16) through
-    ``stem_wgrad_tc_kernel``; f32 convs but the stem run on the tensor
-    cores in split TF32 (``wgrad_tf32_kernel``); f32 and wider bf16 stems
+    ``stem_wgrad_tc_kernel``; f32 convs run on the tensor cores in split
+    TF32 (``wgrad_tf32_kernel``; the stem ``stem_wgrad_tf32_kernel``); wider
+    stems
     run on the CUDA cores (``wgrad_kernel``); the voxel axis is reduced
     deterministically (partials and a second pass, no atomics).
 

@@ -5,7 +5,7 @@
 ``csrc/conv5_wgrad.cu``).
 
     python -m medicalseg_torch.tools.conv5_times [--wgrad | --wgrad-stem |
-        --ragged] [--variant SRC.cu]
+        --ragged | --stem-f32] [--variant SRC.cu]
 
 Builds ``conv5_wg`` (printing what ``-Xptxas -v`` says of each
 instantiation: registers, spills, wgmma warnings), then per shape holds
@@ -49,6 +49,16 @@ replaced), ``conv3d_weight``, the bound by bytes (x and g read once) and
 the geometry. ``--variant SRC.cu`` builds each candidate of
 ``conv5_stem_wgrad.cu`` (same C interface) and times it beside the built
 kernel with the same checks.
+
+``--stem-f32``: builds ``conv5_stem_tf32`` and ``conv5_stem_wgrad_tf32``
+(printing registers and spills), holds both split-TF32 stem kernels to
+their plain versions on small views (rows of 13 and 12, a base 4 bytes
+off, a channel slice, a halo'd H block, W over several tiles, Co 5), then
+at the f32 stem's two shapes (the cube's 2 x 128^3 and the upstream spine
+recipes' 3 x 512 x 512 x 12) prints each kernel's time and device time
+(graph replays) beside the kernel it replaced forced (``old``:
+``conv5_kernel``, ``wgrad_kernel``), cuDNN in strict f32 and with TF32 on,
+the bound and the geometry; ``--variant`` candidates of either source.
 
 ``--ragged``: builds ``conv5_wgrad_tma`` and ``conv5_wgrad`` (registers
 and spills), then holds the tensor-copy kernels' software producer (the
@@ -469,6 +479,177 @@ def wgrad_stem_main(variants):
         del x, g, ref
 
 
+# the f32 stem (1 -> 16) at its two main-path shapes: the upstream lung
+# recipe's cube and the upstream spine recipes' [N, D, 1, H, W]
+STEM_F32 = [("cube", (BATCH, 128, 128, 128)), ("spine", (3, 512, 512, 12))]
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s
+
+
+def stem_f32_views(gen):
+    """(name, x, g) small f32 stem views the kernels must take: rows of 13
+    and 12, a base 4 bytes into an allocation (x and g), a channel slice,
+    an H block behind a 2-row halo, W over several tiles, Co < 16."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = [("w13", rnd(2, 7, 1, 9, 13), rnd(2, 7, 16, 9, 13)),
+           ("w12_rows", rnd(1, 6, 1, 50, 12), rnd(1, 6, 16, 50, 12)),
+           ("w200", rnd(1, 5, 1, 11, 200), rnd(1, 5, 16, 11, 200)),
+           ("co5", rnd(1, 6, 1, 10, 40), rnd(1, 6, 5, 10, 40))]
+    fx, fg = rnd(1 * 6 * 10 * 24 + 1), rnd(6 * 16 * 10 * 24 + 1)
+    out.append(("odd_base", fx[1:].view(1, 6, 1, 10, 24),
+                fg[1:].view(1, 6, 16, 10, 24)))
+    out.append(("channel_slice", rnd(1, 6, 3, 10, 24)[:, :, 1:2],
+                rnd(1, 6, 20, 10, 24)[:, :, 2:18]))
+    x = rnd(2, 9, 1, 16, 32)
+    out.append(("halo_h", F.pad(x, (0, 0, 2, 2)), rnd(2, 9, 16, 20, 32)))
+    return out
+
+
+def stem_f32_main(variants):
+    """The f32 stem's forward (unfused and fused) and weight gradient: the
+    routed kernels (``stem_tf32_kernel``, ``stem_wgrad_tf32_kernel``) and
+    the kernels forced by ``form='stem'`` (``old``: ``conv5_kernel``,
+    ``wgrad_kernel``). First the small views of :func:`stem_f32_views`
+    against the plain versions; then at :data:`STEM_F32` host-timed and on
+    the device (``dev``: ten calls replayed from one CUDA graph), held to
+    the plain version (atol = rtol = 1e-4; dW scaled by its magnitude) and
+    to a repeat, beside ``F.conv3d`` / ``conv3d_weight`` in strict f32 and
+    with TF32 on, and the bound (three TF32 passes at 495 TF/s, or the
+    bytes). A ``--variant`` whose file name holds ``wgrad`` is a candidate
+    of ``conv5_stem_wgrad_tf32.cu``, any other of ``conv5_stem_tf32.cu``."""
+    print(torch.cuda.get_device_name(0))
+    ptxas_lines("conv5_stem_tf32", "stem_tf32")
+    ptxas_lines("conv5_stem_wgrad_tf32", "stem_wgrad_tf32")
+    built = {"fwd": c5._stem_tf32_lib, "wgrad": c5._stem_wgrad_tf32_lib}
+    fns = {"fwd": "conv5_stem_tf32_launch",
+           "wgrad": "conv5_stem_wgrad_tf32_launch"}
+    libs = []
+    for v in variants:
+        which = "wgrad" if "wgrad" in Path(v).name else "fwd"
+        libs.append((Path(v).name, which,
+                     build_variant(v, built[which](), (fns[which],))))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, x, g in stem_f32_views(gen):
+        co = g.shape[2]
+        k = torch.randn((5, 5, 5, 1, co), generator=gen,
+                        device=dev) / 125 ** .5
+        b = torch.randn((co,), generator=gen, device=dev)
+        got, ref = c5.conv5_kl_fused(x, k, b, (b.abs(), b, b.abs()), "stem"), \
+            c5.conv5_kl_plain(x, k, b, (b.abs(), b, b.abs()))
+        ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
+        w_ok = True
+        if g.shape[3] == x.shape[3]:
+            dw, dref = c5._conv5_wgrad_cuda(x, g, "stem"), \
+                c5.conv5_wgrad_kl_plain(x, g)
+            w_ok = ((dw - dref).abs() / (dref.abs().max() + dref.abs())
+                    ).max().item() <= 1e-4
+        print("view {:14s} {} {} forms {} {} agrees {} {}".format(
+            name, tuple(x.shape), x.stride(), c5.conv5_form(x, co, "stem"),
+            c5.conv5_wgrad_form(x, g, "stem"), ok, w_ok), flush=True)
+        if not (ok and w_ok):
+            sys.exit("conv5_times: the f32 stem disagrees at " + name)
+    for name, (n, d, h, w) in STEM_F32:
+        co = 16
+        x = torch.randn((n, d, 1, h, w), generator=gen, device=dev)
+        g = torch.randn((n, d, co, h, w), generator=gen, device=dev)
+        k = torch.randn((5, 5, 5, 1, co), generator=gen,
+                        device=dev) / 125 ** .5
+        b = torch.randn((co,), generator=gen, device=dev)
+        ep = (0.5 + torch.rand((co,), generator=gen, device=dev),
+              torch.randn((co,), generator=gen, device=dev),
+              torch.rand((co,), generator=gen, device=dev))
+        vox = n * d * h * w
+        flops = 2.0 * vox * 125 * co
+        bound = max(3 * flops / PEAK_TF32,
+                    vox * (1 + co) * 4 / PEAK_BYTES) * 1e3
+        xn, gn = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        ko = k.permute(4, 3, 0, 1, 2).contiguous()
+
+        def lib_tf32(fn):
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                return time_ms(fn)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+
+        def check_fwd(call, e_, what):
+            got, ref = call(), c5.conv5_kl_plain(x, k, b, e_)
+            err = (got - ref).abs().max().item()
+            ok = torch.allclose(got, ref, atol=1e-4, rtol=1e-4)
+            same = torch.equal(got, call())
+            if not (ok and same):
+                sys.exit("conv5_times: {} disagrees with its plain version "
+                         "({:.2e}) or does not repeat".format(what, err))
+            return err
+
+        for tag, e_ in (("fwd", None), ("fused", ep)):
+            def call(form=None, e_=e_):
+                return c5._conv5_cuda(x, k, b, "stem", e_, form=form)
+
+            err = check_fwd(call, e_, "the f32 stem")
+            lib = (lambda: F.conv3d(xn, ko, b, padding=2))
+            print("{:6s} {:5s} route {} {:.3f} dev {:.3f} old {:.3f} dev "
+                  "{:.3f} conv3d {:.3f} tf32 {:.3f} bound {:.4f} max_abs_err "
+                  "{:.2e} repeats True geometry {}".format(
+                      name, tag, c5.conv5_form(x, co, "stem"), time_ms(call),
+                      graph_ms(call), time_ms(lambda: call("stem")),
+                      graph_ms(lambda: call("stem")), time_ms(lib),
+                      lib_tf32(lib), bound, err,
+                      c5.conv5_stem_tf32_geometry(n, d, h, w)), flush=True)
+            for vname, which, vlib in libs:
+                if which != "fwd":
+                    continue
+                c5._stem_tf32_lib = lambda vlib=vlib: vlib
+                try:
+                    err = check_fwd(call, e_, vname)
+                    print("{:6s} {:5s} variant {} {:.3f} dev {:.3f} "
+                          "max_abs_err {:.2e}".format(
+                              name, tag, vname, time_ms(call), graph_ms(call),
+                              err), flush=True)
+                finally:
+                    c5._stem_tf32_lib = built["fwd"]
+
+        def wcall(form=None):
+            return c5._conv5_wgrad_cuda(x, g, "stem", form=form)
+
+        ref = c5.conv5_wgrad_kl_plain(x, g)
+
+        def check_w(what):
+            got = wcall()
+            err = ((got - ref).abs() / (ref.abs().max() + ref.abs())).max(
+                ).item()
+            if not (err <= 1e-4 and torch.equal(got, wcall())):
+                sys.exit("conv5_times: {} disagrees with its plain version "
+                         "({:.2e}) or does not repeat".format(what, err))
+            return err
+
+        err = check_w("the f32 stem's weight gradient")
+        lib = (lambda: torch.nn.grad.conv3d_weight(xn, (co, 1, 5, 5, 5), gn,
+                                                   padding=2))
+        print("{:6s} wgrad route {} {:.3f} dev {:.3f} old {:.3f} dev {:.3f} "
+              "conv3d_weight {:.3f} tf32 {:.3f} bound {:.4f} scaled_err "
+              "{:.2e} repeats True geometry {}".format(
+                  name, c5.conv5_wgrad_form(x, g, "stem"), time_ms(wcall),
+                  graph_ms(wcall), time_ms(lambda: wcall("stem")),
+                  graph_ms(lambda: wcall("stem")), time_ms(lib),
+                  lib_tf32(lib), bound, err,
+                  c5.conv5_wgrad_stem_tf32_geometry(n, d, h, w)), flush=True)
+        for vname, which, vlib in libs:
+            if which != "wgrad":
+                continue
+            c5._stem_wgrad_tf32_lib = lambda vlib=vlib: vlib
+            try:
+                err = check_w(vname)
+                print("{:6s} wgrad variant {} {:.3f} dev {:.3f} scaled_err "
+                      "{:.2e}".format(name, vname, time_ms(wcall),
+                                      graph_ms(wcall), err), flush=True)
+            finally:
+                c5._stem_wgrad_tf32_lib = built["wgrad"]
+        del x, g, xn, gn, ref
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--wgrad", action="store_true",
@@ -478,10 +659,16 @@ def main():
     parser.add_argument("--ragged", action="store_true",
                         help="time the software producer of the tensor-copy "
                         "weight gradients on ragged views instead")
+    parser.add_argument("--stem-f32", action="store_true",
+                        help="time the f32 stem, forward and weight "
+                        "gradient, instead")
     parser.add_argument("--variant", action="append", default=[],
                         help="a candidate conv5_stem.cu (with --wgrad: "
                         "conv5_wgrad_tma.cu, with --wgrad-stem: "
-                        "conv5_stem_wgrad.cu) to time beside the built one")
+                        "conv5_stem_wgrad.cu, with --stem-f32: "
+                        "conv5_stem_tf32.cu, or conv5_stem_wgrad_tf32.cu "
+                        "where its name holds 'wgrad') to time beside the "
+                        "built one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("conv5_times: no CUDA device")
@@ -493,6 +680,8 @@ def main():
         return wgrad_stem_main(args.variant)
     if args.ragged:
         return ragged_main()
+    if args.stem_f32:
+        return stem_f32_main(args.variant)
     print(torch.cuda.get_device_name(0))
     log = _build.build(["conv5_wg"])["conv5_wg"].with_suffix(".log")
     lines = log.read_text().splitlines()

@@ -9,9 +9,10 @@ of one machine only). Prints, per file in the order given, the per-shape
 forward and input-gradient times of the bf16 head convs (ms, packing
 apart where the run reports it, bound, library), the f32 forward, input
 and weight gradients beside the CUDA-core kernels they replaced and
-strict-f32 cuDNN, the bf16 weight gradients on ragged views, the pin
-views, the ``kernels`` line, and the serving and training numbers (the
-cube step and the f32 lung recipe's, old against new kernels, the
+strict-f32 cuDNN (the f32 stem also at the spine's, a halo'd and a
+ragged shape), the bf16 weight gradients on ragged views, the pin views,
+the ``kernels`` line, and the serving and training numbers (the cube step
+and the f32 lung and spine recipes', old against new kernels, the
 flagship's with and without its augmentation, the augmentation of each
 recipe alone and the train CLI's iterations), and the native reader's
 batch, device-cache and inflate times beside numpy's. To compare two
@@ -47,7 +48,8 @@ def load(path):
             elif phase == "kernels_bwd":
                 run["ragged"].append(d)
             elif phase in ("build", "serve", "serve_raw", "serve_swl",
-                           "train", "train_f32", "train_flagship", "augment",
+                           "train", "train_f32", "train_spine_f32",
+                           "train_flagship", "augment",
                            "train_cli", "native"):
                 run[phase] = d
             elif "kernels" in d:
@@ -147,15 +149,17 @@ def main(paths):
                   [round(v, 2) for v in t.get("ms_per_step_each", [])],
                   fmt(t.get("ms_per_step_no_remat"), 2),
                   json.dumps(t.get("profile"))))
-        f32 = run.get("train_f32", {})
-        for form in ("new", "old"):
-            r = f32.get(form)
-            if r:
-                print("train_f32 ({} kernels) ms/step {} device ms {} idle {} "
-                      "peak GB {}".format(form, fmt(r["ms_per_step"], 2),
-                                          fmt(r["device_ms"], 2),
-                                          fmt(r["idle_share"]),
-                                          fmt(r["peak_mem_gb"], 2)))
+        for phase in ("train_f32", "train_spine_f32"):
+            f32 = run.get(phase, {})
+            for form in ("new", "old_stems", "old"):
+                r = f32.get(form)
+                if r:
+                    print("{} ({} kernels) ms/step {} device ms {} idle {} "
+                          "peak GB {}".format(phase, form,
+                                              fmt(r["ms_per_step"], 2),
+                                              fmt(r["device_ms"], 2),
+                                              fmt(r["idle_share"]),
+                                              fmt(r["peak_mem_gb"], 2)))
         f = run.get("train_flagship", {})
         print("flagship ms/step {} {} patches/s {} peak GB {} profile "
               "{}".format(fmt(f.get("ms_per_step"), 2),

@@ -29,12 +29,18 @@ CONV5_KERNELS = ("conv5_wg_kernel", "conv5_reduce_kernel", "conv5_kernel",
                  "wgrad_kernel", "wgrad_mma_kernel", "wgrad_reduce_kernel",
                  "wgrad_tma_kernel", "wgrad_tma_reduce_kernel",
                  "wgrad_head_tma_kernel", "stem_tc_kernel",
-                 "stem_wgrad_tc_kernel", "stem_wgrad_reduce_kernel")
+                 "stem_wgrad_tc_kernel", "stem_wgrad_reduce_kernel",
+                 "conv5_tf32_kernel", "conv5_tf32_reduce_kernel",
+                 "wgrad_tf32_kernel", "wgrad_tf32_reduce_kernel",
+                 "stem_tf32_kernel", "stem_wgrad_tf32_kernel",
+                 "stem_wgrad_tf32_reduce_kernel")
 PIN_KERNELS = ("pin_vec_kernel", "pin_kernel")
 HU_KERNELS = ("hu_resize_kernel",)
 # the second kernel of a split sum: it belongs to the launch of the first
 REDUCE_KERNELS = ("conv5_reduce_kernel", "wgrad_reduce_kernel",
-                  "wgrad_tma_reduce_kernel", "stem_wgrad_reduce_kernel")
+                  "wgrad_tma_reduce_kernel", "stem_wgrad_reduce_kernel",
+                  "conv5_tf32_reduce_kernel", "wgrad_tf32_reduce_kernel",
+                  "stem_wgrad_tf32_reduce_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 NCCL = "nccl"
 _LIBRARY = ("cudnn", "cublas", "cutlass", "xmma", "gemm", "gemv",

@@ -83,7 +83,8 @@ def test_geometry_odd_shapes(n, d, h, w):
     (torch.bfloat16, "stem", 16, "stem_tc"),
     (torch.bfloat16, "stem", 1, "stem_tc"),
     (torch.bfloat16, "stem", 17, "stem"),
-    (torch.float32, "stem", 16, "stem"),
+    (torch.float32, "stem", 16, "stem_tf32"),
+    (torch.float32, "stem", 17, "stem"),
     (torch.bfloat16, "head", 16, "head"),
     (torch.float32, "head", 3, "head_tf32")])
 def test_gate_forms(dtype, kind, co, form):

@@ -116,7 +116,7 @@ def test_geometry_odd_shapes(n, d, h, w):
     (torch.bfloat16, "stem", 16, "stem_tc"),
     (torch.bfloat16, "stem", 1, "stem_tc"),
     (torch.bfloat16, "stem", 17, "stem"),
-    (torch.float32, "stem", 16, "stem"),
+    (torch.float32, "stem", 16, "stem_tf32"),
     (torch.bfloat16, "head", 16, "head_tma")])
 def test_gate_forms(dtype, kind, co, form):
     ci = 1 if kind == "stem" else 32

@@ -316,7 +316,7 @@ def _meta(shape, dtype=torch.float32):
     (torch.float32, "head", 32, 32, "head_tf32", "tf32"),
     (torch.float32, "head", 32, 3, "head_tf32", "tf32"),
     (torch.float32, "head", 256, 256, "head_tf32", "tf32"),
-    (torch.float32, "stem", 1, 16, "stem", "stem"),
+    (torch.float32, "stem", 1, 16, "stem_tf32", "stem_tf32"),
     (torch.bfloat16, "head", 32, 32, "head", "tma"),
     (torch.bfloat16, "stem", 1, 16, "stem_tc", "stem_tc")])
 def test_gate_forms(dtype, kind, ci, co, fwd, wgrad):
@@ -327,9 +327,9 @@ def test_gate_forms(dtype, kind, ci, co, fwd, wgrad):
 
 def test_gate_takes_ragged_f32_views():
     """The split-TF32 kernels stage x and g by 4-byte copies with zero fill,
-    so an f32 head conv takes them at any W-contiguous view: W = 13 rows,
-    a base 4 bytes into an allocation, a channel slice. Only the stem stays
-    on the CUDA cores."""
+    so an f32 conv takes them at any W-contiguous view: W = 13 rows, a base
+    4 bytes into an allocation, a channel slice; the stem too, on its own
+    split-TF32 kernels."""
     x = torch.zeros((1, 3, 8, 5, 13))
     flat = torch.zeros(x.numel() + 1)
     wide = torch.zeros((1, 3, 12, 5, 13))
@@ -337,14 +337,14 @@ def test_gate_takes_ragged_f32_views():
         assert c5.conv5_form(xv, 3, "head") == "head_tf32"
         assert c5.conv5_wgrad_form(xv, wide[:, :, :3], "head") == "tf32"
     assert c5.conv5_wgrad_form(torch.zeros((1, 3, 1, 5, 13)), x,
-                               "stem") == "stem"
+                               "stem") == "stem_tf32"
 
 
 def test_f32_vnet_step_hands_every_head_conv_to_the_new_kernels(monkeypatch):
     """An f32 V-Net forward and backward on the CPU, the wrappers recorded:
-    15 head convs 'head_tf32' and the stem 'stem'; 15 input gradients (the
-    stem's input is the image); 15 weight gradients 'tf32' and the stem's
-    'stem'."""
+    15 head convs 'head_tf32' and the stem 'stem_tf32'; 15 input gradients
+    (the stem's input is the image); 15 weight gradients 'tf32' and the
+    stem's 'stem_tf32'."""
     seen = {"fwd": [], "wgrad": []}
     fwd, wgrad = c5._conv5_forward, c5.conv5_wgrad_kl
 
@@ -362,8 +362,8 @@ def test_f32_vnet_step_hands_every_head_conv_to_the_new_kernels(monkeypatch):
     x = torch.from_numpy(np.random.RandomState(4).rand(
         1, 16, 16, 16, 1).astype(np.float32))
     model(x)[0].sum().backward()
-    assert sorted(seen["fwd"]) == ["head_tf32"] * 15 + ["stem"]
-    assert sorted(seen["wgrad"]) == ["stem"] + ["tf32"] * 15
+    assert sorted(seen["fwd"]) == ["head_tf32"] * 15 + ["stem_tf32"]
+    assert sorted(seen["wgrad"]) == ["stem_tf32"] + ["tf32"] * 15
 
 
 # ----------------------------------------------------------------------

@@ -132,7 +132,8 @@ def test_gate_sends_every_main_path_view_to_the_tma_kernel(ci, edge):
     ("narrow-head-w12", (2, 8, 32, 8, 12), 3, torch.bfloat16, "head",
      "head_ragged"),
     ("stem", (2, 8, 1, 8, 16), 16, torch.bfloat16, "stem", "stem_tc"),
-    ("stem-f32", (2, 8, 1, 8, 16), 16, torch.float32, "stem", "stem"),
+    ("stem-f32", (2, 8, 1, 8, 16), 16, torch.float32, "stem",
+     "stem_tf32"),
     ("co17", (1, 4, 5, 6, 8), 17, torch.bfloat16, "head", "tma")])
 def test_gate_forms(what, x_shape, co, dtype, kind, form):
     n, d, _, h, w = x_shape

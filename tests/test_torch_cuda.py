@@ -310,9 +310,10 @@ def test_conv5_wgrad_kernel_matches_plain(dev, kind, shape, co, dtype):
     # ragged ones (W = 100, W = 10, W = 3)
     copyable = (dtype == torch.bfloat16 and kind == "head" and
                 shape[4] % 8 == 0)
-    # bf16 stems take the tensor-core stem kernel, f32 stems wgrad_kernel;
-    # every other f32 conv the split-TF32 kernel (any W-contiguous view)
-    assert form == (("stem_tc" if dtype == torch.bfloat16 else "stem")
+    # bf16 stems take the tensor-core stem kernel, f32 stems the split-TF32
+    # stem kernel; every other f32 conv the split-TF32 kernel (any
+    # W-contiguous view)
+    assert form == (("stem_tc" if dtype == torch.bfloat16 else "stem_tf32")
                     if kind == "stem" else
                     "tf32" if dtype == torch.float32 else
                     ("head_tma" if copyable else "head_ragged") if co <= 16
@@ -450,6 +451,124 @@ def test_stem_wgrad_tc_kernel_reads_strided_views(dev):
     got = c5.conv5_wgrad_kl(wide[:, 1:7], view, "stem")
     assert c5.LAUNCHES["conv5_wgrad_stem_tc"] == 1
     _scaled_close(got, c5.conv5_wgrad_kl_plain(x, g), torch.bfloat16)
+
+
+# The f32 stem on the tensor cores in split TF32 (stem_tf32_kernel,
+# stem_wgrad_tf32_kernel): (what, [N, D, 1, H, W], Co) at the stem shapes
+# of the upstream lung recipe (128^3, batch 2) and spine recipes (512 x 512
+# x 12, batch 3), and small ragged ones (W < 16 with D < 5, W over several
+# tiles of each kernel, Co < 16, many depth chunks and blocks)
+STEM_TF32_CASES = [("cube", (2, 128, 1, 128, 128), 16),
+                   ("spine", (3, 512, 1, 512, 12), 16),
+                   ("w7-d3", (1, 3, 1, 5, 7), 16),
+                   ("h9-w40-co5", (2, 4, 1, 9, 40), 5),
+                   ("w200", (1, 6, 1, 11, 200), 16),
+                   ("chunks", (1, 40, 1, 8, 12), 16)]
+
+
+@pytest.mark.parametrize("what,shape,co", STEM_TF32_CASES,
+                         ids=[c[0] for c in STEM_TF32_CASES])
+def test_stem_tf32_kernels_match_plain_and_repeat(dev, what, shape, co):
+    """The f32 stem's forward, fused forward and weight gradient against
+    their plain versions (f32 1e-4; dW relative to its magnitude), each
+    counted under its own key, bit for bit on a second launch; the kernels
+    they replaced, forced, agree."""
+    x, w, b, ep = _conv_inputs(shape, co, dev, seed=17)
+    g = torch.from_numpy(np.random.RandomState(18).randn(
+        *shape[:2], co, *shape[3:]).astype(np.float32)).to(dev)
+    assert c5.conv5_form(x, co, "stem") == "stem_tf32"
+    assert c5.conv5_wgrad_form(x, g, "stem") == "stem_tf32"
+    calls = {"conv5_stem_tf32": (lambda: c5.conv5_kl(x, w, b, "stem"),
+                                 lambda: c5.conv5_kl_plain(x, w, b)),
+             "conv5_fused_epilogue": (
+                 lambda: c5.conv5_kl_fused(x, w, b, ep, "stem"),
+                 lambda: c5.conv5_kl_plain(x, w, b, ep)),
+             "conv5_wgrad_stem_tf32": (
+                 lambda: c5.conv5_wgrad_kl(x, g, "stem"),
+                 lambda: c5.conv5_wgrad_kl_plain(x, g))}
+    for key, (call, plain) in calls.items():
+        c5.reset_launches()
+        got = call()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in c5.LAUNCHES.items() if v}
+        want = {key: 1}
+        if key == "conv5_fused_epilogue":
+            want["conv5_stem_tf32"] = 1
+        assert launched == want
+        ref = plain()
+        if key == "conv5_wgrad_stem_tf32":
+            assert got.shape == (5, 5, 5, 1, co)
+            _scaled_close(got, ref, torch.float32)
+        else:
+            assert got.shape == (*shape[:2], co, *shape[3:])
+            _close(got, ref, torch.float32)
+        assert torch.equal(got, call())
+    _close(c5._conv5_cuda(x, w, b, "stem", ep, form="stem"),
+           c5.conv5_kl_plain(x, w, b, ep), torch.float32)
+    _scaled_close(c5._conv5_wgrad_cuda(x, g, "stem", form="stem"),
+                  c5.conv5_wgrad_kl_plain(x, g), torch.float32)
+
+
+@pytest.mark.parametrize("what", ["odd-base", "channel-slice", "halo-h",
+                                  "w13", "w-slice"])
+def test_stem_tf32_kernels_take_views(dev, what):
+    """Views the 16-byte copies cannot take or that the mesh hands them: x
+    and g from a base 4 bytes into an allocation, x and g channel slices
+    of wider tensors, an H block behind a 2-row halo on each side (g
+    zero-padded by 2 rows, as the backward pads it), rows of 13, and the
+    first 102 columns of rows 104 wide (16-byte copies whose last group
+    of a row holds 2 voxels of the view and 2 of the row beyond it)."""
+    x, w, b, ep = _conv_inputs((1, 6, 1, 10, 24), 16, dev, seed=19)
+    g = torch.randn((1, 6, 16, 10, 24), device=dev)
+    if what == "odd-base":
+        fx = torch.zeros(x.numel() + 1, device=dev)
+        fg = torch.zeros(g.numel() + 1, device=dev)
+        fx[1:].copy_(x.reshape(-1))
+        fg[1:].copy_(g.reshape(-1))
+        x, g = fx[1:].view(x.shape), fg[1:].view(g.shape)
+    elif what == "channel-slice":
+        x = torch.cat([x, x, x], 2)[:, :, 1:2]
+        g = torch.randn((1, 6, 20, 10, 24), device=dev)[:, :, 3:19]
+    elif what == "halo-h":
+        x = torch.nn.functional.pad(x, (0, 0, 2, 2))
+        g = torch.nn.functional.pad(g, (0, 0, 2, 2))
+    elif what == "w13":
+        x, w, b, ep = _conv_inputs((2, 5, 1, 9, 13), 16, dev, seed=20)
+        g = torch.randn((2, 5, 16, 9, 13), device=dev)
+    else:
+        x, w, b, ep = _conv_inputs((1, 6, 1, 10, 104), 16, dev, seed=22)
+        g = torch.randn((1, 6, 16, 10, 104), device=dev)
+        x, g = x[..., :102], g[..., :102]
+    c5.reset_launches()
+    _close(c5.conv5_kl_fused(x, w, b, ep, "stem"),
+           c5.conv5_kl_plain(x, w, b, ep), torch.float32)
+    _scaled_close(c5.conv5_wgrad_kl(x, g, "stem"),
+                  c5.conv5_wgrad_kl_plain(x, g), torch.float32)
+    assert (c5.LAUNCHES["conv5_stem_tf32"],
+            c5.LAUNCHES["conv5_wgrad_stem_tf32"]) == (1, 1)
+
+
+def test_stem_tf32_kernels_raise_on_what_they_cannot_take(dev):
+    """W not the contiguous axis raises; 17 output channels are the
+    CUDA-core kernels' by the gate, and forced onto the split-TF32 stem
+    kernels the launches are refused and the wrappers raise; bf16 forced
+    onto them raises; nothing falls back."""
+    x, w, b, _ = _conv_inputs((1, 4, 1, 8, 16), 17, dev, seed=21)
+    g = torch.randn((1, 4, 17, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        c5.conv5_kl(x.transpose(3, 4), w, b, "stem")
+    assert c5.conv5_form(x, 17, "stem") == "stem"
+    assert c5.conv5_wgrad_form(x, g, "stem") == "stem"
+    c5.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        c5._conv5_cuda(x, w, b, "stem", None, form="stem_tf32")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        c5._conv5_wgrad_cuda(x, g, "stem", form="stem_tf32")
+    with pytest.raises(TypeError, match="float32"):
+        c5._conv5_cuda(x.bfloat16(), w[..., :16], b[:16], "stem", None,
+                       form="stem_tf32")
+    assert c5.LAUNCHES["conv5_stem_tf32"] == 0
+    assert c5.LAUNCHES["conv5_wgrad_stem_tf32"] == 0
 
 
 def test_wgrad_head_tma_kernel_raises_on_a_view_it_cannot_take(dev):
@@ -689,7 +808,7 @@ def test_conv5_function_backward_on_the_card(dev):
     c5.reset_launches()
     c5.conv5_kl(xs, ws, b, "stem").sum().backward()
     assert c5.LAUNCHES["conv5_dgrad"] == 0
-    assert c5.LAUNCHES["conv5_wgrad_stem"] == 1
+    assert c5.LAUNCHES["conv5_wgrad_stem_tf32"] == 1
     with pytest.raises(RuntimeError, match="no backward"):
         c5.conv5_kl_fused(xs, ws, b, (b, b, b), "stem")
 
@@ -709,7 +828,7 @@ def test_launch_counts_one_per_kernel_launch(dev):
     xb, gb = x.bfloat16(), torch.randn((1, 4, 3, 8, 16), device=dev).bfloat16()
     c5.conv5_wgrad_kl(xb, gb)
     assert {k: v for k, v in c5.LAUNCHES.items() if v} == {
-        "conv5_head": 1, "conv5_head_tf32": 1, "conv5_stem": 1,
+        "conv5_head": 1, "conv5_head_tf32": 1, "conv5_stem_tf32": 1,
         "conv5_stem_tc": 2, "conv5_fused_epilogue": 3, "pin": 1,
         "conv5_wgrad_head_tma": 1}
 
@@ -796,8 +915,8 @@ def test_vnet_kernel_path_matches_plain_path(dev, monkeypatch):
             _plain_path(m)
             ref = model(x)[0]
     assert {k: v for k, v in launches.items() if v} == {
-        "conv5_head_tf32": 15, "conv5_stem": 1, "conv5_fused_epilogue": 16,
-        "pin": 8}
+        "conv5_head_tf32": 15, "conv5_stem_tf32": 1,
+        "conv5_fused_epilogue": 16, "pin": 8}
     assert got.shape == (2, 32, 32, 32, 3) and got.dtype == torch.float32
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-3)
 
@@ -838,10 +957,11 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     f32 = dtype == torch.float32
     assert c5.LAUNCHES["conv5_head_tf32" if f32 else "conv5_head"] == \
         15 * fwd
-    # the stem: stem_tc_kernel in bf16, conv5_kernel in f32
-    stem = "conv5_stem_tc" if dtype == torch.bfloat16 else "conv5_stem"
+    # the stem: stem_tc_kernel in bf16, stem_tf32_kernel in f32
+    stem = "conv5_stem_tc" if dtype == torch.bfloat16 else "conv5_stem_tf32"
     assert (c5.LAUNCHES[stem], c5.LAUNCHES["conv5_stem"] +
-            c5.LAUNCHES["conv5_stem_tc"]) == (fwd, fwd)
+            c5.LAUNCHES["conv5_stem_tc"] +
+            c5.LAUNCHES["conv5_stem_tf32"]) == (fwd, fwd)
     assert c5.LAUNCHES["conv5_dgrad_tf32" if f32 else "conv5_dgrad"] == 15
     # the 14 square and wide weight gradients: in bf16 the tensor-copy
     # kernel, fed by tensor copies where W is a multiple of 8 (7 convs at
@@ -849,12 +969,13 @@ def test_train_step_on_the_card_gives_every_parameter_a_gradient(
     # producer at W = 4 and 2; in f32, with the narrow head, the
     # split-TF32 kernel
     # the narrow head: its tensor-copy kernel in bf16 (W = 32)
-    # the stem: stem_wgrad_tc_kernel in bf16, the CUDA-core kernel in f32
+    # the stem: stem_wgrad_tc_kernel in bf16, stem_wgrad_tf32_kernel in f32
     wide = (0, 0) if f32 else (7, 7)
     head = (0, 0) if f32 else (0, 1)
-    stem = (1, 0) if f32 else (0, 1)
+    stem = (0, 0, 1) if f32 else (0, 1, 0)
     assert (c5.LAUNCHES["conv5_wgrad_stem"],
             c5.LAUNCHES["conv5_wgrad_stem_tc"],
+            c5.LAUNCHES["conv5_wgrad_stem_tf32"],
             c5.LAUNCHES["conv5_wgrad_head_ragged"],
             c5.LAUNCHES["conv5_wgrad_head_tma"],
             c5.LAUNCHES["conv5_wgrad_ragged"],
@@ -919,7 +1040,7 @@ def test_library_ops_and_an_exported_program_on_the_card(dev, tmp_path):
         got = module(vol)
         launches = {k: v for k, v in c5.LAUNCHES.items() if v}
         ref = model(vol)[0]
-    assert launches == {"conv5_head_tf32": 15, "conv5_stem": 1,
+    assert launches == {"conv5_head_tf32": 15, "conv5_stem_tf32": 1,
                         "conv5_fused_epilogue": 16, "pin": 8}
     assert torch.equal(got, ref)
 

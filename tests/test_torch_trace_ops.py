@@ -87,6 +87,14 @@ def test_reader_groups_a_synthetic_trace_per_step(tmp_path):
     ("void hu_resize_kernel<4>(short const*)", "hu_resize"),
     ("void stem_wgrad_tc_kernel<true>(bf16 const*)", "stem_wgrad_tc_kernel"),
     ("void wgrad_head_tma_kernel(float*)", "wgrad_head_tma_kernel"),
+    ("void (anonymous namespace)::conv5_tf32_kernel<4>(float const*)",
+     "conv5_tf32_kernel"),
+    ("void (anonymous namespace)::stem_tf32_kernel<true, true>(float*)",
+     "stem_tf32_kernel"),
+    ("void (anonymous namespace)::stem_wgrad_tf32_kernel<true>(float*)",
+     "stem_wgrad_tf32_kernel"),
+    ("void (anonymous namespace)::stem_wgrad_tf32_reduce_kernel(float*)",
+     "stem_wgrad_tf32_reduce_kernel"),
     ("cudnn::engines_precompiled::nchwToNhwcKernel", "cuDNN / cuBLAS"),
     ("void at::native::elementwise_kernel<128, 2>(int)", "elementwise"),
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<f>",
