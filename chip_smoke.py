@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It imports nothing of JAX or ``medicalseg_tpu``. Phases, each printing one
 JSON line; any failure raises and the script exits non-zero:
 
-1. device: require CUDA, print ``nvidia-smi``'s name and power limit, turn
-   TF32 off for the f32 references.
+1. device: require CUDA, print ``nvidia-smi``'s name and power limit, set
+   the port's f32 policy (``utils.strict_f32``: TF32 off) for the f32
+   references.
 2. build: compile ``medicalseg_torch/csrc/*.cu`` (one ``nvcc`` each, in
    parallel) and report the seconds.
 3. kernels: at every 5^3 conv shape of the 128^3 batch-2 V-Net forward,
@@ -132,7 +133,15 @@ JSON line; any failure raises and the script exits non-zero:
    (once), ``F.conv3d`` / ``conv3d_input`` / ``conv3d_weight``, the bound,
    the geometry, and at the ragged weight gradients the side columns
    above; their sum over a step is the ``conv5_wgrad_ragged`` entry of the
-   kernels line.
+   kernels line. The same nine convs in f32 (``spine_f32``): the
+   split-TF32 kernels' forward, input gradient and weight gradient, each
+   held to its plain version at 1e-4 (dW scaled), their times (median of
+   3), the plain versions' (once), strict-f32 ``F.conv3d`` /
+   ``conv3d_input`` / ``conv3d_weight`` (TF32 on as a side column), the
+   three-TF32-pass bound and the geometry, and the eval forward with its
+   BN affine + PReLU fused (``f32_fused_*``: held at 1e-4, timed); then
+   one ``spine_f32_step`` line, each pass summed over the convs of a
+   spine step.
 9. train: the lung ``_tpu`` config's model (bf16, per-block remat),
    optimizer, schedule and loss built by ``Config``, seeded init, batch 2
    at 128^3, seeded volumes and labels in {0, 1, 2}, through
@@ -204,6 +213,45 @@ JSON line; any failure raises and the script exits non-zero:
    device time by ``trace_ops`` category (the window whole, as in 9b), the
    peak memory; then the same with the stem's CUDA-core kernels forced in
    the same process (its counts exact too).
+9e. train_deepsup_spine_f32 (after 9d, in the same process): the
+   upstream f32 VNetDeepSup spine recipe
+   (``configs/mri_spine_seg/vnetdeepsup_mri_spine_seg_512_512_12_15k.yml``:
+   VNetDeepSup, 20 classes, float32, no remat, four MixedLoss heads, SGD
+   at LR 0.1 under a poly schedule; W runs 12 -> 9 -> 8 -> 4 -> 2 and the
+   heads sit at W = 4, 8, 9) built by ``Config`` at its batch of 3 on 9d's
+   seeded batch. Step 1 against the plain path from the same state and
+   masks (loss within 1e-5 relative, every leaf within
+   ``GRAD_REL_L2_F32``, ``Conv_0..2`` finite and non-zero); then one
+   untimed and three timed steps, each restarted from step 1's start
+   state (the recipe's LR of 0.1 diverges in a few steps, in the JAX
+   package too), the counts set to 0 just before the timed ones: exactly
+   9d's counts (the heads' 3^3 convs and upsamples add no hand kernel),
+   at least 8 pins a step; the three losses finite and equal (within
+   ``REPEAT_LOSS_REL``; whether bit for bit is printed). Prints the
+   median host ms, one profiled step's device ms, idle share and
+   ``trace_ops`` categories (a window holding every counted launch), the
+   peak memory, and 9d's f32 VNet step beside it with the differences;
+   then the f32 policy's cost: three steps under PyTorch's TF32 defaults
+   (cuDNN TF32 on), their median ms and the first one's loss and
+   gradients against the policy's. Eval: the recipe's model, seeded with
+   non-trivial BN statistics, on a seeded [1, 512, 512, 12, 1] volume
+   through ``core.infer.inference`` of its ``main_output``: exactly one
+   f32 eval forward's counts (the split-TF32 kernels with their
+   epilogues, 8 pins), no ``ConvHead`` run (a forward hook, fatal), the
+   logits equal to the four-output forward's first entry bit for bit
+   with cuDNN's deterministic algorithms (its default f32 ones for the
+   up/down convs need not repeat: two calls' difference printed), the
+   logits within ``EVAL_F32_TOL`` (atol and rtol) of the plain path's and
+   argmax agreement with it >= 99.5%; ms of the main output under
+   PyTorch's TF32 defaults and its difference from the policy's; ms and
+   peak of the main-output call and of the four-output call. CLI: four seeded [512,
+   512, 12] volumes in MRISpineSeg's phase0 layout under ``build/``; from
+   PyTorch's TF32 defaults (cuDNN on, matmul off) the train CLI on a copy
+   of the YAML pointed at them (``--iters 3 --save_interval 3 --log_iters
+   1 --do_eval``, the loader's default mode), then from the defaults again
+   the val CLI on ``iter_3``: both TF32 flags off after each, every logged
+   loss finite, the counts exact for three steps and eight eval forwards
+   (graph replays counted as in train_graph), no head run in eval mode.
 10. train_flagship: the flagship config
    (``configs/synthetic/vnetdeepsup_synspine_15k.yml``: VNetDeepSup,
    bf16, per-block remat, 20 classes, four MixedLoss heads, SGD with
@@ -448,6 +496,7 @@ from medicalseg_torch.transforms import (DeviceAugmentor,  # noqa: E402
 from medicalseg_torch.utils import checkpoint as ckpt  # noqa: E402
 from medicalseg_torch.utils import train_profiler  # noqa: E402
 from medicalseg_torch.utils.flops import forward_flops  # noqa: E402
+from medicalseg_torch.utils.utils import strict_f32  # noqa: E402
 from medicalseg_torch.tools import trace_ops  # noqa: E402
 from medicalseg_torch.tools.conv5_times import padded  # noqa: E402
 from medicalseg_torch.models.layers import ChannelDropout  # noqa: E402
@@ -478,6 +527,19 @@ SPINE_VOLUME = (512, 512, 12)  # D, H, W of its volumes as the model sees them
 # (train_spine_f32)
 SPINE_F32 = os.path.join(ROOT, "configs", "mri_spine_seg",
                          "vnet_mri_spine_seg_512_512_12_15k.yml")
+# the upstream f32 VNetDeepSup spine recipe: VNetDeepSup, 20 classes, four
+# MixedLoss heads, no dtype, no remat (train_deepsup_spine_f32)
+SPINE_DS_F32 = os.path.join(ROOT, "configs", "mri_spine_seg",
+                            "vnetdeepsup_mri_spine_seg_512_512_12_15k.yml")
+SPINE_CLI_VOLUMES = 4  # the volumes a spine CLI run writes
+# the deep-sup eval's logits on the routed kernels against the plain path's,
+# atol and rtol, f32 after 16 convs (4.7e-5 at most on an H100, logits up
+# to 10): a kernel wrong at one level is off by the logits' own scale
+EVAL_F32_TOL = 1e-3
+# its timed steps, each from step 1's start, against each other: cuDNN's
+# default f32 algorithms for the up/down convs need not repeat bit for bit
+# (two eval forwards differed by 3e-6 on an H100), so equal within 1e-6
+REPEAT_LOSS_REL = 1e-6
 # The 5^3 head convs of one spine forward at batch 3: (name, Ci, Co, [N, D,
 # H, W], convs a step). W of 9, 4, 2 and 12 gives rows a tensor copy cannot
 # describe; the two levels at W = 8 are the describable ones, for contrast.
@@ -781,18 +843,21 @@ def cudnn_tf32():
         torch.backends.cudnn.allow_tf32 = False
 
 
-def f32_columns(prefix, call, old_call, plain_ms, lib_call):
+def f32_columns(prefix, call, old_call, plain_ms, lib_call, reps=5):
     """The f32 columns of a conv, forward or backward: ``ms`` the routed
-    kernel, ``ms_old`` the CUDA-core kernel forced in the same process, the
-    plain version's time (``plain_ms``, the caller's single timing: it
-    takes up to seconds), the library call in strict f32 (``library_ms``)
-    and, as a side column, with TF32 on (``library_tf32_ms``)."""
-    cols = {"ms": time_ms(call), "ms_old": time_ms(old_call),
-            "plain_ms": plain_ms, "library_ms": time_ms(lib_call)}
+    kernel, ``ms_old`` the CUDA-core kernel forced in the same process
+    (none where ``old_call`` is None), the plain version's time
+    (``plain_ms``, the caller's single timing: it takes up to seconds), the
+    library call in strict f32 (``library_ms``) and, as a side column, with
+    TF32 on (``library_tf32_ms``); each the median of ``reps``."""
+    cols = {"ms": time_ms(call, reps), "plain_ms": plain_ms,
+            "library_ms": time_ms(lib_call, reps)}
     with cudnn_tf32():
-        cols["library_tf32_ms"] = time_ms(lib_call)
+        cols["library_tf32_ms"] = time_ms(lib_call, reps)
     cols["vs_library"] = cols["ms"] / cols["library_ms"]
-    cols["old_vs_library"] = cols["ms_old"] / cols["library_ms"]
+    if old_call is not None:
+        cols["ms_old"] = time_ms(old_call, reps)
+        cols["old_vs_library"] = cols["ms_old"] / cols["library_ms"]
     return {prefix + k: v for k, v in cols.items()}
 
 
@@ -995,8 +1060,7 @@ def phase_device():
         sys.exit(2)
     smi = smi_line()
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    strict_f32()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1009,21 +1073,23 @@ def phase_build():
           "libraries": [p.name for p in paths.values()]})
 
 
-def write_spine_phase0(wd):
-    """Four seeded 12 x 512 x 512 spine volumes (float32 in [0, 255]) and
-    labels in [0, 20) (uint8) as ``.npy`` with train and val lists under
-    ``wd/phase0``; returns that directory."""
+def write_spine_phase0(wd, shape=FLAGSHIP_STEM[1:], scale=255.0):
+    """Four seeded spine volumes of ``shape`` (float32 in [0, ``scale``);
+    the flagship's 12 x 512 x 512 in [0, 255] by default) and labels in
+    [0, 20) (uint8) as ``.npy`` with train and val lists under
+    ``wd/phase0`` (MRISpineSeg's phase0 layout); returns that
+    directory."""
     phase0 = os.path.join(wd, "phase0")
     for sub in ("images", "labels"):
         os.makedirs(os.path.join(phase0, sub))
     rng = np.random.RandomState(TRAIN_SEED)
     lines = []
-    for i in range(4):
+    for i in range(SPINE_CLI_VOLUMES):
         name = "spine{}.npy".format(i)
         np.save(os.path.join(phase0, "images", name),
-                (rng.rand(*FLAGSHIP_STEM[1:]) * 255).astype(np.float32))
+                (rng.rand(*shape) * scale).astype(np.float32))
         np.save(os.path.join(phase0, "labels", name),
-                rng.randint(0, 20, FLAGSHIP_STEM[1:]).astype(np.uint8))
+                rng.randint(0, 20, shape).astype(np.uint8))
         lines.append("images/{0} labels/{0}\n".format(name))
     for split in ("train", "val"):
         with open(os.path.join(phase0, split + "_list.txt"), "w") as f:
@@ -1464,8 +1530,11 @@ def spine_conv_rows(stats):
     ``conv3d_input``, ``conv3d_weight``), the bound and the geometry; for
     a ragged weight gradient also ``wgrad_mma_kernel<4>`` forced
     (``wgrad_old_ms``). The ragged weight gradients of one step are summed
-    into ``stats`` under their form."""
+    into ``stats`` under their form. Then each conv in f32
+    (:func:`spine_f32_row`), and one line of the f32 passes summed over a
+    spine step (``spine_f32_step``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
+    sums = {p: dict.fromkeys(SPINE_F32_SUMS, 0.0) for p in SPINE_F32_PASSES}
     for name, ci, co, (n, d, h, ww), count in SPINE_CONVS:
         x = torch.randn((n, d, ci, h, ww), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
@@ -1541,6 +1610,87 @@ def spine_conv_rows(stats):
             add_stats(stats, key, count, ms, plain, bound, by, lib)
         emit(line)
         del x, g, x_nc, g_nc
+        spine_f32_row(name, ci, co, (n, d, h, ww), count, gen, sums)
+    emit({"phase": "kernels_bwd", "spine_f32_step": sums,
+          "nvidia_smi": smi_line()})
+
+
+# the split-TF32 kernels' passes of the spine step, each summed over its
+# convs a step (SPINE_CONVS' counts)
+SPINE_F32_PASSES = ("f32", "dgrad_f32", "wgrad_f32")
+SPINE_F32_SUMS = ("ms", "plain_ms", "library_ms", "library_tf32_ms",
+                  "bound_ms")
+
+
+def spine_f32_row(name, ci, co, shape, count, gen, sums):
+    """One :data:`SPINE_CONVS` conv in f32 at full size: the split-TF32
+    kernels' forward, input gradient and weight gradient each held to its
+    plain version (1e-4; dW scaled by its magnitude), their times, the
+    plain versions' (once), strict-f32 ``F.conv3d`` / ``conv3d_input`` /
+    ``conv3d_weight`` with TF32 on as a side column, the bound in split
+    TF32 and the geometry; each pass's columns times the conv's count a
+    step added to ``sums``. Then the eval forward, its BN affine + PReLU
+    fused (``conv5_kl_fused``), held to its plain version at 1e-4 and
+    timed (``f32_fused_*``)."""
+    n, d, h, ww = shape
+    tol = TOL[torch.float32]
+    x = torch.randn((n, d, ci, h, ww), generator=gen, device="cuda")
+    g = torch.randn((n, d, co, h, ww), generator=gen, device="cuda")
+    w = torch.randn((5, 5, 5, ci, co), generator=gen,
+                    device="cuda") / (125 * ci) ** 0.5
+    b = torch.randn((co,), generator=gen, device="cuda")
+    x_nc, g_nc = (t.transpose(1, 2).contiguous() for t in (x, g))
+    w_o = w.permute(4, 3, 0, 1, 2).contiguous()
+    bound, by = conv_bound_ms(ci, co, n * d * h * ww, 4)
+    line = {"phase": "kernels_bwd", "spine_f32": name, "ci": ci, "co": co,
+            "shape": [n, d, ci, h, ww], "per_step": count,
+            "f32_bound_ms": bound, "f32_bound_by": by,
+            "f32_geometry": tf32_geometry(n, d, h, ww, ci, co),
+            "dgrad_f32_geometry": tf32_geometry(n, d, h, ww, co, ci),
+            "wgrad_f32_geometry": tf32_geometry(n, d, h, ww, ci, co, True)}
+    for prefix, call, plain, lib in (
+            ("f32_", lambda: c5.conv5_kl(x, w, b),
+             lambda: c5.conv5_kl_plain(x, w, b),
+             lambda: F.conv3d(x_nc, w_o, b, padding=2)),
+            ("dgrad_f32_", lambda: c5.conv5_dgrad_kl(g, w),
+             lambda: c5.conv5_dgrad_kl_plain(g, w),
+             lambda: torch.nn.grad.conv3d_input(x_nc.shape, w_o, g_nc,
+                                                padding=2)),
+            ("wgrad_f32_", lambda: c5.conv5_wgrad_kl(x, g),
+             lambda: c5.conv5_wgrad_kl_plain(x, g),
+             lambda: torch.nn.grad.conv3d_weight(x_nc, w_o.shape, g_nc,
+                                                 padding=2))):
+        got = call()
+        ref, plain_ms = timed_once(plain)
+        if prefix == "wgrad_f32_":
+            err = scaled_err(got, ref)
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+        else:
+            err = (got - ref).abs().max().item()
+            ok = torch.allclose(got, ref, atol=tol, rtol=tol)
+        check(ok, "spine {} {}disagrees with its plain version: error "
+              "{}".format(name, prefix, err))
+        del got, ref
+        cols = f32_columns(prefix, call, None, plain_ms, lib, reps=3)
+        cols[prefix + "err"] = err
+        line.update(cols)
+        key = prefix[:-1]
+        for col in SPINE_F32_SUMS:
+            value = bound if col == "bound_ms" else cols[prefix + col]
+            sums[key][col] += count * value
+    ep = (0.5 + torch.rand((co,), generator=gen, device="cuda"),
+          torch.randn((co,), generator=gen, device="cuda"),
+          torch.rand((co,), generator=gen, device="cuda"))
+    got = c5.conv5_kl_fused(x, w, b, ep)
+    ref = c5.conv5_kl_plain(x, w, b, ep)
+    err = (got - ref).abs().max().item()
+    check(torch.allclose(got, ref, atol=tol, rtol=tol), "spine {} fused f32 "
+          "forward disagrees with its plain version: max |d| {}".format(
+              name, err))
+    del got, ref
+    line.update(f32_fused_err=err, f32_fused_ms=time_ms(
+        lambda: c5.conv5_kl_fused(x, w, b, ep), 3))
+    emit(line)
 
 
 def wgrad_geometry(form, n, d, h, w, ci, co):
@@ -1858,9 +2008,9 @@ def plain_ops():
         hr._hu_resize_d_cuda = saved_hu
 
 
-def seeded_lung_model(model_cfg):
-    """The lung config's V-Net, a seeded init with non-trivial BN
-    statistics."""
+def seeded_model(model_cfg):
+    """The model of a config's model section, a seeded init with
+    non-trivial BN statistics."""
     gen = torch.Generator().manual_seed(0)
     model = build_model(model_cfg, generator=gen)
     for key, val in model.state_dict().items():
@@ -1872,11 +2022,11 @@ def seeded_lung_model(model_cfg):
 
 
 def write_deploy(workdir):
-    """model.pt (:func:`seeded_lung_model`) and two manifests in
+    """model.pt (:func:`seeded_model`) and two manifests in
     ``workdir``: deploy.yaml, and deploy_buckets.yaml with one 128^3 shape
     bucket."""
     model_cfg = Config(LUNG_TPU).dic["model"]
-    torch.save(seeded_lung_model(model_cfg).state_dict(),
+    torch.save(seeded_model(model_cfg).state_dict(),
                os.path.join(workdir, "model.pt"))
     import yaml
     deploy = {"model": "model.stablehlo", "params": "model.pt",
@@ -2899,6 +3049,82 @@ def spine_f32_step_counts(steps, old_stems=False):
     return expect
 
 
+def f32_spine_step(cfg, kind):
+    """An f32 spine recipe's step at its batch on the seeded [batch, 512,
+    512, 12, 1] batch with labels in [0, classes): (new_state, run).
+    ``new_state(weights)`` builds the seeded model (its weights replaced
+    by ``weights`` where given; fatal unless it is the f32 ``kind``
+    without remat) and its train state; ``run(state)`` takes one step, the
+    dropout generator re-seeded first: (loss, host ms)."""
+    mc = cfg.dic["model"]
+    batch, classes = cfg.batch_size, mc["num_classes"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    images = torch.rand((batch,) + SPINE_VOLUME + (1,), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, classes, (batch,) + SPINE_VOLUME,
+                           generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg.loss)
+
+    def new_state(weights=None):
+        model = build_model(mc, generator=torch.Generator().manual_seed(
+            TRAIN_SEED))
+        check(type(model).__name__ == kind and model.dtype == torch.float32
+              and not model.remat, "the recipe's model is not the f32 {} "
+              "without remat".format(kind))
+        if weights is not None:
+            model.load_state_dict(weights)
+        return TrainState.create(model, cfg.build_optimizer,
+                                 cfg.lr_scheduler, seed=TRAIN_SEED)
+
+    def run(state):
+        state.generator.manual_seed(TRAIN_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    return new_state, run
+
+
+def f32_step1_against_plain(state, new_state, run, start, what):
+    """Step 1 of ``state`` (from the weights ``start``) against the plain
+    path from the same state and masks: every leaf's gradient finite and
+    non-zero, the loss within 1e-5 relative, every leaf within
+    ``GRAD_REL_L2_F32``; fatal. Returns {loss1, loss_step1_plain_path,
+    plain_path_step_ms, worst_grad_rel_l2_vs_plain,
+    median_grad_rel_l2_vs_plain}."""
+    loss1, _ = run(state)
+    grads = {}
+    for name, p in state.model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and
+              p.grad.abs().sum().item() > 0, name + ": no finite, non-zero "
+              "gradient")
+        grads[name] = p.grad.clone()
+    ref = new_state(start)
+    with plain_ops():
+        c5.reset_launches()
+        loss1_plain, plain_ms = run(ref)
+        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    rels = grad_rel_l2(grads, {n: p.grad for n, p in
+                               ref.model.named_parameters()})
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    rel_sorted = sorted(rels.values())
+    check(abs(loss1 - loss1_plain) <= 1e-5 * abs(loss1_plain),
+          "{} step-1 loss {} vs plain path {}".format(what, loss1,
+                                                      loss1_plain))
+    check(worst[1] <= GRAD_REL_L2_F32, "{} gradient of {} differs from the "
+          "plain path's by {} relative L2".format(what, *worst))
+    del ref, grads
+    torch.cuda.empty_cache()
+    return {"loss1": loss1, "loss_step1_plain_path": loss1_plain,
+            "plain_path_step_ms": plain_ms,
+            "worst_grad_rel_l2_vs_plain": list(worst),
+            "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2]}
+
+
 def phase_train_spine_f32():
     """The upstream f32 spine recipe (``SPINE_F32``: VNet, 20 classes,
     float32, no remat, VALID down convs over W, so W runs 12 -> 9 -> 8 -> 4
@@ -2918,62 +3144,12 @@ def phase_train_spine_f32():
           cfg.batch_size == 3 and mc["kernel_size"][0] == [2, 2, 4] and
           mc["stride_size"][0] == [2, 2, 1], "f32 spine recipe changed")
     batch, classes = cfg.batch_size, mc["num_classes"]
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
-    images = torch.rand((batch,) + SPINE_VOLUME + (1,), generator=gen,
-                        device=dev)
-    labels = torch.randint(0, classes, (batch,) + SPINE_VOLUME,
-                           generator=gen, device=dev, dtype=torch.uint8)
-    step = make_train_step(cfg.loss)
-
-    def new_state(weights=None):
-        model = build_model(mc, generator=torch.Generator().manual_seed(
-            TRAIN_SEED))
-        if weights is not None:
-            model.load_state_dict(weights)
-        return TrainState.create(model, cfg.build_optimizer,
-                                 cfg.lr_scheduler, seed=TRAIN_SEED)
-
-    def run(state):
-        state.generator.manual_seed(TRAIN_SEED)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, metrics = step(state, images, labels)
-        torch.cuda.synchronize()
-        return metrics["loss"].item(), (time.perf_counter() - t0) * 1e3
-
+    new_state, run = f32_spine_step(cfg, "VNet")
     state = new_state()
-    model = state.model
-    check(type(model).__name__ == "VNet" and model.dtype == torch.float32
-          and not model.remat, "the f32 spine recipe's model is not the f32 "
-          "VNet without remat")
-    start = copy.deepcopy(model.state_dict())
-
-    # step 1 against the plain path from the same state and masks
-    loss1, _ = run(state)
-    grads = {}
-    for name, p in model.named_parameters():
-        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and
-              p.grad.abs().sum().item() > 0, name + ": no finite, non-zero "
-              "gradient")
-        grads[name] = p.grad.clone()
-    ref = new_state(start)
-    with plain_ops():
-        c5.reset_launches()
-        loss1_plain, plain_ms = run(ref)
-        check(not any(c5.LAUNCHES.values()), "the plain path launched a "
-              "kernel: {}".format(c5.LAUNCHES))
-    rels = grad_rel_l2(grads, {n: p.grad for n, p in
-                               ref.model.named_parameters()})
-    worst = max(rels.items(), key=lambda kv: kv[1])
-    rel_sorted = sorted(rels.values())
-    check(abs(loss1 - loss1_plain) <= 1e-5 * abs(loss1_plain),
-          "f32 spine step-1 loss {} vs plain path {}".format(loss1,
-                                                           loss1_plain))
-    check(worst[1] <= GRAD_REL_L2_F32, "f32 spine gradient of {} differs "
-          "from the plain path's by {} relative L2".format(*worst))
-    del ref, grads
-    torch.cuda.empty_cache()
+    start = copy.deepcopy(state.model.state_dict())
+    step1 = f32_step1_against_plain(state, new_state, run, start,
+                                    "f32 spine")
+    loss1 = step1.pop("loss1")
 
     def timed(old_stems):
         with (old_f32_kernels(stems_only=True) if old_stems else
@@ -3020,15 +3196,408 @@ def phase_train_spine_f32():
     emit({"phase": "train_spine_f32",
           "config": os.path.relpath(SPINE_F32, ROOT), "batch": batch,
           "shape": list(SPINE_VOLUME), "classes": classes,
-          "dtype": "float32", "remat": False, "losses": losses,
-          "loss_step1_plain_path": loss1_plain,
-          "worst_grad_rel_l2_vs_plain": list(worst),
-          "median_grad_rel_l2_vs_plain": rel_sorted[len(rel_sorted) // 2],
-          "plain_path_step_ms": plain_ms, "new": new, "old_stems": old,
+          "dtype": "float32", "remat": False, "losses": losses, **step1,
+          "new": new, "old_stems": old,
           "old_stems_over_new_ms": old["ms_per_step"] / new["ms_per_step"],
           "old_stems_minus_new_device_ms": minus(
               old["stems_device_ms"], new["stems_device_ms"]),
           "nvidia_smi": smi_line()})
+    return launches, new
+
+
+def f32_forward_counts(forwards):
+    """The launch counts ``forwards`` f32 eval forwards of a spine V-Net
+    imply (a VNetDeepSup's main output alone): 15 head convs and the stem
+    on the split-TF32 kernels, each with its epilogue fused, 8 pins."""
+    expect = {k: 0 for k in c5.LAUNCHES}
+    expect.update({"conv5_head_tf32": 15 * forwards,
+                   "conv5_stem_tf32": forwards,
+                   "conv5_fused_epilogue": 16 * forwards,
+                   "pin": 8 * forwards})
+    return expect
+
+
+class EvalHeads:
+    """Counts the forwards of deep-supervision heads (``ConvHead``) run in
+    eval mode, through a global forward hook, while entered; training
+    forwards, where the heads feed the losses, are counted apart."""
+
+    def __enter__(self):
+        from medicalseg_torch.models.vnet_deepsup import ConvHead
+        self.eval = self.train = 0
+
+        def hook(module, inputs, output):
+            if isinstance(module, ConvHead):
+                if module.training:
+                    self.train += 1
+                else:
+                    self.eval += 1
+
+        self._handle = torch.nn.modules.module.register_module_forward_hook(
+            hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._handle.remove()
+
+
+def tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def torch_tf32_defaults():
+    """PyTorch's own TF32 defaults (cuDNN on, matrix products off), as a
+    process that set nothing has them."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def tf32_default_steps(state, run, restart):
+    """The f32 policy's cost: one step from step 1's start under the
+    policy, then one untimed and three timed steps, each from that start,
+    under PyTorch's TF32 defaults (:func:`cudnn_tf32`; the matmul flag is
+    off in both): the median host ms against the policy's step, and the
+    TF32 step's loss and gradients against the policy's."""
+    restart()
+    loss, strict_ms = run(state)
+    strict = {n: p.grad.clone() for n, p in state.model.named_parameters()}
+    with cudnn_tf32():
+        restart()
+        loss_tf32, _ = run(state)
+        rels = grad_rel_l2({n: p.grad for n, p in
+                            state.model.named_parameters()}, strict)
+        steps = []
+        for _ in range(3):
+            restart()
+            steps.append(run(state)[1])
+    del strict
+    worst = max(rels.items(), key=lambda kv: kv[1])
+    ms = float(np.median(steps))
+    return {"ms_per_step": ms, "ms_per_step_each": steps,
+            "policy_ms_same_call": strict_ms,
+            "loss": loss_tf32, "loss_policy": loss,
+            "loss_rel_vs_policy": abs(loss_tf32 - loss) / abs(loss),
+            "worst_grad_rel_l2_vs_policy": list(worst),
+            "median_grad_rel_l2_vs_policy": sorted(
+                rels.values())[len(rels) // 2]}
+
+
+def deepsup_step_part(cfg, vnet):
+    """The step of :func:`phase_train_deepsup_spine_f32`: (its line's
+    fields, the launches of the three timed steps)."""
+    new_state, run = f32_spine_step(cfg, "VNetDeepSup")
+    state = new_state()
+    model = state.model
+    start = copy.deepcopy(model.state_dict())
+    opt_start = copy.deepcopy(state.optimizer.state_dict())
+
+    def restart():
+        """Step 1's start: weights, BatchNorm statistics, optimizer slots
+        (none yet) and step counter."""
+        model.load_state_dict(start)
+        state.optimizer.load_state_dict(opt_start)
+        state.step = 0
+
+    check(sum(n.startswith(("Conv_0.", "Conv_1.", "Conv_2."))
+              for n, _ in model.named_parameters()) == 6,
+          "the three heads are missing")
+    step1 = f32_step1_against_plain(state, new_state, run, start,
+                                    "deep-sup f32 spine")
+    loss1 = step1.pop("loss1")
+
+    # one untimed and three timed steps, each from step 1's start: the
+    # recipe's learning rate of 0.1 diverges within a few steps
+    restart()
+    loss_w, _ = run(state)
+    torch.cuda.reset_peak_memory_stats()
+    c5.reset_launches()
+    steps = []
+    for _ in range(3):
+        restart()
+        steps.append(run(state))
+    launches = dict(c5.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {k: v for k, v in launches.items() if k != "pin"}
+    want = spine_f32_step_counts(3)
+    check(got == want, "deep-sup f32 spine step launch counts {} != "
+          "expected {}".format(got, want))
+    check(launches["pin"] >= 3 * 8, "deep-sup f32 spine pin launches {} < "
+          "{}".format(launches["pin"], 3 * 8))
+    losses = [l for l, _ in steps]
+    check(all(np.isfinite(losses)) and
+          max(losses) - min(losses) <= REPEAT_LOSS_REL * abs(losses[0]),
+          "the timed deep-sup f32 spine steps' losses, each from step 1's "
+          "start, are not finite and equal: {}".format(losses))
+    profile = counted_profile(
+        lambda: run(state),
+        lambda fn, lead=False: (restart(), profile_trace(fn, lead))[1])
+    new = {"losses": [loss_w] + losses,
+           "ms_per_step": float(np.median([ms for _, ms in steps])),
+           "ms_per_step_each": [ms for _, ms in steps],
+           "device_ms": profile["device_busy_ms"],
+           "idle_share": profile["idle_share"], "peak_mem_gb": peak,
+           "launches_per_step": {k: v // 3 for k, v in launches.items()
+                                 if v},
+           "device_ms_by_category": profile["categories"],
+           "top_kernels": profile["top_kernels"],
+           "trace_windows": profile["trace_windows"],
+           "trace_whole": profile["whole"],
+           "trace_counts": None if profile["whole"] else [
+               profile["hand_counts"], profile["counted"]]}
+    new["pytorch_tf32_defaults"] = tf32_default_steps(state, run, restart)
+    cats = sorted(set(new["device_ms_by_category"]) |
+                  set(vnet["device_ms_by_category"]))
+    fields = {
+        "losses": [loss1] + new["losses"],
+        "timed_losses_bit_equal": len(set(losses)) == 1,
+        "timed_losses_equal_step1": losses[0] == loss1, **step1, "new": new,
+        "vnet_spine_f32": {k: vnet[k] for k in (
+            "ms_per_step", "device_ms", "idle_share", "peak_mem_gb",
+            "device_ms_by_category")},
+        "over_vnet_ms": new["ms_per_step"] / vnet["ms_per_step"],
+        "minus_vnet": {
+            "ms": new["ms_per_step"] - vnet["ms_per_step"],
+            "device_ms": minus(new["device_ms"], vnet["device_ms"]),
+            "peak_mem_gb": peak - vnet["peak_mem_gb"],
+            "device_ms_by_category": {c: minus(
+                new["device_ms_by_category"].get(c, 0.0),
+                vnet["device_ms_by_category"].get(c, 0.0)) for c in cats}}}
+    del state, model, start, opt_start
+    torch.cuda.empty_cache()
+    return fields, launches
+
+
+def deepsup_eval_part(mc):
+    """The eval of :func:`phase_train_deepsup_spine_f32`: its line's
+    fields."""
+    from medicalseg_torch.core import infer as core_infer
+    model = seeded_model(mc).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1)
+    vol = torch.rand((1,) + SPINE_VOLUME + (1,), generator=gen,
+                     device="cuda")
+
+    def main_call():
+        return core_infer.inference(model.main_output, vol)
+
+    def four():
+        with torch.inference_mode():
+            return model(vol)
+
+    with EvalHeads() as heads:
+        main_call()  # warm-up: packed weights
+        reset_counts()
+        pred, logit = main_call()
+        launches = dict(c5.LAUNCHES)
+        check(heads.eval == 0, "the eval forward ran {} deep-supervision "
+              "head(s)".format(heads.eval))
+        # cuDNN's f32 algorithms for the up/down convs need not repeat bit
+        # for bit; with deterministic ones the two calls must
+        repeat_err = (main_call()[1] - logit).abs().max().item()
+        torch.backends.cudnn.deterministic = True
+        try:
+            main = main_call()[1]
+            outs = four()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(heads.eval == 3, "the four-output call ran {} heads, not "
+              "3".format(heads.eval))
+    check(launches == f32_forward_counts(1), "deep-sup eval launch counts "
+          "{} != expected {}".format(launches, f32_forward_counts(1)))
+    same = torch.equal(outs[0], main)
+    check(same, "the main output differs from the four-output forward's "
+          "first entry by {} (cuDNN deterministic)".format(
+              (outs[0] - main).abs().max().item()))
+    check(tuple(logit.shape) == (1,) + SPINE_VOLUME + (mc["num_classes"],)
+          and bool(torch.isfinite(logit).all()), "deep-sup eval logits: "
+          "shape {} or non-finite".format(tuple(logit.shape)))
+    del outs, main
+    with plain_ops():
+        reset_counts()
+        plain_pred, plain_logit = main_call()
+        check(not any(c5.LAUNCHES.values()), "the plain eval launched a "
+              "kernel: {}".format(c5.LAUNCHES))
+    diff = (logit - plain_logit).abs()
+    max_abs = diff.max().item()
+    scale = plain_logit.abs().max().item()
+    check(torch.allclose(logit, plain_logit, atol=EVAL_F32_TOL,
+                         rtol=EVAL_F32_TOL), "deep-sup eval logits differ "
+          "from the plain path's by {} (|logit| up to {})".format(
+              max_abs, scale))
+    agree = (plain_pred == pred).float().mean().item()
+    check(agree >= 0.995, "deep-sup eval argmax agreement {} < 0.995 with "
+          "the plain path".format(agree))
+    del plain_pred, plain_logit, diff
+    # the f32 policy's cost at eval: the main output under PyTorch's TF32
+    # defaults (cudnn_tf32; the matmul flag is off in both)
+    with cudnn_tf32():
+        main_call()  # warm-up: cuDNN's TF32 algorithms
+        (tf32_pred, tf32_logit), tf32_ms = host_ms(main_call, reps=5,
+                                                   sync=True)
+    tf32 = {"ms": tf32_ms,
+            "max_abs_vs_policy": (tf32_logit - logit).abs().max().item(),
+            "argmax_agreement_vs_policy": (
+                tf32_pred == pred).float().mean().item()}
+    del pred, logit, tf32_pred, tf32_logit
+    cols = {}
+    for tag, call in (("main", main_call), ("four_outputs", four)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, ms = host_ms(call, reps=5, sync=True)
+        cols[tag] = {"ms": ms, "peak_gb": (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    del model, vol
+    torch.cuda.empty_cache()
+    return {"volume": [1] + list(SPINE_VOLUME) + [1],
+            "launches": {k: v for k, v in launches.items() if v},
+            "main_equals_four_outputs_first_cudnn_deterministic": same,
+            "main_repeat_max_abs_cudnn_default": repeat_err,
+            "logits_vs_plain": {"max_abs": max_abs,
+                                "plain_max_abs_logit": scale,
+                                "tol": EVAL_F32_TOL},
+            "argmax_agreement_vs_plain": agree,
+            "main_ms": cols["main"]["ms"],
+            "four_outputs_ms": cols["four_outputs"]["ms"],
+            "saved_ms": cols["four_outputs"]["ms"] - cols["main"]["ms"],
+            "main_peak_gb": cols["main"]["peak_gb"],
+            "four_outputs_peak_gb": cols["four_outputs"]["peak_gb"],
+            "saved_peak_gb": (cols["four_outputs"]["peak_gb"] -
+                              cols["main"]["peak_gb"]),
+            "main_pytorch_tf32_defaults": tf32}
+
+
+def deepsup_cli_part(mc):
+    """The CLI of :func:`phase_train_deepsup_spine_f32`: its line's
+    fields."""
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
+        # the upstream layout, [D, H, W] = [512, 512, 12], in [0, 1) (the
+        # range the recipe's prep's intensity normalization leaves)
+        write_spine_phase0(wd, SPINE_VOLUME, 1.0)
+        cfg = Config(SPINE_DS_F32).dic
+        cfg["data_root"] = wd
+        for key in ("train_dataset", "val_dataset"):
+            cfg[key]["dataset_root"] = "phase0"
+            cfg[key]["result_dir"] = "phase1"
+        cfg["val_dataset"]["dataset_json_path"] = ""
+        yml = os.path.join(wd, "spine_deepsup.yml")
+        import yaml
+        with open(yml, "w") as f:
+            yaml.safe_dump(cfg, f)
+        out = os.path.join(wd, "out")
+        reset_counts()
+        flags = {}
+        with EvalHeads() as heads, CachedSteps() as built:
+            torch_tf32_defaults()
+            flags["before"] = tf32_flags()
+            with TrainLog("[TRAIN]", "[EVAL]", "TrainLoader mode") as log:
+                t0 = time.perf_counter()
+                first = train_cli.main(train_cli.parse_args([
+                    "--config", yml, "--iters", "3", "--save_interval", "3",
+                    "--log_iters", "1", "--save_dir", out, "--seed",
+                    str(TRAIN_SEED), "--do_eval"]))
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            flags["after_train"] = tf32_flags()
+            check(first.step == 3 and os.path.isdir(os.path.join(
+                out, "iter_3")), "the deep-sup CLI left step {}".format(
+                    first.step))
+            del first
+            torch.cuda.empty_cache()
+            train_eval_heads, train_heads = heads.eval, heads.train
+            torch_tf32_defaults()
+            with TrainLog("[EVAL]") as vlog:
+                t0 = time.perf_counter()
+                result = val_cli.main(val_cli.parse_args([
+                    "--config", yml, "--model_path", os.path.join(
+                        out, "iter_3", ckpt.MODEL_FILE), "--save_dir",
+                    os.path.join(wd, "val")]))
+                torch.cuda.synchronize()
+                val_s = time.perf_counter() - t0
+            flags["after_val"] = tf32_flags()
+        torch.cuda.empty_cache()
+    check(flags["before"] == (True, False) and
+          flags["after_train"] == flags["after_val"] == (False, False),
+          "TF32 flags (cuDNN, matmul) {}: the CLIs did not set the f32 "
+          "policy".format(flags))
+    check(heads.eval == 0, "the CLIs' evaluations ran {} deep-supervision "
+          "head(s)".format(heads.eval))
+    launches = dict(c5.LAUNCHES)
+    replays = [step.graphed.replays for step in built.steps]
+    for step in built.steps:
+        for k, v in step.graphed.launches.items():
+            launches[k] += (step.graphed.replays - 1) * v
+    forwards = 2 * SPINE_CLI_VOLUMES  # --do_eval at 3, then the val CLI
+    at_eval = f32_forward_counts(forwards)
+    want = {k: v + at_eval[k] for k, v in spine_f32_step_counts(3).items()}
+    got = {k: launches[k] for k in want}
+    check(got == want, "deep-sup CLI launch counts {} != expected {} (three "
+          "steps, {} eval forwards)".format(got, want, forwards))
+    check(launches["pin"] >= 3 * 8 + 8 * forwards, "deep-sup CLI pin "
+          "launches {} < {}".format(launches["pin"], 3 * 8 + 8 * forwards))
+    train_lines = [ln for ln in log.lines if "[TRAIN]" in ln]
+    losses = [TrainLog.field(ln, "loss") for ln in train_lines]
+    check(len(losses) == 3 and all(np.isfinite(losses)), "deep-sup CLI "
+          "losses: {}".format(train_lines))
+    evals = [ln for ln in log.lines + vlog.lines if "#Images" in ln]
+    check(len(evals) == 2 and np.isfinite(result["mdice"]),
+          "deep-sup CLI evaluations: {}".format(evals))
+    return {"tf32_flags_cudnn_matmul": flags, "losses": losses,
+            "loader": [ln for ln in log.lines if "TrainLoader mode" in ln],
+            "graph_replays": replays, "train_heads_forwards": train_heads,
+            "eval_heads_forwards": heads.eval,
+            "eval_heads_forwards_in_train_cli": train_eval_heads,
+            "evals": evals, "val_result": result,
+            "train_s": train_s, "val_s": val_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_train_deepsup_spine_f32(vnet):
+    """The upstream f32 VNetDeepSup spine recipe (``SPINE_DS_F32``:
+    VNetDeepSup, 20 classes, float32, no remat, four MixedLoss heads,
+    VALID down convs over W, so W runs 12 -> 9 -> 8 -> 4 -> 2 and the
+    heads sit at W = 4, 8, 9) built by ``Config`` at its batch of 3 on a
+    seeded [3, 512, 512, 12, 1] batch with labels in [0, 20): step 1
+    against the plain path from the same state and masks (loss within 1e-5
+    relative, every leaf within ``GRAD_REL_L2_F32``, the heads'
+    ``Conv_0..2`` finite and non-zero); then one untimed and three timed
+    steps, each restarted from step 1's start (the recipe's LR of 0.1
+    diverges), with the counts set to 0 just before the timed ones
+    (exactly :func:`spine_f32_step_counts`: the heads add no hand kernel;
+    at least 8 pins a step), their losses finite and equal, and one
+    profiled step whose window holds every counted launch (device ms,
+    idle share, ``trace_ops`` categories); beside ``vnet``, the f32 VNet
+    spine step of :func:`phase_train_spine_f32` in this process; the same
+    step under PyTorch's TF32 defaults (:func:`tf32_default_steps`). Then
+    the eval (:func:`deepsup_eval_part`: the recipe's model seeded with
+    non-trivial BN statistics on a seeded [1, 512, 512, 12, 1] volume
+    through ``core.infer.inference``: exact eval counts, no head run, the
+    main output equal to the four-output forward's first entry, the logits
+    within ``EVAL_F32_TOL`` of the plain path's and argmax agreement with
+    it >= 99.5%, the main output under TF32 defaults, ms and peak of both
+    calls) and
+    the CLI (:func:`deepsup_cli_part`: from PyTorch's TF32 defaults the
+    train CLI, three iterations with ``--do_eval``, and the val CLI on
+    ``iter_3``, over four seeded [512, 512, 12] volumes: the flags off
+    after each, exact counts, finite losses, no head run at eval)."""
+    cfg = Config(SPINE_DS_F32)
+    mc = cfg.dic["model"]
+    check(mc["type"] == "VNetDeepSup" and "dtype" not in mc and
+          not mc.get("remat") and mc["num_classes"] == 20 and
+          cfg.batch_size == 3 and mc["kernel_size"][0] == [2, 2, 4] and
+          mc["stride_size"][0] == [2, 2, 1] and
+          len(cfg.loss["types"]) == 4, "deep-sup f32 spine recipe changed")
+    fields, launches = deepsup_step_part(cfg, vnet)
+    line = {"phase": "train_deepsup_spine_f32",
+            "config": os.path.relpath(SPINE_DS_F32, ROOT),
+            "batch": cfg.batch_size, "shape": list(SPINE_VOLUME),
+            "classes": mc["num_classes"], "dtype": "float32",
+            "remat": False, "lr": cfg.lr_scheduler(0)}
+    line.update(fields)
+    line["eval"] = deepsup_eval_part(mc)
+    line["cli"] = deepsup_cli_part(mc)
+    line["nvidia_smi"] = smi_line()
+    emit(line)
     return launches
 
 
@@ -3673,7 +4242,7 @@ def phase_eval():
         with open(yml, "w") as f:
             yaml.safe_dump(cfg, f)
         weights = os.path.join(wd, "weights")
-        ckpt.save_checkpoint(weights, seeded_lung_model(cfg["model"]))
+        ckpt.save_checkpoint(weights, seeded_model(cfg["model"]))
         model_path = os.path.join(weights, ckpt.MODEL_FILE)
 
         for mode, extra in EVAL_RUNS:
@@ -4924,11 +5493,16 @@ def main():
     launches.update({k: f32_launches[k] for k in F32_KERNELS})
     spine_launches = phase_train_spine()
     launches.update({k: spine_launches[k] for k in SPINE_KERNELS})
-    spine_f32 = phase_train_spine_f32()
+    spine_f32, vnet_step = phase_train_spine_f32()
     torch.cuda.empty_cache()  # its 25-30 GB, kept by the allocator
     for key in F32_KERNELS:
         check(spine_f32[key] > 0, key + " never launched on the f32 spine "
               "recipe's path")
+    deepsup_f32 = phase_train_deepsup_spine_f32(vnet_step)
+    torch.cuda.empty_cache()
+    for key in F32_KERNELS:
+        check(deepsup_f32[key] > 0, key + " never launched on the f32 "
+              "deep-sup spine recipe's path")
     phase_augment()
     flagship = phase_train_flagship()
     phase_train_graph()

@@ -7,8 +7,6 @@ original (d, h, w) and argmax. Sliding-window inference lives in
 :mod:`medicalseg_torch.core.sliding_window`.
 """
 
-import collections.abc
-
 import torch
 
 from ..ops.resize import resize3d_batch
@@ -42,12 +40,13 @@ def reverse_transform(logit, ori_shape, transforms, order=1):
     return logit
 
 
-def inference(model, im, ori_shape=None, transforms=None):
+def inference(forward, im, ori_shape=None, transforms=None):
     """Run the model and reverse-resize to the original shape.
 
     Args:
-        model: the eval-mode module; ``model(im)`` returns a sequence whose
-            first entry is the logits.
+        forward: the logits of a batch, ``forward(im)`` [N, D, H, W, C]:
+            an eval-mode model's ``main_output`` (a deep-supervision model
+            then runs none of its auxiliary heads).
         im: [N, D, H, W, C] input batch.
         ori_shape: original (d, h, w) or None.
         transforms: transform list used at load time.
@@ -56,12 +55,7 @@ def inference(model, im, ori_shape=None, transforms=None):
         (pred [N, D, H, W] int32, logit [N, D, H, W, C]).
     """
     with torch.inference_mode():
-        logits = model(im)
-        if not isinstance(logits, collections.abc.Sequence):
-            raise TypeError(
-                "The type of logits must be one of collections.abc.Sequence,"
-                " e.g. list, tuple. But received {}".format(type(logits)))
-        logit = logits[0]
+        logit = forward(im)
         if ori_shape is not None and \
                 tuple(ori_shape) != tuple(logit.shape[1:4]):
             logit = reverse_transform(logit, ori_shape, transforms or [],

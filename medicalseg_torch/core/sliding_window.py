@@ -9,9 +9,10 @@ is added into ``acc`` and ``weight`` on its own (slice ``+=``), one after
 another: never one scatter with duplicate indices. The accumulators are
 float32 on the volume's device and are updated in place.
 
-``model`` is called as ``model(windows)[0]`` with windows [B, d, h, w, C]
-and must return logits [B, d, h, w, num_classes]; the caller puts it in
-eval mode. The loop runs under ``torch.inference_mode()``.
+``forward`` is called on windows [B, d, h, w, C] and must return logits
+[B, d, h, w, num_classes] (an eval-mode model's ``main_output``; the
+caller puts the model in eval mode). The loop runs under
+``torch.inference_mode()``.
 """
 
 from typing import Callable, Sequence
@@ -50,13 +51,13 @@ def gaussian_importance(roi_dhw, sigma_scale=0.125, dtype=torch.float32,
     return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
-def sliding_window_inference_batched(model: Callable, volumes,
+def sliding_window_inference_batched(forward: Callable, volumes,
                                      roi_size: Sequence[int],
                                      num_classes: int, overlap=0.25,
                                      window_batch=4, blend="gaussian"):
     """Sliding-window inference over a batch of same-shape volumes: the
-    windows of all volumes stream through the model ``window_batch`` at a
-    time, so a forward mixes windows across volumes.
+    windows of all volumes stream through ``forward`` ``window_batch`` at
+    a time, so a forward mixes windows across volumes.
 
     Args:
         volumes: [N, D, H, W, C] tensor.
@@ -98,7 +99,7 @@ def sliding_window_inference_batched(model: Callable, volumes,
         for b in range(0, len(grid), window_batch):
             batch = grid[b:b + window_batch]
             windows = torch.stack([volumes[box(*s)] for s in batch])
-            logits = model(windows)[0].to(torch.float32) * importance
+            logits = forward(windows).to(torch.float32) * importance
             for i, s in enumerate(batch):
                 acc[box(*s)] += logits[i]
                 weight[box(*s)] += importance
@@ -106,11 +107,11 @@ def sliding_window_inference_batched(model: Callable, volumes,
     return out[:, :d, :h, :w]
 
 
-def sliding_window_inference(model: Callable, volume, roi_size,
+def sliding_window_inference(forward: Callable, volume, roi_size,
                              num_classes, overlap=0.25, window_batch=4,
                              blend="gaussian"):
     """Whole-volume logits by tiled window inference: ``volume``
     [D, H, W, C] -> [D, H, W, num_classes] float32."""
     return sliding_window_inference_batched(
-        model, volume[None], roi_size, num_classes, overlap, window_batch,
+        forward, volume[None], roi_size, num_classes, overlap, window_batch,
         blend)[0]

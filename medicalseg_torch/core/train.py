@@ -94,6 +94,15 @@ BEST_DIR = "best_model"
 BEST_JSON = "best.json"
 
 
+def _make_save_dir(save_dir):
+    """``save_dir`` as a directory, a file of that name removed first.
+    Every rank of a mesh calls this at once: a directory another rank
+    makes between this rank's look and its ``makedirs`` is kept."""
+    if os.path.isfile(save_dir):
+        os.remove(save_dir)
+    os.makedirs(save_dir, exist_ok=True)
+
+
 def train(model,
           train_dataset,
           val_dataset=None,
@@ -161,10 +170,7 @@ def train(model,
     state = TrainState.create(model, optimizer, lr_scheduler, seed=seed,
                               device=device, capturable_optimizer=dispatched)
     state.step = resume(state.model, state.optimizer, resume_model)
-    if not os.path.isdir(save_dir):
-        if os.path.exists(save_dir):
-            os.remove(save_dir)
-        os.makedirs(save_dir, exist_ok=True)
+    _make_save_dir(save_dir)
 
     log_writer = None
     if use_vdl and mesh.primary:

@@ -4,9 +4,10 @@
 Counterpart of ``medicalseg_tpu/core/val.py`` (the reference's
 medicalseg/core/val.py:29-187) on one device: a batch-size-1 pass over the
 val set; per volume an eval-mode forward on the model's device (whole
-volume, or the sliding window with ``sw_num``) with the logits resized
-back to the label's shape, the loss and per-channel dice of the config's
-first loss, and the argmax's per-class areas; optional AUC-ROC over the
+volume, or the sliding window with ``sw_num``; the model's
+``main_output`` alone) with the logits resized back to the label's
+shape, the loss and per-channel dice of the config's first loss, and the
+argmax's per-class areas; optional AUC-ROC over the
 softmax probabilities; the first five volumes dumped as ``.npy`` and
 ``.nii.gz`` with their dataset.json geometry; a progress bar; and the
 result ``{"mdice", "mdice_hard"[, "auc_roc"]}`` with the per-class dice
@@ -47,15 +48,16 @@ from .sliding_window import sliding_window_inference_batched
 DUMPED = 5  # volumes dumped to save_dir
 
 
-def _logits(model, ims, ori_shape, dataset, sw_num):
+def _logits(forward, ims, ori_shape, dataset, sw_num):
     """(pred [1, D, H, W] int32, logit [1, D, H, W, C]) of one volume at
-    the label's shape ``ori_shape``."""
+    the label's shape ``ori_shape``; ``forward`` gives a batch's
+    logits."""
     if not sw_num:
-        return infer.inference(model, ims, ori_shape=ori_shape,
+        return infer.inference(forward, ims, ori_shape=ori_shape,
                                transforms=dataset.transforms.transforms)
     roi = tuple(max(1, s // int(sw_num)) for s in ims.shape[1:4])
     logit = sliding_window_inference_batched(
-        model, ims, roi, num_classes=dataset.num_classes)
+        forward, ims, roi, num_classes=dataset.num_classes)
     if tuple(ori_shape) != tuple(logit.shape[1:4]):
         logit = infer.reverse_transform(logit, ori_shape,
                                         dataset.transforms.transforms)
@@ -80,16 +82,16 @@ def _image_infor(dataset, dataset_json, idx):
 
 class _SpaceSharded:
     """The eval forward of a whole volume with its H axis sharded over the
-    space ranks of ``mesh``: the rank's H block through ``model`` under
-    the mesh, and the logits gathered back whole."""
+    space ranks of ``mesh``: the rank's H block through ``model``'s main
+    output under the mesh, and the logits gathered back whole."""
 
     def __init__(self, model, mesh):
         self.model, self.mesh = model, mesh
 
-    def __call__(self, ims):
+    def main_output(self, ims):
         with use_mesh(self.mesh):
-            logits = self.model(self.mesh.keep_h(ims))
-        return [gather_h(logits[0], self.mesh, axis=2)]
+            logits = self.model.main_output(self.mesh.keep_h(ims))
+        return gather_h(logits, self.mesh, axis=2)
 
 
 def evaluate(state,
@@ -123,7 +125,8 @@ def evaluate(state,
     # a space rank's sums repeat its data index's first rank's
     counts = not sharded or mesh.s == 0
     forward = (_SpaceSharded(model, mesh)
-               if sharded and mesh.space > 1 and not sw_num else model)
+               if sharded and mesh.space > 1 and not sw_num
+               else model).main_output
     loader = EvalLoader(eval_dataset, start=lo, stop=hi)
     total_iters = len(loader)
 

@@ -78,7 +78,7 @@ from ..cvlibs import manager
 from ..cvlibs.config import DTYPES, build_model
 from ..utils import get_image_list, logger, quant, strtobool, transplant
 from ..utils.msgpack_codec import unpackb
-from ..utils.utils import resolve_device
+from ..utils.utils import resolve_device, strict_f32
 
 # int8 names the weights' storage; its compute dtype is bf16
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16,
@@ -199,12 +199,27 @@ class TimeLogger:
                         stage, 1000 * np.mean(times), len(times)))
 
 
+class _MainOutput(torch.nn.Module):
+    """``net.main_output`` as a module's forward, for
+    ``torch.func.functional_call``; its ``state_dict`` names are ``net``'s
+    under ``net.``."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        return self.net.main_output(x)
+
+
 class Predictor:
-    """Runs the deployed model over a list of volumes."""
+    """Runs the deployed model over a list of volumes. Building one sets
+    the port's f32 policy (``utils.strict_f32``)."""
 
     window_batch = 4  # windows per forward of the sliding-window mode
 
     def __init__(self, args):
+        strict_f32()
         self.args = args
         self.cfg = DeployConfig(args.config)
         self.timer = TimeLogger()
@@ -298,13 +313,15 @@ class Predictor:
             torch.cuda.synchronize(self.device)
 
     def _model_call(self, x):
-        """``model(x)``; with int8 weights, through the state dequantized
-        for this call."""
-        model = self.model
+        """The logits of ``x``: the model's ``main_output`` (a
+        deep-supervision model runs no auxiliary head); with int8 weights,
+        through the state dequantized for this call."""
         if self._qstate is None:
-            return model(x)
+            return self.model.main_output(x)
         state = quant.dequantize_state_dict(self._qstate, self._transposed)
-        return torch.func.functional_call(model, state, (x,))
+        return torch.func.functional_call(
+            _MainOutput(self.model),
+            {"net." + k: v for k, v in state.items()}, (x,))
 
     def _output(self, logits):
         if self.cfg.output_op == "softmax":
@@ -323,7 +340,7 @@ class Predictor:
             x = torch.as_tensor(batch).to(self.device)
             if program is not None:
                 return program(x).cpu().numpy()
-            return self._output(self._model_call(x)[0])
+            return self._output(self._model_call(x))
 
     # ------------------------------------------------------------------
     # shape-bucket routing

@@ -82,7 +82,8 @@ def parse_args(argv=None):
 
 
 class SavedSegmentationNet(nn.Module):
-    """The model's first output with the output op: softmax over classes
+    """The model's ``main_output`` (a deep-supervision model's heads are
+    not in the graph) with the output op: softmax over classes
     (``with_softmax``), then argmax to int32 (``with_argmax``). Its
     ``state_dict`` names are the model's under ``net.``."""
 
@@ -93,7 +94,7 @@ class SavedSegmentationNet(nn.Module):
         self.with_argmax = with_argmax
 
     def forward(self, x):
-        logits = self.net(x)[0]
+        logits = self.net.main_output(x)
         if self.with_softmax:
             logits = torch.softmax(logits, dim=-1)
         if self.with_argmax:
@@ -113,9 +114,11 @@ def export_program(net, sample, path):
 
 def main(args):
     from .cvlibs import Config
-    from .utils import load_entire_model, logger, resolve_device
+    from .utils import (load_entire_model, logger, resolve_device,
+                        strict_f32)
     from .utils.checkpoint import save_checkpoint
 
+    strict_f32()
     device = resolve_device(args.device)
     cfg = Config(args.cfg)
     model = cfg.model

@@ -8,7 +8,8 @@ UpTransitions with transposed-conv upsample and skip concat, and the
 OutputTransition head), the same per-stage anisotropic
 ``kernel_size``/``stride_size`` with VALID shape math, and the same
 contract: ``forward`` takes NDHWC [N, D, H, W, C_in] and returns
-``[logits]``, logits NDHWC [N, D, H, W, num_classes] in float32.
+``[logits]``, logits NDHWC [N, D, H, W, num_classes] in float32;
+``main_output`` returns the logits alone.
 
 Inside, every tensor is in the kernel layout [N, D, C, H, W]. Every 5^3
 conv goes through the conv5 kernel; at eval each conv's BatchNorm and
@@ -232,7 +233,13 @@ class VNet(nn.Module):
         out = run(self.up_tr32, up1, out16, lv[1::-1])
         return out, [(up3, lv[3]), (up2, lv[2]), (up1, lv[1])]
 
-    def forward(self, x):
+    def main_output(self, x):
+        """The logits alone, ``forward(x)[0]`` bit for bit: the trunk and
+        out_tr, and no other head (a subclass's deep-supervision heads are
+        not run). The eval, serving and export paths call this."""
         xk = c5.pin_kl(c5.to_kl(x.to(self.dtype)))
         out, _ = self.trunk(xk)
-        return [c5.from_kl(self.block_runner()(self.out_tr, out)).float()]
+        return c5.from_kl(self.block_runner()(self.out_tr, out)).float()
+
+    def forward(self, x):
+        return [self.main_output(x)]

@@ -11,7 +11,11 @@ trilinearly upsampled (half-pixel convention,
 size. ``forward`` takes NDHWC [N, D, H, W, C_in] and returns ``[out, d1,
 d2, d3]``, each NDHWC [N, D, H, W, num_classes] in float32, the order the
 4-way loss ``coef`` of the flagship config
-(``configs/synthetic/vnetdeepsup_synspine_15k.yml``) expects.
+(``configs/synthetic/vnetdeepsup_synspine_15k.yml``) expects, in training
+and at eval alike, as the JAX model does. ``main_output`` (VNet's) returns
+``out`` alone and runs neither a head nor an upsample: evaluation, serving
+and export take it, where the JAX package leaves XLA to drop the three
+unused outputs of its traced call.
 
 The heads run in the compute dtype through cuDNN's ``conv3d``, as the JAX
 package runs them through XLA's convolution: no Pallas kernel covers a 3^3

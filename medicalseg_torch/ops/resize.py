@@ -86,11 +86,14 @@ def _halfpixel_on(in_size, out_size, dtype, device):
     """:func:`_linear_matrix_halfpixel` kept on ``device``: uploaded by
     the first call of a shape through pinned memory (no host sync), so
     that later calls copy nothing from the host (a CUDA graph of the train
-    step cannot capture that copy)."""
-    mat = _linear_matrix_halfpixel(in_size, out_size, dtype)
-    if torch.device(device).type == "cpu":
-        return mat
-    return mat.pin_memory().to(device, non_blocking=True)
+    step cannot capture that copy). Built outside inference mode, so that
+    a first call under ``torch.inference_mode()`` (an eval forward) leaves
+    a matrix that a later train step can save for its backward."""
+    with torch.inference_mode(False):
+        mat = _linear_matrix_halfpixel(in_size, out_size, dtype)
+        if torch.device(device).type == "cpu":
+            return mat
+        return mat.pin_memory().to(device, non_blocking=True)
 
 
 @functools.lru_cache(maxsize=64)
@@ -98,13 +101,16 @@ def _halfpixel_shard_on(in_size, out_size, space, s, dtype, device):
     """Shard ``s`` of ``space`` of :func:`_linear_matrix_halfpixel` for a
     global (``out_size``, ``in_size``) resize: its output rows, and its
     input rows with one halo row on each side (zero columns beyond the
-    volume's edges), [out / space, in / space + 2], kept on ``device``."""
-    mat = F.pad(_linear_matrix_halfpixel(in_size, out_size, dtype), (1, 1))
-    ho, hi = out_size // space, in_size // space
-    mat = mat[s * ho:(s + 1) * ho, s * hi:s * hi + hi + 2].contiguous()
-    if torch.device(device).type == "cpu":
-        return mat
-    return mat.pin_memory().to(device, non_blocking=True)
+    volume's edges), [out / space, in / space + 2], kept on ``device``
+    (built outside inference mode, as :func:`_halfpixel_on`'s)."""
+    with torch.inference_mode(False):
+        mat = F.pad(_linear_matrix_halfpixel(in_size, out_size, dtype),
+                    (1, 1))
+        ho, hi = out_size // space, in_size // space
+        mat = mat[s * ho:(s + 1) * ho, s * hi:s * hi + hi + 2].contiguous()
+        if torch.device(device).type == "cpu":
+            return mat
+        return mat.pin_memory().to(device, non_blocking=True)
 
 
 def upsample_trilinear_batch(x, size, mesh=None):

@@ -139,8 +139,10 @@ def main(args):
     from .core.train import train
     from .cvlibs import Config
     from .parallel import init_from_env
-    from .utils import config_check, get_sys_env, logger, seed_all
+    from .utils import (config_check, get_sys_env, logger, seed_all,
+                        strict_f32)
 
+    strict_f32()
     device, _ = init_from_env(args.device)
     if args.seed is not None:
         seed_all(args.seed)

@@ -9,11 +9,12 @@ from .progbar import Progbar
 from .timer import TimeAverager, calculate_eta
 from .transplant import flax_from_state_dict, state_dict_from_flax
 from .utils import (get_image_list, get_sys_env, resolve_device, save_array,
-                    seed_all, strtobool)
+                    seed_all, strict_f32, strtobool)
 
 __all__ = ["logger", "loss_utils", "metric", "quant", "transplant",
            "visualize", "env", "state_dict_from_flax", "flax_from_state_dict",
            "get_image_list", "resolve_device", "strtobool", "seed_all",
+           "strict_f32",
            "get_sys_env", "save_array", "Progbar", "TimeAverager",
            "calculate_eta", "config_check", "save_checkpoint",
            "save_checkpoint_async", "wait_pending_checkpoints",

@@ -81,6 +81,19 @@ def resolve_device(name: str = "cuda") -> torch.device:
     return device
 
 
+def strict_f32():
+    """The float32 policy the port's f32 route is built and checked for:
+    cuDNN's convolutions and float32 matrix products in full float32
+    (``allow_tf32`` False for both; PyTorch's default leaves cuDNN's on,
+    and TF32 keeps a 10-bit mantissa). The hand kernels keep f32 accuracy
+    in split TF32 whatever these flags say; the flags govern what runs
+    through cuDNN and cuBLAS beside them (the up/down convs, the
+    deep-supervision heads). bf16 operands are not affected. Every entry
+    point calls this at its start; it sets process-wide flags."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def seed_all(seed=None):
     """Seed python's, numpy's and torch's global generators (the
     reference's train.py:120-123); a no-op for None."""

@@ -78,8 +78,10 @@ def main(args):
     from .cvlibs import Config
     from .parallel import build_mesh, init_from_env
     from .utils import config_check, get_sys_env, load_entire_model, logger
+    from .utils import strict_f32
     from .utils.quant import round_trip_parameters
 
+    strict_f32()
     device, _ = init_from_env(args.device)
     info = ["{}: {}".format(k, v) for k, v in get_sys_env().items()]
     logger.info("\n".join(["", format("Environment Information", "-^48s")] +

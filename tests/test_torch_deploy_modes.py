@@ -213,7 +213,8 @@ def test_sliding_window_mode_through_both_runners(deployed, jax_runner,
         assert got.dtype == ref.dtype == np.int32
         assert (got == ref).mean() >= 0.999
     third = tsw.sliding_window_inference(
-        pred.model, pred._preprocess(scans[2])[0], (16, 16, 16), 3)
+        pred.model.main_output, pred._preprocess(scans[2])[0], (16, 16, 16),
+        3)
     np.testing.assert_array_equal(np.load(outs[2]),
                                   third.argmax(-1).numpy())
 

@@ -82,8 +82,8 @@ def test_sliding_window_matches_jax_on_vnet(nets, blend):
         jmodel.apply, variables, jnp.asarray(vol), ROI, num_classes=3,
         overlap=0.25, window_batch=3, blend=blend))
     got = tsw.sliding_window_inference(
-        model, torch.from_numpy(vol), ROI, num_classes=3, overlap=0.25,
-        window_batch=3, blend=blend)
+        model.main_output, torch.from_numpy(vol), ROI, num_classes=3,
+        overlap=0.25, window_batch=3, blend=blend)
     assert tuple(got.shape) == (20, 16, 24, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
 
@@ -98,14 +98,14 @@ def test_batched_sliding_window_pads_small_volumes_like_jax(nets):
         jmodel.apply, variables, jnp.asarray(vols), ROI, num_classes=3,
         overlap=0.25, window_batch=3))
     got = tsw.sliding_window_inference_batched(
-        model, torch.from_numpy(vols), ROI, num_classes=3, overlap=0.25,
-        window_batch=3)
+        model.main_output, torch.from_numpy(vols), ROI, num_classes=3,
+        overlap=0.25, window_batch=3)
     assert tuple(got.shape) == (2, 12, 16, 20, 3)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
     for i in range(2):
         single = tsw.sliding_window_inference(
-            model, torch.from_numpy(vols[i]), ROI, num_classes=3,
-            overlap=0.25, window_batch=4)
+            model.main_output, torch.from_numpy(vols[i]), ROI,
+            num_classes=3, overlap=0.25, window_batch=4)
         np.testing.assert_allclose(got[i].numpy(), single.numpy(), atol=1e-5)
 
 
@@ -115,7 +115,8 @@ def test_one_flush_window_is_the_direct_forward(nets):
         np.random.RandomState(3).rand(*ROI, 1).astype(np.float32))
     with torch.inference_mode():
         direct = model(vol[None])[0][0]
-    tiled = tsw.sliding_window_inference(model, vol, ROI, num_classes=3)
+    tiled = tsw.sliding_window_inference(model.main_output, vol, ROI,
+                                         num_classes=3)
     # as in the JAX package the weight is floored at 1e-8, above the
     # Gaussian's value in the window's far corners: there a voxel that only
     # one window covers keeps its logits' signs and order, scaled down
@@ -124,8 +125,8 @@ def test_one_flush_window_is_the_direct_forward(nets):
     np.testing.assert_allclose(tiled[inner].numpy(), direct[inner].numpy(),
                                atol=1e-5)
     assert torch.equal(tiled.argmax(-1), direct.argmax(-1))
-    flat = tsw.sliding_window_inference(model, vol, ROI, num_classes=3,
-                                        blend="constant")
+    flat = tsw.sliding_window_inference(model.main_output, vol, ROI,
+                                        num_classes=3, blend="constant")
     np.testing.assert_allclose(flat.numpy(), direct.numpy(), atol=1e-6)
 
 
@@ -135,11 +136,11 @@ def test_overlapping_windows_of_one_batch_all_count():
     leave its weight out and show."""
     class Pointwise(torch.nn.Module):
         def forward(self, x):
-            return [torch.cat([2 * x + 1, -x, x * x], dim=-1)]
+            return torch.cat([2 * x + 1, -x, x * x], dim=-1)
 
     vol = torch.from_numpy(
         np.random.RandomState(4).rand(20, 20, 20, 1).astype(np.float32))
-    full = Pointwise()(vol[None])[0][0]
+    full = Pointwise()(vol[None])[0]
     for blend in ("gaussian", "constant"):
         tiled = tsw.sliding_window_inference(
             Pointwise(), vol, (8, 8, 8), num_classes=3, overlap=0.5,
@@ -174,8 +175,8 @@ def test_inference_matches_jax(nets):
     im = np.random.RandomState(7).rand(1, *ROI, 1).astype(np.float32)
     transforms = [Resize3D(16)]
     for ori in (None, (20, 18, 16)):
-        pred, logit = tinfer.inference(model, torch.from_numpy(im), ori,
-                                       transforms)
+        pred, logit = tinfer.inference(model.main_output,
+                                       torch.from_numpy(im), ori, transforms)
         jpred, jlogit = jinfer.inference(jmodel.apply, variables,
                                          jnp.asarray(im), ori, transforms)
         assert pred.dtype == torch.int32
@@ -183,5 +184,3 @@ def test_inference_matches_jax(nets):
         np.testing.assert_allclose(logit.numpy(), np.asarray(jlogit),
                                    atol=2e-4)
         assert (pred.numpy() == np.asarray(jpred)).mean() >= 0.999
-    with pytest.raises(TypeError):
-        tinfer.inference(lambda x: x, torch.from_numpy(im))

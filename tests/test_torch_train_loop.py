@@ -252,6 +252,34 @@ def _state_numbers(state):
             state.step)
 
 
+def test_save_dir_made_by_another_rank_meanwhile_is_kept(tmp_path,
+                                                         monkeypatch):
+    """Every rank prepares ``save_dir`` at once: where another rank makes
+    the directory just after this one first looked (the first ``stat`` of
+    the path finds nothing, and the directory exists from then on), the
+    directory is kept, not removed as a stray file; a stray file is
+    replaced by a directory."""
+    save_dir = str(tmp_path / "out")
+    real_stat, looked = os.stat, []
+
+    def stat(path, *args, **kwargs):
+        if os.fspath(path) == save_dir and not looked:
+            looked.append(path)
+            os.mkdir(save_dir)  # the other rank
+            raise FileNotFoundError(path)
+        return real_stat(path, *args, **kwargs)
+
+    monkeypatch.setattr(os, "stat", stat)
+    core_train = sys.modules["medicalseg_torch.core.train"]
+    core_train._make_save_dir(save_dir)
+    assert looked and os.path.isdir(save_dir)
+    monkeypatch.undo()
+    stray = str(tmp_path / "stray")
+    open(stray, "w").close()
+    core_train._make_save_dir(stray)
+    assert os.path.isdir(stray)
+
+
 @pytest.mark.parametrize("async_checkpoint", [False, True],
                          ids=["sync", "async"])
 def test_train_saves_evicts_and_resumes_exactly(tmp_path, spine_data,
